@@ -1,0 +1,377 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one GPU and check every kernel.
+
+    python3 chip_smoke.py          # from the root of a checkout, one card
+
+1. Prints the card, its power limit, and the torch and CUDA versions.
+2. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``.
+3. Holds each kernel against its plain PyTorch version on the card at
+   ragged shapes (exact equality: every output is an integer).
+4. Runs the main path at full width: a 2^27-token Zipfian stream over
+   Qwen2's vocabulary (σ = 151,936, 18 levels), 128 shards of 2^20,
+   τ = 8, sample rate 512; the build through the kernels, checked leaf for
+   leaf against the plain build on the card; 4,096 range quantiles through
+   the sharded quantile kernel, all checked against the plain descent and
+   32 against numpy, and the same batch of range counts, 32 checked
+   against numpy. Launch counts are zeroed just before this run and read
+   just after it; each kernel must have launched.
+5. Times each kernel by CUDA events at the main path's shapes beside its
+   plain version and its bound, and prints the ``kernels`` JSON line.
+
+Exits non-zero on any failure; prints no result without a CUDA device or
+outside a checkout. The last line is the ``{"ok": true, ...}`` object.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+N_TOKENS = 1 << 27
+SIGMA = 151_936               # Qwen2's tokenizer vocabulary
+SHARD_BITS = 20
+TAU = 8
+SAMPLE_RATE = 512
+NUM_QUERIES = 4096
+NUM_NUMPY_CHECKS = 32
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
+INT32_OPS_PER_S = 16.7e12     # H100 SXM simple int32 ops on the CUDA cores:
+#                               132 SMs x 64 INT32 lanes x 1.98 GHz boost
+#                               (NVIDIA H100 Tensor Core GPU Architecture
+#                               whitepaper, SM and clock tables)
+PROBE_BYTES = 4 + 2 + 16      # superblock entry, block entry, four words
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of ``fn`` over ``reps`` calls (CUDA
+    events, after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(got, want) -> int:
+    """Largest absolute difference over matching tensors (exact = 0)."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            fail(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA device")
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"{ROOT} is not a checkout of the repository (src/repro_torch "
+             f"is missing)")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.analytics.engine import (build_sharded_analytics,
+                                              local_ranges,
+                                              sharded_range_quantile)
+    from repro_torch.core import bitops
+    from repro_torch.core.wavelet_matrix import (build_wavelet_matrix,
+                                                 wm_child_interval,
+                                                 wm_interval_zeros)
+    from repro_torch.data import make_corpus
+    from repro_torch.kernels import build, ops, rank_build, ref, wm_level
+    from repro_torch.kernels import wm_quantile
+    from repro_torch.launch.analytics import make_queries
+    from repro_torch.tree import tree_map, tree_named_leaves
+
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"device: {kind} (count {count}); torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    print(f"nvidia-smi name, power.limit: {smi}")
+
+    # ---- 2. build the kernels ------------------------------------------
+    t0 = time.perf_counter()
+    for name in build.SOURCES:
+        build.library(name)
+    print(f"kernel build (nvcc, {len(build.SOURCES)} sources in parallel): "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    # ---- 3. each kernel against its plain version, ragged shapes -------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ragged_err = {k: 0 for k in build.launches}
+
+    def bit_rows(n: int, rows: int) -> torch.Tensor:
+        """Random rows plus an all-zero and an all-one row."""
+        bits = torch.randint(0, 2, (rows, n), generator=gen, device=dev)
+        bits[0] = 0
+        bits[1] = 1
+        return bits
+
+    for n in (1, 31, 32, 128, 1000, 1024, 32 * 1025, 40_000, 131_072 + 77):
+        words = bitops.pack_bits(bitops.pad_bits(bit_rows(n, 5)))
+        W = bitops.num_words(n)
+        got = ops.rank_build_levels(words, n)
+        ragged_err["rank_build_levels"] = max(
+            ragged_err["rank_build_levels"],
+            max_abs_err(got, rank_build.rank_build_levels_plain(words, W)),
+            max_abs_err(got, ref.rank_build_levels_ref(words, n)),
+            max_abs_err(ops.rank_build(words[2], n),      # L = 1
+                        ref.rank_build_ref(words[2], n)))
+
+    for n, shift in ((1, 0), (1000, 3), (1024, 7), (1025, 0), (5000, 5),
+                     (3 * 1024, 1), (70_001, 6)):
+        keys = torch.randint(0, 256, (4, n), generator=gen, device=dev,
+                             dtype=torch.int32)
+        keys[0] = 0
+        keys[1] = 255
+        counts = wm_level.wm_counts(keys, shift, n)
+        e = max_abs_err(counts, wm_level.wm_counts_plain(keys, shift, n))
+        incl = torch.cumsum(counts, 1)
+        zexcl, total = (incl - counts).int(), incl[:, -1].int()
+        e = max(e, max_abs_err(
+            wm_level.wm_apply(keys, zexcl, total, shift, n),
+            wm_level.wm_apply_plain(keys, zexcl, total, shift, n)))
+        dest, bitmap, z = ops.wm_level_step(keys, shift, n)
+        for r in range(keys.shape[0]):
+            e = max(e, max_abs_err((dest[r], bitmap[r], z[r]),
+                                   ref.wm_level_step_ref(keys[r], shift, n)))
+        ragged_err["wm_level_step"] = max(ragged_err["wm_level_step"], e)
+
+    for num_shards, shard_bits, n, sigma in ((1, 12, 3000, 37),
+                                             (3, 10, 2500, 2),
+                                             (40, 9, 40 * 512 - 17, 1000),
+                                             (128, 7, 128 * 128, 151_936)):
+        size = 1 << shard_bits
+        toks = torch.randint(0, sigma, (num_shards * size,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        toks[n:] = 0
+        shards = build_wavelet_matrix(toks.reshape(num_shards, size), sigma,
+                                      tau=TAU, sample_rate=SAMPLE_RATE,
+                                      device=dev)
+        q = 1001                          # not a multiple of the 8-query block
+        lo = torch.randint(-5, n + 5, (q,), generator=gen, device=dev)
+        hi = lo + torch.randint(-3, n, (q,), generator=gen, device=dev)
+        k = torch.randint(-2, n, (q,), generator=gen, device=dev)
+        lo[:4] = torch.tensor([0, 5, n, n + 3], device=dev)  # full, empties
+        hi[:4] = torch.tensor([n, 5, n, n + 9], device=dev)
+        k[4:8] = n + 100                                     # k past the end
+        args, kw = ops.sharded_quantile_operands(shards, shard_bits, n,
+                                                 lo, hi, k)
+        got = wm_quantile.wm_quantile_sharded(*args, **kw)
+        e = max(max_abs_err(got, wm_quantile.wm_quantile_sharded_plain(
+                    *args, **kw)),
+                max_abs_err(got, ref.wm_quantile_sharded_ref(
+                    shards.bitvectors.rank.words, shards.zeros, shard_bits,
+                    n, lo, hi, k)))
+        if num_shards == 1:                # the single-matrix form, S = 1
+            one = tree_map(lambda x: x[0], shards)
+            e = max(e, max_abs_err(ops.wm_quantile_batch(one, lo, hi, k),
+                                   ref.wm_quantile_ref(
+                                       one.bitvectors.rank.words, one.zeros,
+                                       one.n, lo, hi, k)))
+        ragged_err["wm_quantile_sharded"] = max(
+            ragged_err["wm_quantile_sharded"], e)
+    torch.cuda.synchronize()
+    print(f"ragged checks, max_abs_err vs plain versions: "
+          f"{json.dumps(ragged_err)}")
+    if any(ragged_err.values()):
+        fail(f"kernel disagrees with its plain version: {ragged_err}")
+
+    # ---- 4. the main path at full width --------------------------------
+    t0 = time.perf_counter()
+    toks = make_corpus(N_TOKENS, SIGMA, seed=0)
+    print(f"corpus: {N_TOKENS} tokens, sigma {SIGMA} "
+          f"({time.perf_counter() - t0:.3f} s on the host)")
+    lo, hi, k = make_queries(N_TOKENS, NUM_QUERIES, 1)
+    sym_lo = (lo % SIGMA).astype(np.int32)
+    sym_hi = np.minimum(sym_lo + 64, SIGMA).astype(np.int32)
+    lo_t, hi_t, k_t, s0_t, s1_t = (torch.from_numpy(x).to(dev)
+                                   for x in (lo, hi, k, sym_lo, sym_hi))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    eng = build_sharded_analytics(toks, SIGMA, shard_bits=SHARD_BITS, tau=TAU,
+                                  sample_rate=SAMPLE_RATE, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quant = eng.range_quantile(lo_t, hi_t, k_t)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cnt = eng.range_count(lo_t, hi_t, s0_t, s1_t)
+    torch.cuda.synchronize()
+    t_count = time.perf_counter() - t0
+    launches = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"main path launches: {json.dumps(launches)}")
+    missing = [name for name, c in launches.items() if c <= 0]
+    if missing:
+        fail(f"kernels not launched on the main path: {missing}")
+    print(f"build: {N_TOKENS} tokens, {eng.num_shards} shards of "
+          f"{eng.shard_size} in {t_build:.6f} s "
+          f"({N_TOKENS / t_build:.1f} tok/s, "
+          f"{eng.bits_per_token():.4f} bits/token)")
+    print(f"serve: {NUM_QUERIES} quantiles in {t_quant * 1e3:.6f} ms "
+          f"({NUM_QUERIES / t_quant:.1f} q/s), {NUM_QUERIES} counts in "
+          f"{t_count * 1e3:.6f} ms ({NUM_QUERIES / t_count:.1f} q/s)")
+    print(f"peak device memory (build + serve): {peak} B "
+          f"({peak / 2**30:.3f} GiB)")
+
+    # build: leaf for leaf against the plain build on the card
+    shards_in = torch.nn.functional.pad(
+        torch.from_numpy(toks.astype(np.int32)).to(dev),
+        (0, eng.num_shards * eng.shard_size - N_TOKENS)).reshape(
+            eng.num_shards, eng.shard_size)
+    t0 = time.perf_counter()
+    again = build_wavelet_matrix(shards_in, SIGMA, tau=TAU,
+                                 sample_rate=SAMPLE_RATE, device=dev)
+    torch.cuda.synchronize()
+    t_again = time.perf_counter() - t0
+    del again
+    t0 = time.perf_counter()
+    plain = build_wavelet_matrix(shards_in, SIGMA, tau=TAU,
+                                 sample_rate=SAMPLE_RATE, use_kernels=False,
+                                 device=dev)
+    torch.cuda.synchronize()
+    print(f"build of the shards already on the card: kernel route "
+          f"{t_again:.6f} s, plain route {time.perf_counter() - t0:.6f} s")
+    got_leaves = tree_named_leaves(eng.shards)
+    for name, leaf in tree_named_leaves(plain).items():
+        if leaf.dtype != got_leaves[name].dtype or not torch.equal(
+                leaf, got_leaves[name]):
+            fail(f"kernel build differs from the plain build at {name}")
+    del plain
+    print("build: bit-identical to the plain build, leaf for leaf")
+
+    want = sharded_range_quantile(eng.shards, SHARD_BITS, N_TOKENS, lo_t,
+                                  hi_t, k_t)
+    if not torch.equal(quant, want):
+        bad = int((quant != want).sum())
+        fail(f"{bad} of {NUM_QUERIES} quantiles differ from the plain descent")
+    q_np, c_np = quant.cpu().numpy(), cnt.cpu().numpy()
+    for i in range(NUM_NUMPY_CHECKS):
+        sl = toks[lo[i]:hi[i]].astype(np.int64)
+        want_q = np.partition(sl, k[i])[k[i]] if len(sl) else -1
+        want_c = int(((sl >= sym_lo[i]) & (sl < sym_hi[i])).sum())
+        if q_np[i] != want_q or c_np[i] != want_c:
+            fail(f"query {i}: quantile {q_np[i]} (numpy {want_q}), count "
+                 f"{c_np[i]} (numpy {want_c})")
+    print(f"serve: {NUM_QUERIES} quantiles equal the plain descent; "
+          f"{NUM_NUMPY_CHECKS} quantiles and counts equal numpy")
+
+    # ---- 5. kernel times at the main path's shapes ----------------------
+    kernels = []
+
+    def report(name, source, replaces, also, got, want, ms, plain_ms,
+               nbytes, nops):
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S) * 1e3
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "also_replaces": also,
+               "launches": launches[name], "max_abs_err": max(
+                   max_abs_err(got, want), ragged_err[name]),
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                            >= nops / INT32_OPS_PER_S else "operations"),
+               "library_ms": None, "bytes": nbytes, "ops": nops}
+        row["check"] = "pass" if row["max_abs_err"] == 0 else "FAIL"
+        print(f"{name}: {ms:.6f} ms (plain {plain_ms:.6f} ms, bound "
+              f"{bound:.6f} ms by {row['bound_by']}), "
+              f"{launches[name]} launches on the main path")
+        kernels.append(row)
+
+    size = eng.shard_size
+    rank = eng.shards.bitvectors.rank
+    words = rank.words.reshape(-1, rank.words.shape[-1])
+    R, W = words.shape
+    got = ops.rank_build_levels(words, size)
+    report("rank_build_levels", "src/repro_torch/kernels/csrc/rank_build.cu",
+           "src/repro/kernels/rank_build.py:98",
+           ["src/repro/kernels/rank_build.py:53"], got,
+           rank_build.rank_build_levels_plain(words, W),
+           cuda_ms(lambda: ops.rank_build_levels(words, size), 20),
+           cuda_ms(lambda: rank_build.rank_build_levels_plain(words, W), 5),
+           R * W * 4 + got[0].numel() * 4 + got[1].numel() * 2, R * W * 8)
+
+    nbits = eng.shards.nbits
+    keys = bitops.extract_field(shards_in, nbits - TAU, TAU).to(torch.int32)
+
+    def level_plain():
+        counts = wm_level.wm_counts_plain(keys, TAU - 1, size)
+        incl = torch.cumsum(counts, 1)
+        dest, bitmap = wm_level.wm_apply_plain(
+            keys, (incl - counts).int(), incl[:, -1].int(), TAU - 1, size)
+        return dest, bitmap, incl[:, -1].int()
+
+    got = ops.wm_level_step(keys, TAU - 1, size)
+    report("wm_level_step", "src/repro_torch/kernels/csrc/wm_level.cu",
+           "src/repro/kernels/wm_level.py:132",
+           ["src/repro/kernels/wm_level.py:52",
+            "src/repro/kernels/wm_level.py:166"], got, level_plain(),
+           cuda_ms(lambda: ops.wm_level_step(keys, TAU - 1, size), 20),
+           cuda_ms(level_plain, 3),
+           keys.numel() * 8 + got[1].numel() * 4 + got[2].numel() * 4,
+           keys.numel() * 24)
+
+    args, kw = ops.sharded_quantile_operands(eng.shards, SHARD_BITS,
+                                             N_TOKENS, lo_t, hi_t, k_t)
+    probes = 0                 # rank probes of non-empty local ranges
+    los, his = local_ranges(SHARD_BITS, eng.num_shards, N_TOKENS, lo_t, hi_t)
+    kk = torch.minimum(k_t.long().clamp(min=0),
+                       ((his - los).sum(0) - 1).clamp(min=0))
+    for l in range(nbits):
+        probes += 2 * int((his > los).sum())
+        lo0, hi0 = wm_interval_zeros(eng.shards, l, los, his)
+        z = (hi0 - lo0).sum(0)
+        bit = (kk >= z).long()
+        kk = torch.where(bit == 1, kk - z, kk)
+        los, his = wm_child_interval(eng.shards, l, los, his, bit, lo0, hi0)
+    print(f"wm_quantile_sharded: {probes} rank probes for {NUM_QUERIES} "
+          f"queries ({probes / NUM_QUERIES:.2f} per query)")
+    report("wm_quantile_sharded",
+           "src/repro_torch/kernels/csrc/wm_quantile.cu",
+           "src/repro/kernels/wm_quantile.py:128",
+           ["src/repro/kernels/wm_quantile.py:165"],
+           wm_quantile.wm_quantile_sharded(*args, **kw), want,
+           cuda_ms(lambda: wm_quantile.wm_quantile_sharded(*args, **kw), 20),
+           cuda_ms(lambda: wm_quantile.wm_quantile_sharded_plain(
+               *args, **kw), 3),
+           NUM_QUERIES * 16 + probes * PROBE_BYTES, probes * 40)
+
+    print(json.dumps({"kernels": kernels}))
+    if any(row["check"] != "pass" for row in kernels):
+        fail("a kernel disagrees with its plain version at full width")
+    print(f"card: {smi}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,203 @@
+"""Wavelet matrix construction (paper Section 4, Theorem 4.5) and queries
+(port of ``repro.core.wavelet_matrix``).
+
+τ-chunk construction: each τ-bit field of the symbols is split level by
+level with stable 0/1 partitions of the narrow field ("short lists"), and
+the full-width symbols move once per chunk by the composition of those
+partitions (``big_step="compose"``). The per-level step routes through the
+``wm_level_step`` kernel and the rank tables through ``rank_build_levels``
+on CUDA tensors; the plain path gathers with the select-based
+``stable_partition_gather``. Both give bit-identical matrices.
+
+Sequences may carry one leading batch axis (S, n): each row is built into
+its own matrix and every leaf gains that leading axis — the stacked shard
+layout, with one level of all shards per kernel launch.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from . import bitops
+from .rank_select import (BitVector, access_bit, build_bitvector_levels,
+                          rank0, rank1, select0, select1,
+                          stable_partition_gather)
+from .scan import apply_permutation_dest, lift, take
+from ..device import resolve_device
+from ..tree import tree_map
+
+
+def num_levels(sigma: int) -> int:
+    return max(1, math.ceil(math.log2(max(2, sigma))))
+
+
+@dataclass(frozen=True)
+class WaveletMatrix:
+    """Per-level bitvectors stacked on an (nbits,) axis after any batch
+    axes: ``bitvectors`` leaves are (*B, nbits, X), ``zeros`` (*B, nbits)."""
+    bitvectors: BitVector
+    zeros: torch.Tensor       # int32 zeros per level
+    n: int
+    nbits: int
+
+    def level(self, l: int) -> BitVector:
+        return tree_map(lambda x: x.select(-2, l), self.bitvectors)
+
+    def level_zeros(self, l: int) -> torch.Tensor:
+        return self.zeros[..., l].long()
+
+
+def build_wavelet_matrix(seq, sigma: int, tau: int = 8,
+                         big_step: str = "compose", sample_rate: int = 512,
+                         fused: bool = True, use_kernels: bool | None = None,
+                         device: str | torch.device = "cuda"
+                         ) -> WaveletMatrix:
+    """τ-chunked parallel construction (paper Theorem 4.5).
+
+    ``seq``: (n,) or (S, n) symbols in [0, sigma), moved to ``device``.
+    ``use_kernels`` routes the level steps and rank tables through the CUDA
+    kernels; ``None`` enables them on a CUDA device. Only the fused
+    ``"compose"`` build is ported so far.
+    """
+    if big_step in ("radix", "xla"):
+        raise NotImplementedError(f"big_step={big_step!r} is not ported yet")
+    if big_step != "compose":
+        raise ValueError(f"unknown big_step {big_step!r}")
+    if not fused:
+        raise NotImplementedError("the fused=False baseline is not ported")
+    dev = resolve_device(device)
+    seq = torch.as_tensor(seq, device=dev)
+    batched = seq.dim() == 2
+    order = (seq if batched else seq[None]).to(torch.int32)
+    if use_kernels is None:
+        use_kernels = dev.type == "cuda"
+    rows, n = order.shape
+    nbits = num_levels(sigma)
+    level_words, zeros = [], []
+
+    for alpha0 in range(0, nbits, tau):
+        width = min(tau, nbits - alpha0)
+        # the τ-bit field starting alpha0 bits below the top: the short list
+        sub = bitops.extract_field(order, nbits - alpha0 - width,
+                                   width).to(torch.int32)
+        last_chunk = alpha0 + width >= nbits
+        idx = (torch.arange(n, dtype=torch.int32, device=dev)
+               .expand(rows, n).contiguous() if not last_chunk else None)
+        for t in range(width):
+            shift = width - 1 - t
+            # movement arranges the next level; at the chunk's final level
+            # only the composed permutation still advances
+            move = (alpha0 + t < nbits - 1) and (t < width - 1
+                                                 or idx is not None)
+            if use_kernels:
+                from repro_torch.kernels import ops
+                dest, words, z = ops.wm_level_step(sub, shift, n)
+                if move:
+                    if t < width - 1:
+                        sub = apply_permutation_dest(sub, dest)
+                    if idx is not None:
+                        idx = apply_permutation_dest(idx, dest)
+            else:
+                bit = (sub.long() >> shift) & 1
+                words = bitops.pack_bits(bitops.pad_bits(bit))
+                z = (n - bit.sum(-1)).to(torch.int32)
+                if move:
+                    g = stable_partition_gather(words, z, n)
+                    if t < width - 1:
+                        sub = take(sub, g)
+                    if idx is not None:
+                        idx = take(idx, g)
+            level_words.append(words)
+            zeros.append(z)
+        if not last_chunk:
+            order = take(order, idx)
+
+    bvs = build_bitvector_levels(torch.stack(level_words, 1), n, sample_rate,
+                                 use_kernels=use_kernels)
+    wm = WaveletMatrix(bitvectors=bvs, zeros=torch.stack(zeros, 1), n=n,
+                       nbits=nbits)
+    return wm if batched else tree_map(lambda x: x[0], wm)
+
+
+# --------------------------------------------------------------------------
+# Level-descent primitives (shared by the queries here and analytics)
+# --------------------------------------------------------------------------
+
+def wm_interval_zeros(wm: WaveletMatrix, l: int, lo: torch.Tensor,
+                      hi: torch.Tensor):
+    """rank0 at both ends of [lo, hi) on level ``l``."""
+    rs = wm.level(l).rank
+    return rank0(rs, lo), rank0(rs, hi)
+
+
+def wm_child_interval(wm: WaveletMatrix, l: int, lo: torch.Tensor,
+                      hi: torch.Tensor, bit: torch.Tensor,
+                      lo0: torch.Tensor | None = None,
+                      hi0: torch.Tensor | None = None):
+    """Map [lo, hi) on level ``l`` to its child interval under ``bit``
+    (0 → zero block, 1 → one block); pass ``lo0``/``hi0`` when known."""
+    if lo0 is None or hi0 is None:
+        lo0, hi0 = wm_interval_zeros(wm, l, lo, hi)
+    zl = lift(wm.level_zeros(l), lo)
+    return (torch.where(bit == 0, lo0, zl + (lo - lo0)),
+            torch.where(bit == 0, hi0, zl + (hi - hi0)))
+
+
+def wm_position_step(wm: WaveletMatrix, l: int, p: torch.Tensor):
+    """Follow one position down a level: (bit at p, position in child)."""
+    rs = wm.level(l).rank
+    bit = access_bit(rs, p)
+    child = torch.where(bit == 0, rank0(rs, p),
+                        lift(wm.level_zeros(l), p) + rank1(rs, p))
+    return bit, child
+
+
+# --------------------------------------------------------------------------
+# Queries (int32 results, like the reference)
+# --------------------------------------------------------------------------
+
+def _arg(x, wm: WaveletMatrix) -> torch.Tensor:
+    return torch.as_tensor(x, device=wm.zeros.device).long()
+
+
+def wm_access(wm: WaveletMatrix, i) -> torch.Tensor:
+    """Symbol at position i; O(logσ) rank calls."""
+    p = _arg(i, wm)
+    c = torch.zeros_like(p)
+    for l in range(wm.nbits):
+        bit, p = wm_position_step(wm, l, p)
+        c = (c << 1) | bit
+    return c.to(torch.int32)
+
+
+def wm_rank(wm: WaveletMatrix, c, i) -> torch.Tensor:
+    """# of occurrences of symbol c in [0, i)."""
+    c, hi = _arg(c, wm), _arg(i, wm)
+    c, hi = torch.broadcast_tensors(c, hi)
+    lo = torch.zeros_like(hi)
+    for l in range(wm.nbits):
+        bit = (c >> (wm.nbits - 1 - l)) & 1
+        lo, hi = wm_child_interval(wm, l, lo, hi, bit)
+    return (hi - lo).to(torch.int32)
+
+
+def wm_select(wm: WaveletMatrix, c, k) -> torch.Tensor:
+    """Position of the k-th (0-based) occurrence of c: descend to c's block
+    at the deepest level, then ascend with select. Out-of-range k gives a
+    clamped position in [0, n), as in the reference."""
+    c, k = torch.broadcast_tensors(_arg(c, wm), _arg(k, wm))
+    lo = torch.zeros_like(k)
+    for l in range(wm.nbits):
+        bit = (c >> (wm.nbits - 1 - l)) & 1
+        lo, _ = wm_child_interval(wm, l, lo, lo, bit)
+    pos = lo + k
+    for l in range(wm.nbits - 1, -1, -1):
+        bv = wm.level(l)
+        bit = (c >> (wm.nbits - 1 - l)) & 1
+        pos = torch.where(bit == 0, select0(bv.rank, bv.sel0, pos),
+                          select1(bv.rank, bv.sel1,
+                                  pos - lift(wm.level_zeros(l), pos)))
+        pos = pos.clamp(0, wm.n - 1)
+    return pos.to(torch.int32)

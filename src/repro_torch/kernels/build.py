@@ -1,0 +1,125 @@
+"""Build and load the hand-written CUDA kernels (plain C interface + ctypes).
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc -gencode
+arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into its own
+shared library under ``kernels/build/`` (listed in ``.gitignore``), named by
+a hash of its source and flags so an edited source rebuilds. The first
+call to :func:`library` compiles every source at once, one ``nvcc`` process
+per file, and waits for all of them. Nothing is compiled or loaded at
+import time: the CPU tests import every module.
+
+``launches`` holds one plain integer per kernel; each wrapper adds one
+where it launches its kernel and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# argtypes of every C entry point, by source; each returns an int (a CUDA
+# error code, or a plain value). Every library also exports
+# ``const char* kernel_error_string(int)``.
+SIGNATURES: dict[str, dict[str, list]] = {
+    "rank_build": {
+        "rank_build_levels": [_P, _I, _I, _L, _P, _I, _P, _I, _P]},
+    "wm_level": {
+        "wm_counts": [_P, _I, _I, _L, _I, _P, _I, _P],
+        "wm_apply": [_P, _I, _I, _L, _I, _I, _P, _P, _P, _L, _P, _I, _L,
+                     _P]},
+    "wm_quantile": {
+        "wm_quantile_max_shards": [],
+        "wm_quantile_sharded": ([_P] * 3 + [_I] + [_P, _L] * 3 + [_P]
+                                + [_I] * 5 + [_P, _P])},
+}
+SOURCES = tuple(SIGNATURES)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+launches: dict[str, int] = {"rank_build_levels": 0, "wm_level_step": 0,
+                            "wm_quantile_sharded": 0}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every stale source in parallel; returns name -> library.
+    Raises with the compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {name: _target(name) for name in SOURCES}
+    stale = {name: t for name, t in targets.items() if not t.exists()}
+    if stale:
+        nvcc = _nvcc()
+        procs = {}
+        for name, target in stale.items():
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT),
+                           tmp, target)
+        failures = []
+        for name, (proc, tmp, target) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"{name}.cu:\n{out.decode(errors='replace')}")
+            else:
+                os.replace(tmp, target)
+        if failures:
+            raise RuntimeError("CUDA kernel build failed:\n"
+                               + "\n".join(failures))
+    return targets
+
+
+def _load(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for entry, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu`` (built on first use),
+    its entry points' signatures declared."""
+    if name not in _loaded:
+        for lib_name, path in build_all().items():
+            if lib_name not in _loaded:
+                _loaded[lib_name] = _load(lib_name, path)
+    return _loaded[name]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        msg = lib.kernel_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {what} failed: {msg} ({err})")

@@ -1,0 +1,110 @@
+"""Wrapper contracts around the kernels (port of ``repro.kernels.ops``).
+
+Each op handles layout, padding and trimming and calls a kernel module,
+which launches the CUDA kernel for CUDA tensors and runs its plain version
+for CPU tensors. The contracts are the reference's: same arguments, same
+results, with the port's ``int32``/``int16`` leaves.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import bitops
+from repro_torch.core.rank_select import BLOCK_WORDS
+from repro_torch.tree import tree_map
+
+from . import rank_build as _rank_build
+from . import wm_level as _wm_level
+from . import wm_quantile as _wm_quantile
+
+
+def rank_build_levels(words: torch.Tensor, n: int):
+    """Jacobson directories of L stacked n-bit rows (L, W) int32, one launch.
+
+    Returns (superblock (L, ceil(w/32)) int32, block (L, ceil(w/4)) int16),
+    w = ceil(n/32) — row-wise ``rank_select.build_binary_rank``.
+    """
+    return _rank_build.rank_build_levels(words, bitops.num_words(n))
+
+
+def rank_build(words: torch.Tensor, n: int):
+    """Single-row form of :func:`rank_build_levels` (the same kernel at
+    L = 1): (superblock, block) of a (W,) row."""
+    superblock, block = rank_build_levels(words[None], n)
+    return superblock[0], block[0]
+
+
+def wm_level_step(sub: torch.Tensor, shift: int, n: int):
+    """One wavelet-matrix level on narrow keys ``sub`` (n,) or (R, n).
+
+    ``shift``: bit position of this level's bit inside the key. Returns
+    (dest (…, n) int32 stable-partition destinations, bitmap (…,
+    ceil(n/32)) int32, total_zeros (…,) int32) — the contract of both
+    ``wm_level_step`` and ``wm_level_step_fused`` in the reference. Count
+    launch, exclusive scan of the block counts in torch, apply launch.
+    """
+    keys = sub.reshape(-1, sub.shape[-1]).to(torch.int32).contiguous()
+    counts = _wm_level.wm_counts(keys, shift, n)
+    incl = torch.cumsum(counts, 1)
+    zeros_excl = (incl - counts).to(torch.int32)
+    total = incl[:, -1].to(torch.int32)
+    dest, bitmap = _wm_level.wm_apply(keys, zeros_excl, total, shift, n)
+    lead = sub.shape[:-1]
+    return (dest.reshape(lead + (n,)), bitmap.reshape(lead + (-1,)),
+            total.reshape(lead))
+
+
+def _pad_rank_rows(words: torch.Tensor, superblock: torch.Tensor,
+                   block: torch.Tensor, nblocks: int):
+    """Row-stacked directories for the quantile kernel: word rows grow to
+    at least nblocks·BLOCK_WORDS words and to a multiple of 4 (so every
+    block gathers its four words in one aligned 16-byte load), zero-padded;
+    all three become contiguous. Rows that already fit are not copied."""
+    need = max(nblocks * BLOCK_WORDS, -(-words.shape[1] // 4) * 4)
+    if need > words.shape[1]:
+        words = F.pad(words, (0, need - words.shape[1]))
+    return words.contiguous(), superblock.contiguous(), block.contiguous()
+
+
+def _queries(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, device=device).to(torch.int32).reshape(-1)
+
+
+def sharded_quantile_operands(shards, shard_bits: int, n: int, lo, hi, k):
+    """(args, kwargs) of ``wm_quantile.wm_quantile_sharded`` for a stacked
+    (S,)-leaf ``WaveletMatrix``: (Q,) int32 queries and the directories
+    flattened to (S·nbits, ·) rows, row ``s*nbits + l``."""
+    rank = shards.bitvectors.rank
+    dev = rank.words.device
+    num_shards, nbits = rank.words.shape[0], shards.nbits
+    nblocks = rank.block.shape[-1]
+    rows = num_shards * nbits
+    words, superblock, block = _pad_rank_rows(
+        rank.words.reshape(rows, -1), rank.superblock.reshape(rows, -1),
+        rank.block.reshape(rows, -1), nblocks)
+    args = (_queries(lo, dev), _queries(hi, dev), _queries(k, dev), words,
+            superblock, block, shards.zeros.reshape(rows).contiguous())
+    return args, dict(num_shards=num_shards, nbits=nbits, n=n,
+                      shard_bits=shard_bits, nblocks=nblocks)
+
+
+def wm_quantile_sharded_batch(shards, shard_bits: int, n: int, lo, hi,
+                              k) -> torch.Tensor:
+    """Batched global range quantile over a stacked (S,)-leaf
+    ``WaveletMatrix``: every shard and level in one launch.
+
+    ``lo``/``hi``/``k``: (Q,) global positions / rank. Returns (Q,) int32,
+    -1 for empty ranges — the contract of
+    ``analytics.engine.sharded_range_quantile``.
+    """
+    args, kwargs = sharded_quantile_operands(shards, shard_bits, n, lo, hi, k)
+    return _wm_quantile.wm_quantile_sharded(*args, **kwargs)
+
+
+def wm_quantile_batch(wm, lo, hi, k) -> torch.Tensor:
+    """Batched range quantile over one ``WaveletMatrix``: the sharded kernel
+    at S = 1, with a shard size covering n. (Q,) int32, -1 if empty."""
+    shard_bits = max(0, (wm.n - 1).bit_length())
+    one = tree_map(lambda x: x[None], wm)
+    return wm_quantile_sharded_batch(one, shard_bits, wm.n, lo, hi, k)

@@ -1,0 +1,1 @@
+"""CLI entry points of the port (``python -m repro_torch.launch.*``)."""

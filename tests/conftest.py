@@ -78,3 +78,9 @@ else:
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips inside the test "
+        "without one (run on the card with `pytest -m cuda`)")

@@ -1,0 +1,110 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test carries the ``cuda`` marker and skips inside the test when no
+CUDA device is present. This file imports neither JAX nor ``repro``, so it
+runs where only the port is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+All outputs are exact integers: every comparison is equality.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.analytics import build_sharded_analytics
+from repro_torch.analytics.engine import sharded_range_quantile
+from repro_torch.core import bitops
+from repro_torch.core.wavelet_matrix import build_wavelet_matrix
+from repro_torch.kernels import build, ops, rank_build, ref, wm_level
+from repro_torch.kernels import wm_quantile
+from repro_torch.tree import tree_map, tree_named_leaves
+
+
+def _card() -> torch.device:
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _queries(n: int, q: int, seed: int, dev):
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(-3, n + 3, q)
+    hi = lo + rng.integers(-2, n, q)
+    k = rng.integers(-2, n, q)
+    lo[:4], hi[:4] = [0, 5, n, n + 2], [n, 5, n, n + 9]   # full, empties
+    k[4:8] = n + 50                                       # k past the end
+    return (torch.from_numpy(x.astype(np.int32)).to(dev) for x in (lo, hi, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 1000, 1025 * 32, 70001])
+def test_rank_build_levels_kernel_matches_plain(n):
+    dev = _card()
+    bits = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 2, (5, n))).to(dev)
+    bits[0], bits[1] = 0, 1
+    words = bitops.pack_bits(bitops.pad_bits(bits))
+    got = ops.rank_build_levels(words, n)
+    want = rank_build.rank_build_levels_plain(words, bitops.num_words(n))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(
+        ops.rank_build(words[3], n), ref.rank_build_ref(words[3], n)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,shift", [(1, 0), (1000, 3), (1025, 7),
+                                     (70001, 5)])
+def test_wm_level_kernels_match_plain(n, shift):
+    dev = _card()
+    keys = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 256, (4, n)).astype(np.int32)).to(dev)
+    keys[0], keys[1] = 0, 255
+    counts = wm_level.wm_counts(keys, shift, n)
+    assert torch.equal(counts, wm_level.wm_counts_plain(keys, shift, n))
+    incl = torch.cumsum(counts, 1)
+    zexcl, total = (incl - counts).int(), incl[:, -1].int()
+    got = wm_level.wm_apply(keys, zexcl, total, shift, n)
+    want = wm_level.wm_apply_plain(keys, zexcl, total, shift, n)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_shards,shard_bits,n,sigma", [
+    (1, 10, 1000, 37), (3, 8, 700, 2), (40, 6, 40 * 64 - 5, 1000)])
+def test_wm_quantile_kernel_matches_plain(num_shards, shard_bits, n, sigma):
+    dev = _card()
+    size = 1 << shard_bits
+    toks = np.random.default_rng(sigma).integers(
+        0, sigma, num_shards * size).astype(np.int32)
+    toks[n:] = 0
+    shards = build_wavelet_matrix(toks.reshape(num_shards, size), sigma,
+                                  sample_rate=64, device=dev)
+    lo, hi, k = _queries(n, 1001, num_shards, dev)
+    args, kw = ops.sharded_quantile_operands(shards, shard_bits, n, lo, hi, k)
+    got = wm_quantile.wm_quantile_sharded(*args, **kw)
+    assert torch.equal(got, wm_quantile.wm_quantile_sharded_plain(*args,
+                                                                  **kw))
+    if num_shards == 1:
+        one = tree_map(lambda x: x[0], shards)
+        assert torch.equal(ops.wm_quantile_batch(one, lo, hi, k),
+                           ref.wm_quantile_ref(one.bitvectors.rank.words,
+                                               one.zeros, one.n, lo, hi, k))
+
+
+@pytest.mark.cuda
+def test_main_path_on_the_card_matches_the_cpu():
+    dev = _card()
+    toks = np.random.default_rng(0).integers(0, 5000, 6 * 4096 - 11)
+    build.reset_launches()
+    eng = build_sharded_analytics(toks, 5000, shard_bits=12, device=dev)
+    lo, hi, k = _queries(len(toks), 2000, 1, dev)
+    got = eng.range_quantile(lo, hi, k)
+    assert all(c > 0 for c in build.launches.values())
+    cpu = build_sharded_analytics(toks, 5000, shard_bits=12, device="cpu")
+    a, b = tree_named_leaves(eng.shards), tree_named_leaves(cpu.shards)
+    assert all(torch.equal(a[name].cpu(), b[name]) for name in a)
+    assert torch.equal(got, sharded_range_quantile(eng.shards, 12, len(toks),
+                                                   lo, hi, k))
+    assert torch.equal(got.cpu(), cpu.range_quantile(lo.cpu(), hi.cpu(),
+                                                     k.cpu()))
