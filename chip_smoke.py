@@ -15,8 +15,17 @@
    32 against numpy, and the same batch of range counts, 32 checked
    against numpy. Launch counts are zeroed just before this run and read
    just after it; each kernel must have launched.
-5. Times each kernel by CUDA events at the main path's shapes beside its
-   plain version and its bound, and prints the ``kernels`` JSON line.
+5. Runs the second path on the same stream: the whole 2^27 tokens built as
+   one τ-chunked wavelet tree (Theorem 4.1) with the radix big step,
+   through the tree's kernels (launch counts zeroed just before, each must
+   have launched), then with the compose big step and by the plain build;
+   all three equal leaf for leaf. The sharded matrix of step 4 is rebuilt
+   with the radix big step and must equal its compose build. 4,096 each of
+   tree access, rank and select run on the card, 32 of each checked
+   against numpy.
+6. Times each kernel by CUDA events at its path's shapes beside its plain
+   version, its bound and, where one torch call computes the same
+   function, that call; prints the ``kernels`` JSON line.
 
 Exits non-zero on any failure; prints no result without a CUDA device or
 outside a checkout. The last line is the ``{"ok": true, ...}`` object.
@@ -48,6 +57,8 @@ INT32_OPS_PER_S = 16.7e12     # H100 SXM simple int32 ops on the CUDA cores:
 #                               (NVIDIA H100 Tensor Core GPU Architecture
 #                               whitepaper, SM and clock tables)
 PROBE_BYTES = 4 + 2 + 16      # superblock entry, block entry, four words
+MATRIX_KERNELS = ("rank_build_levels", "wm_level_step", "wm_quantile_sharded")
+TREE_KERNELS = ("wt_level_step", "bitpack", "radix_rank", "rank_build_levels")
 
 
 def fail(msg: str) -> None:
@@ -83,6 +94,35 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def bits_per_token(struct, n: int) -> float:
+    """Stored bits of every tensor leaf per token."""
+    from repro_torch.tree import tree_leaves
+    return sum(x.numel() * x.element_size() * 8
+               for x in tree_leaves(struct)) / n
+
+
+def same_leaves(a, b, what: str) -> None:
+    from repro_torch.tree import tree_named_leaves
+    got, want = tree_named_leaves(a), tree_named_leaves(b)
+    if got.keys() != want.keys():
+        fail(f"{what}: leaves {sorted(got)} != {sorted(want)}")
+    for name, leaf in want.items():
+        if leaf.dtype != got[name].dtype or not torch.equal(leaf, got[name]):
+            fail(f"{what}: differs at {name}")
+
+
+def read_launches(path: str, kernels) -> dict:
+    """Launch counts after a path's run; fails if one of its kernels never
+    launched."""
+    from repro_torch.kernels import build
+    launches = dict(build.launches)
+    print(f"{path} launches: {json.dumps(launches)}")
+    missing = [name for name in kernels if launches[name] <= 0]
+    if missing:
+        fail(f"kernels not launched on the {path}: {missing}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA device")
@@ -94,14 +134,16 @@ def main() -> None:
                                               local_ranges,
                                               sharded_range_quantile)
     from repro_torch.core import bitops
+    from repro_torch.core import wavelet_tree as wtree
     from repro_torch.core.wavelet_matrix import (build_wavelet_matrix,
                                                  wm_child_interval,
                                                  wm_interval_zeros)
     from repro_torch.data import make_corpus
-    from repro_torch.kernels import build, ops, rank_build, ref, wm_level
+    from repro_torch.kernels import (bitpack, build, ops, radix_rank,
+                                     rank_build, ref, wm_level, wt_level)
     from repro_torch.kernels import wm_quantile
     from repro_torch.launch.analytics import make_queries
-    from repro_torch.tree import tree_map, tree_named_leaves
+    from repro_torch.tree import tree_map
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -196,6 +238,46 @@ def main() -> None:
                                        one.n, lo, hi, k)))
         ragged_err["wm_quantile_sharded"] = max(
             ragged_err["wm_quantile_sharded"], e)
+    for n in (1, 31, 1000, 1024, 1025, 70_001):
+        for nb in (2, 33, 256, 512):
+            d = torch.randint(0, nb, (3, n), generator=gen, device=dev,
+                              dtype=torch.int32)
+            d[0] = nb - 1                        # one bucket only
+            hist = radix_rank.radix_hist(d, nb, n)
+            e = max_abs_err(hist, radix_rank.radix_hist_plain(d, nb, n))
+            offsets = radix_rank.bucket_offsets(hist)
+            got = radix_rank.radix_apply(d, offsets, nb, n)
+            e = max(e, max_abs_err(got, radix_rank.radix_apply_plain(
+                d, offsets, nb, n)))
+            for r in range(3):
+                e = max(e, max_abs_err(got[r], ref.radix_rank_ref(d[r], nb)))
+            ragged_err["radix_rank"] = max(ragged_err["radix_rank"], e)
+
+            nid = torch.sort(torch.randint(0, max(1, nb // 2), (2, n),
+                                           generator=gen, device=dev,
+                                           dtype=torch.int32), 1).values
+            sub = torch.randint(0, 256, (2, n), generator=gen, device=dev,
+                                dtype=torch.int32)
+            shift = nb % 8
+            hist = wt_level.wt_counts(sub, nid, shift, nb, n)
+            e = max_abs_err(hist, wt_level.wt_counts_plain(sub, nid, shift,
+                                                           nb, n))
+            offsets = radix_rank.bucket_offsets(hist)
+            got = wt_level.wt_apply(sub, nid, offsets, shift, nb, n)
+            e = max(e, max_abs_err(got, wt_level.wt_apply_plain(
+                sub, nid, offsets, shift, nb, n)))
+            e = max(e, max_abs_err((got[0][1], got[1][1]),
+                                   ref.wt_level_step_ref(sub[1], nid[1],
+                                                         shift, n)))
+            ragged_err["wt_level_step"] = max(ragged_err["wt_level_step"], e)
+        bits = torch.randint(0, 2, (3, n), generator=gen, device=dev,
+                             dtype=torch.int32)
+        bits[0] = 1
+        got = bitpack.bitpack(bits, n)
+        ragged_err["bitpack"] = max(
+            ragged_err["bitpack"],
+            max_abs_err(got, bitpack.bitpack_plain(bits, n)),
+            max_abs_err(got[2], ref.bitpack_ref(bits[2])))
     torch.cuda.synchronize()
     print(f"ragged checks, max_abs_err vs plain versions: "
           f"{json.dumps(ragged_err)}")
@@ -229,12 +311,8 @@ def main() -> None:
     cnt = eng.range_count(lo_t, hi_t, s0_t, s1_t)
     torch.cuda.synchronize()
     t_count = time.perf_counter() - t0
-    launches = dict(build.launches)
+    launches = read_launches("matrix path", MATRIX_KERNELS)
     peak = torch.cuda.max_memory_allocated()
-    print(f"main path launches: {json.dumps(launches)}")
-    missing = [name for name, c in launches.items() if c <= 0]
-    if missing:
-        fail(f"kernels not launched on the main path: {missing}")
     print(f"build: {N_TOKENS} tokens, {eng.num_shards} shards of "
           f"{eng.shard_size} in {t_build:.6f} s "
           f"({N_TOKENS / t_build:.1f} tok/s, "
@@ -263,11 +341,7 @@ def main() -> None:
     torch.cuda.synchronize()
     print(f"build of the shards already on the card: kernel route "
           f"{t_again:.6f} s, plain route {time.perf_counter() - t0:.6f} s")
-    got_leaves = tree_named_leaves(eng.shards)
-    for name, leaf in tree_named_leaves(plain).items():
-        if leaf.dtype != got_leaves[name].dtype or not torch.equal(
-                leaf, got_leaves[name]):
-            fail(f"kernel build differs from the plain build at {name}")
+    same_leaves(eng.shards, plain, "kernel build against the plain build")
     del plain
     print("build: bit-identical to the plain build, leaf for leaf")
 
@@ -287,24 +361,27 @@ def main() -> None:
     print(f"serve: {NUM_QUERIES} quantiles equal the plain descent; "
           f"{NUM_NUMPY_CHECKS} quantiles and counts equal numpy")
 
-    # ---- 5. kernel times at the main path's shapes ----------------------
+    # ---- 5. kernel times at the matrix path's shapes --------------------
     kernels = []
 
     def report(name, source, replaces, also, got, want, ms, plain_ms,
-               nbytes, nops):
+               nbytes, nops, path="matrix", path_launches=None,
+               library_ms=None):
+        path_launches = path_launches or launches
         bound = max(nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S) * 1e3
         row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "also_replaces": also,
-               "launches": launches[name], "max_abs_err": max(
+               "replaces": replaces, "also_replaces": also, "path": path,
+               "launches": path_launches[name], "max_abs_err": max(
                    max_abs_err(got, want), ragged_err[name]),
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                             >= nops / INT32_OPS_PER_S else "operations"),
-               "library_ms": None, "bytes": nbytes, "ops": nops}
+               "library_ms": library_ms, "bytes": nbytes, "ops": nops}
         row["check"] = "pass" if row["max_abs_err"] == 0 else "FAIL"
-        print(f"{name}: {ms:.6f} ms (plain {plain_ms:.6f} ms, bound "
-              f"{bound:.6f} ms by {row['bound_by']}), "
-              f"{launches[name]} launches on the main path")
+        lib = "" if library_ms is None else f", library {library_ms:.6f} ms"
+        print(f"{name} ({path} path): {ms:.6f} ms (plain {plain_ms:.6f} ms, "
+              f"bound {bound:.6f} ms by {row['bound_by']}{lib}), "
+              f"{path_launches[name]} launches on the {path} path")
         kernels.append(row)
 
     size = eng.shard_size
@@ -365,6 +442,270 @@ def main() -> None:
                *args, **kw), 3),
            NUM_QUERIES * 16 + probes * PROBE_BYTES, probes * 40)
 
+    # the single-row and single-shard forms, and the two phases of each
+    # two-launch kernel, each timed alone (they share the rows' launch
+    # counters)
+    phases = []
+
+    def report_phase(name, replaces, got, want, ms, plain_ms, nbytes, nops,
+                     launches_on_path):
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S) * 1e3
+        err = max_abs_err(got, want)
+        phases.append({"name": name, "replaces": replaces, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                                    >= nops / INT32_OPS_PER_S
+                                    else "operations"),
+                       "launches": launches_on_path, "max_abs_err": err,
+                       "bytes": nbytes, "ops": nops})
+        print(f"{name}: {ms:.6f} ms (plain {plain_ms:.6f} ms, bound "
+              f"{bound:.6f} ms), max_abs_err {err}")
+        if err:
+            fail(f"{name} disagrees with its plain version")
+
+    counts = wm_level.wm_counts(keys, TAU - 1, size)
+    report_phase("wm_counts", "src/repro/kernels/wm_level.py:52", counts,
+                 wm_level.wm_counts_plain(keys, TAU - 1, size),
+                 cuda_ms(lambda: wm_level.wm_counts(keys, TAU - 1, size), 20),
+                 cuda_ms(lambda: wm_level.wm_counts_plain(keys, TAU - 1,
+                                                          size), 3),
+                 keys.numel() * 4 + counts.numel() * 4, keys.numel() * 4,
+                 launches["wm_level_step"] // 2)
+    incl = torch.cumsum(counts, 1)
+    zexcl, total = (incl - counts).int(), incl[:, -1].int()
+    got = wm_level.wm_apply(keys, zexcl, total, TAU - 1, size)
+    report_phase("wm_apply", "src/repro/kernels/wm_level.py:166", got,
+                 wm_level.wm_apply_plain(keys, zexcl, total, TAU - 1, size),
+                 cuda_ms(lambda: wm_level.wm_apply(keys, zexcl, total,
+                                                   TAU - 1, size), 20),
+                 cuda_ms(lambda: wm_level.wm_apply_plain(
+                     keys, zexcl, total, TAU - 1, size), 3),
+                 keys.numel() * 8 + got[1].numel() * 4 + zexcl.numel() * 4,
+                 keys.numel() * 20, launches["wm_level_step"] // 2)
+    row0 = words[:1]
+    got = ops.rank_build(row0[0], size)
+    report_phase("rank_build (L = 1, one level of one shard)",
+                 "src/repro/kernels/rank_build.py:53", got,
+                 tuple(x[0] for x in rank_build.rank_build_levels_plain(
+                     row0, W)),
+                 cuda_ms(lambda: ops.rank_build(row0[0], size), 20),
+                 cuda_ms(lambda: rank_build.rank_build_levels_plain(row0, W),
+                         5),
+                 W * 4 + got[0].numel() * 4 + got[1].numel() * 2, W * 8, 0)
+    one = tree_map(lambda x: x[0], eng.shards)
+    lo1 = lo_t % size
+    hi1 = torch.minimum(lo1 + (hi_t - lo_t).clamp(min=0), torch.tensor(
+        size, device=dev, dtype=lo1.dtype))
+    got = ops.wm_quantile_batch(one, lo1, hi1, k_t)
+    args1, kw1 = ops.sharded_quantile_operands(
+        tree_map(lambda x: x[None], one), max(0, (size - 1).bit_length()),
+        size, lo1, hi1, k_t)
+    probes1 = 2 * nbits * int((hi1 > lo1).sum())
+    report_phase("wm_quantile (S = 1, one shard)",
+                 "src/repro/kernels/wm_quantile.py:165", got,
+                 ref.wm_quantile_ref(one.bitvectors.rank.words, one.zeros,
+                                     one.n, lo1, hi1, k_t),
+                 cuda_ms(lambda: ops.wm_quantile_batch(one, lo1, hi1, k_t),
+                         20),
+                 cuda_ms(lambda: wm_quantile.wm_quantile_sharded_plain(
+                     *args1, **kw1), 3),
+                 NUM_QUERIES * 16 + probes1 * PROBE_BYTES, probes1 * 40, 0)
+    del keys, counts, incl, zexcl, total, got, one, args1, kw1
+
+    # ---- 6. the tree path at full width: one wavelet tree of the stream --
+    seq = shards_in.reshape(-1)[:N_TOKENS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    wt = wtree.build_wavelet_tree(seq, SIGMA, tau=TAU, big_step="radix",
+                                  sample_rate=SAMPLE_RATE, device=dev)
+    torch.cuda.synchronize()
+    t_tree = time.perf_counter() - t0
+    tree_launches = read_launches("tree path", TREE_KERNELS)
+    peak_tree = torch.cuda.max_memory_allocated()
+    print(f"tree build (radix big step, tokens already on the card): "
+          f"{N_TOKENS} tokens in {t_tree:.6f} s "
+          f"({N_TOKENS / t_tree:.1f} tok/s, "
+          f"{bits_per_token(wt, N_TOKENS):.4f} bits/token); peak device "
+          f"memory {peak_tree} B ({peak_tree / 2**30:.3f} GiB)")
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    wt_compose = wtree.build_wavelet_tree(seq, SIGMA, tau=TAU,
+                                          sample_rate=SAMPLE_RATE, device=dev)
+    torch.cuda.synchronize()
+    t_compose = time.perf_counter() - t0
+    print(f"tree build (compose big step) launches: "
+          f"{json.dumps(build.launches)}")
+    t0 = time.perf_counter()
+    wt_plain = wtree.build_wavelet_tree(seq, SIGMA, tau=TAU, big_step="radix",
+                                        sample_rate=SAMPLE_RATE,
+                                        use_kernels=False, device=dev)
+    torch.cuda.synchronize()
+    print(f"tree build: compose big step {t_compose:.6f} s, plain route "
+          f"{time.perf_counter() - t0:.6f} s")
+    same_leaves(wt, wt_compose, "tree: radix build against the compose "
+                "build")
+    same_leaves(wt, wt_plain, "tree: kernel build against the plain build")
+    del wt_compose, wt_plain
+    print("tree build: radix, compose and plain builds equal leaf for leaf")
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    radix_shards = build_wavelet_matrix(shards_in, SIGMA, tau=TAU,
+                                        big_step="radix",
+                                        sample_rate=SAMPLE_RATE, device=dev)
+    torch.cuda.synchronize()
+    print(f"sharded matrix, radix big step: {time.perf_counter() - t0:.6f} s,"
+          f" launches {json.dumps(build.launches)}")
+    same_leaves(eng.shards, radix_shards, "sharded matrix: radix build "
+                "against the compose build")
+    del radix_shards
+    print("sharded matrix: radix build equals the compose build leaf for leaf")
+
+    rng = np.random.default_rng(2)
+    q_pos = rng.integers(0, N_TOKENS, NUM_QUERIES)
+    q_sym = toks[rng.integers(0, N_TOKENS, NUM_QUERIES)].astype(np.int64)
+    q_end = rng.integers(0, N_TOKENS + 1, NUM_QUERIES)
+    q_k = rng.integers(0, 1 << 30, NUM_QUERIES) % np.bincount(
+        toks, minlength=SIGMA)[q_sym]
+    pos_t, sym_t, end_t, kk_t = (torch.from_numpy(x).to(dev)
+                                 for x in (q_pos, q_sym, q_end, q_k))
+    answers, rates = [], []
+    for op, args in (("access", (pos_t,)), ("rank", (sym_t, end_t)),
+                     ("select", (sym_t, kk_t))):
+        fn = getattr(wtree, f"wt_{op}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(wt, *args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        answers.append(out.cpu().numpy())
+        rates.append(f"{op} {dt * 1e3:.6f} ms ({NUM_QUERIES / dt:.1f} q/s)")
+    print(f"tree queries, {NUM_QUERIES} each: {', '.join(rates)}")
+    acc, rnk, sel = answers
+    for j in range(NUM_NUMPY_CHECKS):
+        c = q_sym[j]
+        want = (int(toks[q_pos[j]]),
+                int(np.count_nonzero(toks[:q_end[j]] == c)),
+                int(np.flatnonzero(toks == c)[q_k[j]]))
+        if (acc[j], rnk[j], sel[j]) != want:
+            fail(f"tree query {j}: access/rank/select {acc[j]}, {rnk[j]}, "
+                 f"{sel[j]} (numpy {want})")
+    print(f"tree queries: {NUM_NUMPY_CHECKS} each of access, rank and select "
+          f"equal numpy")
+
+    # tree kernels at the tree path's shapes
+    n = N_TOKENS
+    digits = (seq >> (nbits - TAU)).contiguous()  # first big step's digits
+
+    def radix_plain():
+        hist = radix_rank.radix_hist_plain(digits[None], 1 << TAU, n)
+        offsets = radix_rank.bucket_offsets(hist)
+        return radix_rank.radix_apply_plain(digits[None], offsets, 1 << TAU,
+                                            n)[0]
+
+    got = ops.radix_rank(digits, 1 << TAU)
+    report("radix_rank", "src/repro_torch/kernels/csrc/radix_rank.cu",
+           "src/repro/kernels/radix_rank.py:52",
+           ["src/repro/kernels/radix_rank.py:79"], got, radix_plain(),
+           cuda_ms(lambda: ops.radix_rank(digits, 1 << TAU), 20),
+           cuda_ms(radix_plain, 3), n * 8, n * 8, path="tree",
+           path_launches=tree_launches,
+           library_ms=cuda_ms(lambda: torch.sort(digits, stable=True), 20))
+
+    hist = radix_rank.radix_hist(digits[None], 1 << TAU, n)
+    report_phase("radix_hist", "src/repro/kernels/radix_rank.py:52", hist,
+                 radix_rank.radix_hist_plain(digits[None], 1 << TAU, n),
+                 cuda_ms(lambda: radix_rank.radix_hist(digits[None], 1 << TAU,
+                                                       n), 20),
+                 cuda_ms(lambda: radix_rank.radix_hist_plain(
+                     digits[None], 1 << TAU, n), 3),
+                 n * 4 + hist.numel() * 4, n * 4,
+                 tree_launches["radix_rank"] // 2)
+    offsets = radix_rank.bucket_offsets(hist)
+    report_phase("radix_apply", "src/repro/kernels/radix_rank.py:79",
+                 radix_rank.radix_apply(digits[None], offsets, 1 << TAU, n),
+                 radix_rank.radix_apply_plain(digits[None], offsets,
+                                              1 << TAU, n),
+                 cuda_ms(lambda: radix_rank.radix_apply(
+                     digits[None], offsets, 1 << TAU, n), 20),
+                 cuda_ms(lambda: radix_rank.radix_apply_plain(
+                     digits[None], offsets, 1 << TAU, n), 3),
+                 n * 8 + offsets.numel() * 4, n * 8,
+                 tree_launches["radix_rank"] // 2)
+    del hist, offsets
+
+    # level TAU: the first level after the first big step, 2^(TAU+1) buckets
+    order = wtree._tree_big_step(seq, nbits, TAU, "radix", True)
+    sub = bitops.extract_field(order, nbits - 2 * TAU, TAU).to(torch.int32)
+    nid = wtree._level_nid(wt.node_starts, TAU, n)
+    nbkt, shift = 1 << (TAU + 1), TAU - 1
+    del order
+
+    def wt_plain():
+        hist = wt_level.wt_counts_plain(sub[None], nid[None], shift, nbkt, n)
+        offsets = radix_rank.bucket_offsets(hist)
+        dest, bitmap = wt_level.wt_apply_plain(sub[None], nid[None], offsets,
+                                               shift, nbkt, n)
+        return dest[0], bitmap[0]
+
+    key = (nid << 1) | ((sub >> shift) & 1)
+    got = ops.wt_level_step_fused(sub, nid, shift, nbkt, n)
+    report("wt_level_step", "src/repro_torch/kernels/csrc/wt_level.cu",
+           "src/repro/kernels/wt_level.py:83", [], got, wt_plain(),
+           cuda_ms(lambda: ops.wt_level_step_fused(sub, nid, shift, nbkt, n),
+                   20),
+           cuda_ms(wt_plain, 3), n * 12 + got[1].numel() * 4, n * 12,
+           path="tree", path_launches=tree_launches,
+           library_ms=cuda_ms(lambda: torch.sort(key, stable=True), 20))
+    del key
+    s1, v1 = sub[None], nid[None]
+    hist = wt_level.wt_counts(s1, v1, shift, nbkt, n)
+    report_phase("wt_counts (l = 8)", "src/repro/kernels/wt_level.py:83",
+                 hist, wt_level.wt_counts_plain(s1, v1, shift, nbkt, n),
+                 cuda_ms(lambda: wt_level.wt_counts(s1, v1, shift, nbkt, n),
+                         20),
+                 cuda_ms(lambda: wt_level.wt_counts_plain(s1, v1, shift, nbkt,
+                                                          n), 3),
+                 n * 8 + hist.numel() * 4, n * 8,
+                 tree_launches["wt_level_step"] // 2)
+    offsets = radix_rank.bucket_offsets(hist)
+    report_phase("wt_apply (l = 8)", "src/repro/kernels/wt_level.py:83",
+                 wt_level.wt_apply(s1, v1, offsets, shift, nbkt, n),
+                 wt_level.wt_apply_plain(s1, v1, offsets, shift, nbkt, n),
+                 cuda_ms(lambda: wt_level.wt_apply(s1, v1, offsets, shift,
+                                                   nbkt, n), 20),
+                 cuda_ms(lambda: wt_level.wt_apply_plain(
+                     s1, v1, offsets, shift, nbkt, n), 3),
+                 n * 12 + offsets.numel() * 4 + n // 8, n * 12,
+                 tree_launches["wt_level_step"] // 2)
+    del hist, offsets
+
+    bits = ((sub >> (shift - 1)) & 1).contiguous()
+    got = ops.bitpack(bits)
+    report("bitpack", "src/repro_torch/kernels/csrc/bitpack.cu",
+           "src/repro/kernels/bitpack.py:26", [], got,
+           bitpack.bitpack_plain(bits[None], n)[0],
+           cuda_ms(lambda: ops.bitpack(bits), 20),
+           cuda_ms(lambda: bitpack.bitpack_plain(bits[None], n), 3),
+           n * 4 + got.numel() * 4, n * 2, path="tree",
+           path_launches=tree_launches)
+
+    tw = wt.bitvectors.rank.words
+    TL, TW = tw.shape
+    got = ops.rank_build_levels(tw, n)
+    report("rank_build_levels", "src/repro_torch/kernels/csrc/rank_build.cu",
+           "src/repro/kernels/rank_build.py:98",
+           ["src/repro/kernels/rank_build.py:53"], got,
+           rank_build.rank_build_levels_plain(tw, TW),
+           cuda_ms(lambda: ops.rank_build_levels(tw, n), 20),
+           cuda_ms(lambda: rank_build.rank_build_levels_plain(tw, TW), 5),
+           TL * TW * 4 + got[0].numel() * 4 + got[1].numel() * 2,
+           TL * TW * 8, path="tree", path_launches=tree_launches)
+
+    print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": kernels}))
     if any(row["check"] != "pass" for row in kernels):
         fail("a kernel disagrees with its plain version at full width")

@@ -1,11 +1,12 @@
-"""Carry a wavelet matrix between the reference's layout and the port's,
-bit-exactly.
+"""Carry a wavelet matrix or a wavelet tree between the reference's layout
+and the port's, bit-exactly.
 
 The reference side is a dict of numpy leaves keyed by dotted field path —
 ``bitvectors.rank.words`` (uint32), ``bitvectors.rank.superblock``
 (uint32), ``bitvectors.rank.block`` (uint16), ``bitvectors.sel1.sample``,
 ``bitvectors.sel0.sample`` and ``zeros`` (int32) — plus ``n`` and
-``nbits``; stacked matrices carry a leading (S,) axis on every leaf. The
+``nbits``; stacked matrices carry a leading (S,) axis on every leaf. A tree
+has ``node_starts`` (int32) in place of ``zeros``. The
 port keeps the same bytes in ``int32``/``int16``. No JAX is imported here:
 callers flatten the reference pytree to numpy themselves.
 """
@@ -16,26 +17,28 @@ import torch
 
 from repro_torch.core.rank_select import BinaryRank, BinarySelect, BitVector
 from repro_torch.core.wavelet_matrix import WaveletMatrix
+from repro_torch.core.wavelet_tree import WaveletTree
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_named_leaves
 
 # reference dtype, port dtype of every leaf
-LEAF_DTYPES = {
+_BITVECTOR_DTYPES = {
     "bitvectors.rank.words": (np.uint32, np.int32),
     "bitvectors.rank.superblock": (np.uint32, np.int32),
     "bitvectors.rank.block": (np.uint16, np.int16),
     "bitvectors.sel1.sample": (np.int32, np.int32),
     "bitvectors.sel0.sample": (np.int32, np.int32),
-    "zeros": (np.int32, np.int32),
 }
+LEAF_DTYPES = {**_BITVECTOR_DTYPES, "zeros": (np.int32, np.int32)}
+TREE_LEAF_DTYPES = {**_BITVECTOR_DTYPES, "node_starts": (np.int32, np.int32)}
 
 
-def from_reference(leaves: dict, n: int, nbits: int, sample_rate: int = 512,
-                   device: str | torch.device = "cuda") -> WaveletMatrix:
-    """The port's ``WaveletMatrix`` holding the bytes of reference leaves."""
+def _port_leaves(leaves: dict, dtypes: dict, n: int, sample_rate: int,
+                 device):
+    """(BitVector, dict of port tensors) holding the bytes of ``leaves``."""
     dev = resolve_device(device)
     t = {}
-    for name, (ref_dt, port_dt) in LEAF_DTYPES.items():
+    for name, (ref_dt, port_dt) in dtypes.items():
         arr = np.ascontiguousarray(np.asarray(leaves[name], ref_dt))
         t[name] = torch.from_numpy(arr.view(port_dt).copy()).to(dev)
     rank = BinaryRank(words=t["bitvectors.rank.words"],
@@ -45,20 +48,44 @@ def from_reference(leaves: dict, n: int, nbits: int, sample_rate: int = 512,
                         sample_rate=sample_rate, zeros=False)
     sel0 = BinarySelect(sample=t["bitvectors.sel0.sample"], n=n,
                         sample_rate=sample_rate, zeros=True)
-    return WaveletMatrix(bitvectors=BitVector(rank=rank, sel1=sel1,
-                                              sel0=sel0),
-                         zeros=t["zeros"], n=n, nbits=nbits)
+    return BitVector(rank=rank, sel1=sel1, sel0=sel0), t
+
+
+def _reference_leaves(struct, dtypes: dict) -> dict:
+    named = tree_named_leaves(struct)
+    out = {}
+    for name, (ref_dt, port_dt) in dtypes.items():
+        arr = named[name].cpu().numpy()
+        if arr.dtype != port_dt:
+            raise ValueError(f"{name} is {arr.dtype}, expected {port_dt}")
+        out[name] = arr.view(ref_dt)
+    out["n"], out["nbits"] = struct.n, struct.nbits
+    return out
+
+
+def from_reference(leaves: dict, n: int, nbits: int, sample_rate: int = 512,
+                   device: str | torch.device = "cuda") -> WaveletMatrix:
+    """The port's ``WaveletMatrix`` holding the bytes of reference leaves."""
+    bvs, t = _port_leaves(leaves, LEAF_DTYPES, n, sample_rate, device)
+    return WaveletMatrix(bitvectors=bvs, zeros=t["zeros"], n=n, nbits=nbits)
 
 
 def to_reference(wm: WaveletMatrix) -> dict:
     """Reference-layout numpy leaves of a port matrix, plus ``n`` and
     ``nbits``."""
-    named = tree_named_leaves(wm)
-    out = {}
-    for name, (ref_dt, port_dt) in LEAF_DTYPES.items():
-        arr = named[name].cpu().numpy()
-        if arr.dtype != port_dt:
-            raise ValueError(f"{name} is {arr.dtype}, expected {port_dt}")
-        out[name] = arr.view(ref_dt)
-    out["n"], out["nbits"] = wm.n, wm.nbits
-    return out
+    return _reference_leaves(wm, LEAF_DTYPES)
+
+
+def tree_from_reference(leaves: dict, n: int, nbits: int,
+                        sample_rate: int = 512,
+                        device: str | torch.device = "cuda") -> WaveletTree:
+    """The port's ``WaveletTree`` holding the bytes of reference leaves."""
+    bvs, t = _port_leaves(leaves, TREE_LEAF_DTYPES, n, sample_rate, device)
+    return WaveletTree(bitvectors=bvs, node_starts=t["node_starts"], n=n,
+                       nbits=nbits)
+
+
+def tree_to_reference(wt: WaveletTree) -> dict:
+    """Reference-layout numpy leaves of a port tree, plus ``n`` and
+    ``nbits``."""
+    return _reference_leaves(wt, TREE_LEAF_DTYPES)

@@ -265,20 +265,23 @@ def _word_zero_one_prefixes(words: torch.Tensor, n: int):
 
 def partition_select_directory(words: torch.Tensor, n: int):
     """Word-granularity select directory ``(zcum, ocum, Z, cm)`` over a
-    packed n-bit flag bitmap: word w's zero run starts at ``zcum[w]`` with
-    mark w, its one run at ``Z + ocum[w]`` with mark ``W + w``; a running
-    max assigns every target the word that feeds it."""
+    packed n-bit flag bitmap: word w's zero run starts at target
+    ``zcum[w]`` with mark w, its one run at ``Z + ocum[w]`` with mark
+    ``W + w``, and ``cm[t]`` is the largest mark at or below target t, the
+    word that feeds t. The reference scatters the marks and takes a running
+    max; since ``zcum`` and ``ocum`` are sorted, the same mark is the last
+    word whose run starts at or below t, found by ``searchsorted`` (torch's
+    running max walks one long row in sequence on the card)."""
     W = words.shape[-1]
     lead = words.shape[:-1]
     zcum, ocum, total_ones = _word_zero_one_prefixes(words, n)
     Z = n - total_ones
-    wid = torch.arange(W, device=words.device).expand(lead + (W,))
-    # one spare column takes the run starts at n (empty runs past the end)
-    marks = torch.zeros(lead + (n + 1,), dtype=torch.long,
-                        device=words.device)
-    marks.scatter_reduce_(-1, zcum, wid, "amax")
-    marks.scatter_reduce_(-1, Z[..., None] + ocum, W + wid, "amax")
-    cm = torch.cummax(marks[..., :n], -1).values
+    t = torch.arange(n, device=words.device).expand(lead + (n,)).contiguous()
+    in_ones = t >= lift(Z, t)
+    zero_word = torch.searchsorted(zcum.contiguous(), t, right=True) - 1
+    one_word = torch.searchsorted(ocum.contiguous(), t - lift(Z, t),
+                                  right=True) - 1
+    cm = torch.where(in_ones, W + one_word, zero_word)
     return zcum, ocum, Z, cm
 
 
@@ -308,4 +311,53 @@ def stable_partition_gather(words: torch.Tensor, total_zeros: torch.Tensor,
     p = torch.arange(n, device=words.device).expand(words.shape[:-1] + (n,))
     is_one = p >= lift(Z, p)
     t = torch.where(is_one, p - lift(Z, p), p)
+    return partition_select(words, directory, is_one.long(), t)
+
+
+def _rank1_at(words: torch.Tensor, ocum: torch.Tensor,
+              total_ones: torch.Tensor, pos: torch.Tensor,
+              n: int) -> torch.Tensor:
+    """rank1 at positions ``pos`` (each in [0, n]) from the word directory:
+    one word gather and one masked popcount per query. ``int64``."""
+    W = words.shape[-1]
+    pos = pos.long()
+    w = pos // bitops.WORD_BITS
+    wc = w.clamp(max=W - 1)
+    part = take(ocum, wc) + bitops.rank1_word(take(words, wc),
+                                              pos % bitops.WORD_BITS)
+    # pos == n with n a word multiple walks past the last word: total ones
+    return torch.where(w >= W, lift(total_ones, pos), part)
+
+
+def segmented_partition_gather(words: torch.Tensor, nid: torch.Tensor,
+                               node_start: torch.Tensor,
+                               n: int) -> torch.Tensor:
+    """Gather permutation of the stable *per-node* 0/1 partition.
+
+    ``words``: packed n-bit flag bitmap (zero past n); ``nid``: node id of
+    each element (grouped by node, non-decreasing); ``node_start``: (V,)
+    start offset of every node (empty nodes repeat the next start). Returns
+    ``g`` with ``g[..., p]`` = source index of the element landing at p, so
+    ``take(x, g)`` turns every node's segment into [zeros | ones], both
+    stably. A per-node split never crosses a node boundary, so position p
+    takes ``select0(rank0(node_start) + offset)`` (or select1) on the global
+    bitmap: one word-granularity select directory serves every node, and
+    only the O(V) boundary ranks are per node.
+    """
+    directory = partition_select_directory(words, n)
+    zcum, ocum, Z, _ = directory
+    total_ones = n - Z
+    ns = node_start.long()
+    ones_at = _rank1_at(words, ocum, total_ones, ns, n)
+    zeros_at = ns - ones_at                              # rank0(node start)
+    znode = torch.cat([zeros_at[..., 1:], Z[..., None]], -1) - zeros_at
+    p = torch.arange(n, device=words.device).expand(nid.shape)
+    v = nid.long()
+    start = take(ns, v)
+    offp = p - start
+    zeros_before = take(zeros_at, v)
+    zn = take(znode, v)
+    is_one = offp >= zn
+    t = torch.where(is_one, (start - zeros_before) + offp - zn,
+                    zeros_before + offp)
     return partition_select(words, directory, is_one.long(), t)

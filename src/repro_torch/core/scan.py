@@ -12,6 +12,28 @@ def exclusive_sum(x: torch.Tensor, dtype=None) -> torch.Tensor:
     return incl - x.to(incl.dtype)
 
 
+def inclusive_sum(x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """out[..., i] = sum(x[..., :i+1]) along the last axis."""
+    return torch.cumsum(x, -1, dtype=dtype or x.dtype)
+
+
+def segment_ids_from_starts(starts: torch.Tensor, n: int) -> torch.Tensor:
+    """Segment id of every position given sorted segment start offsets.
+
+    ``starts`` (S,), non-decreasing, ``starts[0] == 0``; position p belongs
+    to the largest segment s with ``starts[s] <= p``, so empty segments
+    (which share a start with the next) own no positions, and starts equal
+    to n (trailing empty segments) own none either. The reference marks run
+    starts and takes a running max; the largest such s is the number of
+    starts at or below p, less one, which ``searchsorted`` gives in parallel
+    (torch's running max walks one long row in sequence on the card).
+    ``int32``.
+    """
+    p = torch.arange(n, device=starts.device)
+    return (torch.searchsorted(starts.long().contiguous(), p, right=True)
+            - 1).to(torch.int32)
+
+
 def stable_partition_indices(flags: torch.Tensor) -> torch.Tensor:
     """Destination of each element under a stable 0/1 partition along the
     last axis: zeros keep order and go first, ones follow. ``int64``."""

@@ -4,7 +4,10 @@
 τ-chunk construction: each τ-bit field of the symbols is split level by
 level with stable 0/1 partitions of the narrow field ("short lists"), and
 the full-width symbols move once per chunk by the composition of those
-partitions (``big_step="compose"``). The per-level step routes through the
+partitions (``big_step="compose"``), by one stable counting sort on the
+reversed τ-bit field (``"radix"``, through the ``radix_rank`` kernels on
+CUDA tensors) or by the vendor's stable sort (``"xla"``, ``torch.sort``).
+The per-level step routes through the
 ``wm_level_step`` kernel and the rank tables through ``rank_build_levels``
 on CUDA tensors; the plain path gathers with the select-based
 ``stable_partition_gather``. Both give bit-identical matrices.
@@ -25,12 +28,22 @@ from .rank_select import (BitVector, access_bit, build_bitvector_levels,
                           rank0, rank1, select0, select1,
                           stable_partition_gather)
 from .scan import apply_permutation_dest, lift, take
+from .sort import sort_pass
 from ..device import resolve_device
 from ..tree import tree_map
 
 
 def num_levels(sigma: int) -> int:
     return max(1, math.ceil(math.log2(max(2, sigma))))
+
+
+def reverse_bits(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Reverse the low ``width`` bits of each element, ``int64``."""
+    x = bitops.u32(x)
+    out = torch.zeros_like(x)
+    for i in range(width):
+        out |= ((x >> i) & 1) << (width - 1 - i)
+    return out
 
 
 @dataclass(frozen=True)
@@ -57,13 +70,11 @@ def build_wavelet_matrix(seq, sigma: int, tau: int = 8,
     """τ-chunked parallel construction (paper Theorem 4.5).
 
     ``seq``: (n,) or (S, n) symbols in [0, sigma), moved to ``device``.
-    ``use_kernels`` routes the level steps and rank tables through the CUDA
-    kernels; ``None`` enables them on a CUDA device. Only the fused
-    ``"compose"`` build is ported so far.
+    ``use_kernels`` routes the level steps, the radix big step and the rank
+    tables through the CUDA kernels; ``None`` enables them on a CUDA
+    device. Only the fused build is ported.
     """
-    if big_step in ("radix", "xla"):
-        raise NotImplementedError(f"big_step={big_step!r} is not ported yet")
-    if big_step != "compose":
+    if big_step not in ("compose", "radix", "xla"):
         raise ValueError(f"unknown big_step {big_step!r}")
     if not fused:
         raise NotImplementedError("the fused=False baseline is not ported")
@@ -80,15 +91,18 @@ def build_wavelet_matrix(seq, sigma: int, tau: int = 8,
     for alpha0 in range(0, nbits, tau):
         width = min(tau, nbits - alpha0)
         # the τ-bit field starting alpha0 bits below the top: the short list
-        sub = bitops.extract_field(order, nbits - alpha0 - width,
-                                   width).to(torch.int32)
+        fld = bitops.extract_field(order, nbits - alpha0 - width, width)
+        sub = fld.to(torch.int32)
         last_chunk = alpha0 + width >= nbits
+        # the composed permutation exists only for a compose big step
         idx = (torch.arange(n, dtype=torch.int32, device=dev)
-               .expand(rows, n).contiguous() if not last_chunk else None)
+               .expand(rows, n).contiguous()
+               if not last_chunk and big_step == "compose" else None)
         for t in range(width):
             shift = width - 1 - t
             # movement arranges the next level; at the chunk's final level
-            # only the composed permutation still advances
+            # only the composed permutation still advances (a radix or xla
+            # big step re-sorts from the chunk-start order)
             move = (alpha0 + t < nbits - 1) and (t < width - 1
                                                  or idx is not None)
             if use_kernels:
@@ -112,7 +126,13 @@ def build_wavelet_matrix(seq, sigma: int, tau: int = 8,
             level_words.append(words)
             zeros.append(z)
         if not last_chunk:
-            order = take(order, idx)
+            if big_step == "compose":
+                order = take(order, idx)
+            else:
+                order, _ = sort_pass(
+                    order, reverse_bits(fld, width), 1 << width,
+                    backend="counting" if big_step == "radix" else "xla",
+                    use_kernel=use_kernels)
 
     bvs = build_bitvector_levels(torch.stack(level_words, 1), n, sample_rate,
                                  use_kernels=use_kernels)

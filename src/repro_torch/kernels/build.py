@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into its own
 shared library under ``kernels/build/`` (listed in ``.gitignore``), named by
-a hash of its source and flags so an edited source rebuilds. The first
+a hash of its source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header rebuilds. The first
 call to :func:`library` compiles every source at once, one ``nvcc`` process
 per file, and waits for all of them. Nothing is compiled or loaded at
 import time: the CPU tests import every module.
@@ -38,13 +39,23 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "wm_quantile_max_shards": [],
         "wm_quantile_sharded": ([_P] * 3 + [_I] + [_P, _L] * 3 + [_P]
                                 + [_I] * 5 + [_P, _P])},
+    "radix_rank": {
+        "radix_hist": [_P, _I, _I, _L, _I, _P, _I, _P],
+        "radix_apply": [_P, _I, _I, _L, _I, _I, _P, _P, _L, _P]},
+    "wt_level": {
+        "wt_counts": [_P, _P, _I, _I, _L, _L, _I, _I, _P, _I, _P],
+        "wt_apply": [_P, _P, _I, _I, _L, _L, _I, _I, _I, _P, _P, _L, _P, _I,
+                     _L, _P]},
+    "bitpack": {
+        "bitpack": [_P, _I, _I, _L, _P, _I, _L, _P]},
 }
 SOURCES = tuple(SIGNATURES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 launches: dict[str, int] = {"rank_build_levels": 0, "wm_level_step": 0,
-                            "wm_quantile_sharded": 0}
+                            "wm_quantile_sharded": 0, "radix_rank": 0,
+                            "wt_level_step": 0, "bitpack": 0}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -66,6 +77,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

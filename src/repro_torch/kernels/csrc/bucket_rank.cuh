@@ -1,0 +1,79 @@
+// Blocked stable bucket rank, shared by radix_rank.cu and wt_level.cu.
+//
+// A stable counting sort gives element i the destination
+//   base[key_i] + across[tile_i][key_i] + (# j < i in the same tile with
+//   key_j == key_i),
+// with tiles of kTile = 1024 consecutive keys, base the exclusive scan of the
+// bucket totals and across the exclusive scan of the per-tile histograms over
+// tiles. Two launches and a torch scan between them, because CUDA blocks run
+// in no order (the TPU forms carry these sums through a sequential grid):
+//   1. count: one block of kTile threads per tile writes the tile's
+//      histogram; each warp first merges equal keys with __match_any_sync, so
+//      a tile of few distinct keys costs few shared-memory atomics.
+//   2. (torch) offsets = base + across for every (tile, bucket), as one
+//      exclusive scan over the histograms laid out bucket-major.
+//   3. apply: one warp per tile walks it in 32 rounds of 32 keys, in order.
+//      Each warp keeps one running counter per bucket in shared memory,
+//      seeded with the tile's offsets. In a round, __match_any_sync finds the
+//      lanes holding the same key; a lane's destination is the counter plus the
+//      number of those peers on lower lanes, and the lowest peer then advances
+//      the counter by the peer count. Rounds run in key order and lanes in key
+//      order inside a round, so the rank is stable; tiles never share a
+//      counter, so no ordering between warps is needed.
+// Positions past n carry the sentinel bucket B (after every real bucket), as
+// the reference pads them; out-of-range keys are read as the sentinel too, so
+// shared memory is never indexed out of bounds.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace bucket_rank {
+
+constexpr int kTile = 1024;          // keys per tile
+constexpr int kMaxBuckets = 512;     // real buckets; one more for the sentinel
+constexpr int kApplyWarps = 8;       // tiles per apply block, one per warp
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ int clamp_key(int key, int num_buckets) {
+  return static_cast<unsigned>(key) > static_cast<unsigned>(num_buckets)
+             ? num_buckets
+             : key;
+}
+
+// Count phase for one tile: every thread of the kTile-thread block passes its
+// key (sentinel past n); the block writes num_buckets + 1 counts to `out`.
+__device__ __forceinline__ void tile_histogram(int key, int nb1,
+                                               int32_t* __restrict__ out) {
+  __shared__ int counts[kMaxBuckets + 1];
+  for (int b = threadIdx.x; b < nb1; b += blockDim.x) counts[b] = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(kFull, key);
+  if (lane == __ffs(peers) - 1) atomicAdd(&counts[key], __popc(peers));
+  __syncthreads();
+  for (int b = threadIdx.x; b < nb1; b += blockDim.x) out[b] = counts[b];
+}
+
+// Apply phase: one warp's running per-bucket counters for one tile.
+struct TileRanker {
+  int* counter;  // nb1 ints of this warp's shared memory
+
+  __device__ __forceinline__ void seed(const int32_t* __restrict__ offsets,
+                                       int nb1, int lane) {
+    for (int b = lane; b < nb1; b += 32) counter[b] = offsets[b];
+    __syncwarp();
+  }
+
+  // Destination of this lane's key in the current round (all 32 lanes call).
+  __device__ __forceinline__ int rank(int key, int lane) {
+    const unsigned peers = __match_any_sync(kFull, key);
+    const int d = counter[key] + __popc(peers & ((1u << lane) - 1u));
+    __syncwarp();
+    if (lane == __ffs(peers) - 1) counter[key] += __popc(peers);
+    __syncwarp();
+    return d;
+  }
+};
+
+}  // namespace bucket_rank

@@ -14,9 +14,57 @@ from repro_torch.core import bitops
 from repro_torch.core.rank_select import BLOCK_WORDS
 from repro_torch.tree import tree_map
 
+from . import bitpack as _bitpack
+from . import radix_rank as _radix_rank
 from . import rank_build as _rank_build
 from . import wm_level as _wm_level
 from . import wm_quantile as _wm_quantile
+from . import wt_level as _wt_level
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """(R, n) contiguous int32 view of a (…, n) tensor."""
+    return x.reshape(-1, x.shape[-1]).to(torch.int32).contiguous()
+
+
+def bitpack(bits: torch.Tensor) -> torch.Tensor:
+    """Pack a (…, n) 0/1 tensor into (…, ceil(n/32)) int32 words,
+    LSB-first, zero past n — the contract of the reference's ``bitpack``
+    without its (32, W) transpose."""
+    n = bits.shape[-1]
+    words = _bitpack.bitpack(_rows(bits), n)
+    return words.reshape(bits.shape[:-1] + (-1,))
+
+
+def radix_rank(digits: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """Stable counting-sort destination of every digit of each (…, n) row
+    (digits in [0, num_buckets), num_buckets ≤ ``radix_rank.MAX_BUCKETS``):
+    count launch, the offsets' scan in torch, apply launch. The contract of
+    ``core.sort.counting_rank``; (…, n) int32."""
+    if num_buckets > _radix_rank.MAX_BUCKETS:
+        raise ValueError(f"num_buckets {num_buckets} exceeds "
+                         f"{_radix_rank.MAX_BUCKETS}")
+    n = digits.shape[-1]
+    d = _rows(digits)
+    offsets = _radix_rank.bucket_offsets(
+        _radix_rank.radix_hist(d, num_buckets, n))
+    dest = _radix_rank.radix_apply(d, offsets, num_buckets, n)
+    return dest.reshape(digits.shape)
+
+
+def wt_level_step_fused(sub: torch.Tensor, nid: torch.Tensor, shift: int,
+                        nbkt: int, n: int):
+    """One segmented wavelet-tree level on narrow keys ``sub`` (n,) or
+    (R, n) with node ids ``nid`` (non-decreasing per row): (dest int32
+    stable per-node partition destinations, bitmap (…, ceil(n/32)) int32).
+    ``nbkt`` = 2^(l+1) ≤ ``wt_level.MAX_KEYS``. Count launch, the offsets'
+    scan in torch, apply launch."""
+    s, v = _rows(sub), _rows(nid)
+    offsets = _radix_rank.bucket_offsets(
+        _wt_level.wt_counts(s, v, shift, nbkt, n))
+    dest, bitmap = _wt_level.wt_apply(s, v, offsets, shift, nbkt, n)
+    lead = sub.shape[:-1]
+    return dest.reshape(lead + (n,)), bitmap.reshape(lead + (-1,))
 
 
 def rank_build_levels(words: torch.Tensor, n: int):

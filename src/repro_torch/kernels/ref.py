@@ -14,6 +14,34 @@ from repro_torch.core.rank_select import BLOCK_WORDS, SUPERBLOCK_WORDS
 from repro_torch.core.scan import stable_partition_indices
 
 
+def bitpack_ref(bits: torch.Tensor) -> torch.Tensor:
+    """(n,) 0/1 → ceil(n/32) int32 words, LSB-first."""
+    return bitops.pack_bits(bitops.pad_bits(bits.long()))
+
+
+def _inverse_of_stable_argsort(keys: torch.Tensor) -> torch.Tensor:
+    n = keys.shape[0]
+    order = torch.argsort(keys, stable=True)
+    return torch.empty_like(order).scatter_(
+        0, order, torch.arange(n, device=keys.device)).to(torch.int32)
+
+
+def radix_rank_ref(digits: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """Stable counting-sort destinations: the inverse of a stable argsort
+    by digit."""
+    del num_buckets
+    return _inverse_of_stable_argsort(digits.long())
+
+
+def wt_level_step_ref(sub: torch.Tensor, nid: torch.Tensor, shift: int,
+                      n: int):
+    """(dest, bitmap) of one segmented wavelet-tree level: stable
+    destinations under a sort by (node id, level bit)."""
+    bit = (bitops.u32(sub[:n]) >> shift) & 1
+    dest = _inverse_of_stable_argsort((nid[:n].long() << 1) | bit)
+    return dest, bitops.pack_bits(bitops.pad_bits(bit))
+
+
 def rank_build_ref(words: torch.Tensor, n: int):
     """(superblock int32, block int16) of one packed n-bit row."""
     words = words[:bitops.num_words(n)]

@@ -16,7 +16,10 @@ from repro_torch.analytics import build_sharded_analytics
 from repro_torch.analytics.engine import sharded_range_quantile
 from repro_torch.core import bitops
 from repro_torch.core.wavelet_matrix import build_wavelet_matrix
-from repro_torch.kernels import build, ops, rank_build, ref, wm_level
+from repro_torch.core.wavelet_tree import (build_wavelet_tree, wt_access,
+                                           wt_rank, wt_select)
+from repro_torch.kernels import (bitpack, build, ops, radix_rank, rank_build,
+                                 ref, wm_level, wt_level)
 from repro_torch.kernels import wm_quantile
 from repro_torch.tree import tree_map, tree_named_leaves
 
@@ -100,7 +103,8 @@ def test_main_path_on_the_card_matches_the_cpu():
     eng = build_sharded_analytics(toks, 5000, shard_bits=12, device=dev)
     lo, hi, k = _queries(len(toks), 2000, 1, dev)
     got = eng.range_quantile(lo, hi, k)
-    assert all(c > 0 for c in build.launches.values())
+    assert all(build.launches[name] > 0 for name in (
+        "rank_build_levels", "wm_level_step", "wm_quantile_sharded"))
     cpu = build_sharded_analytics(toks, 5000, shard_bits=12, device="cpu")
     a, b = tree_named_leaves(eng.shards), tree_named_leaves(cpu.shards)
     assert all(torch.equal(a[name].cpu(), b[name]) for name in a)
@@ -108,3 +112,92 @@ def test_main_path_on_the_card_matches_the_cpu():
                                                    lo, hi, k))
     assert torch.equal(got.cpu(), cpu.range_quantile(lo.cpu(), hi.cpu(),
                                                      k.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 1000, 1024, 1025, 70001])
+@pytest.mark.parametrize("nb", [2, 33, 256, 512])
+def test_radix_rank_kernels_match_plain(n, nb):
+    dev = _card()
+    d = torch.from_numpy(np.random.default_rng(n + nb).integers(
+        0, nb, (3, n)).astype(np.int32)).to(dev)
+    d[0] = 0                                      # one bucket only
+    hist = radix_rank.radix_hist(d, nb, n)
+    assert torch.equal(hist, radix_rank.radix_hist_plain(d, nb, n))
+    offsets = radix_rank.bucket_offsets(hist)
+    got = radix_rank.radix_apply(d, offsets, nb, n)
+    assert torch.equal(got, radix_rank.radix_apply_plain(d, offsets, nb, n))
+    for r in range(3):
+        assert torch.equal(got[r], ref.radix_rank_ref(d[r], nb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 1000, 1024, 1025, 70001])
+@pytest.mark.parametrize("nodes", [1, 16, 256])
+def test_wt_level_kernels_match_plain(n, nodes):
+    dev = _card()
+    rng = np.random.default_rng(n + nodes)
+    nid = torch.from_numpy(np.sort(rng.integers(0, nodes, (2, n)), 1).astype(
+        np.int32)).to(dev)
+    sub = torch.from_numpy(rng.integers(0, 256, (2, n)).astype(
+        np.int32)).to(dev)
+    for shift in (0, 7):
+        hist = wt_level.wt_counts(sub, nid, shift, 2 * nodes, n)
+        assert torch.equal(hist, wt_level.wt_counts_plain(sub, nid, shift,
+                                                          2 * nodes, n))
+        offsets = radix_rank.bucket_offsets(hist)
+        got = wt_level.wt_apply(sub, nid, offsets, shift, 2 * nodes, n)
+        want = wt_level.wt_apply_plain(sub, nid, offsets, shift,
+                                       2 * nodes, n)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert all(torch.equal(g, w) for g, w in zip(
+            (got[0][1], got[1][1]),
+            ref.wt_level_step_ref(sub[1], nid[1], shift, n)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 32, 1000, 1024, 1025, 70001])
+def test_bitpack_kernel_matches_plain(n):
+    dev = _card()
+    bits = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 2, (3, n)).astype(np.int32)).to(dev)
+    bits[0] = 1
+    got = bitpack.bitpack(bits, n)
+    assert torch.equal(got, bitpack.bitpack_plain(bits, n))
+    assert torch.equal(got[2], ref.bitpack_ref(bits[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("big_step", ["compose", "radix", "xla"])
+def test_tree_on_the_card_matches_the_cpu(big_step):
+    dev = _card()
+    sigma, n = 151_936, 9000
+    seq = np.random.default_rng(1).integers(0, sigma, n).astype(np.int32)
+    build.reset_launches()
+    wt = build_wavelet_tree(seq, sigma, big_step=big_step, device=dev)
+    assert build.launches["wt_level_step"] > 0
+    assert build.launches["bitpack"] > 0
+    assert (build.launches["radix_rank"] > 0) == (big_step == "radix")
+    cpu = build_wavelet_tree(seq, sigma, big_step=big_step, device="cpu")
+    a, b = tree_named_leaves(wt), tree_named_leaves(cpu)
+    assert all(torch.equal(a[name].cpu(), b[name]) for name in a)
+    i = torch.arange(0, n, 97, device=dev)
+    assert np.array_equal(wt_access(wt, i).cpu().numpy(), seq[::97])
+    c = torch.from_numpy(seq[::97]).to(dev)
+    assert torch.equal(wt_rank(wt, c, i).cpu(), wt_rank(cpu, c.cpu(),
+                                                        i.cpu()))
+    assert torch.equal(wt_select(wt, c, torch.zeros_like(c)).cpu(),
+                       wt_select(cpu, c.cpu(), torch.zeros_like(c.cpu())))
+
+
+@pytest.mark.cuda
+def test_matrix_radix_build_on_the_card_matches_compose():
+    dev = _card()
+    rows = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 5000, (4, 4096)).astype(np.int32)).to(dev)
+    build.reset_launches()
+    radix = build_wavelet_matrix(rows, 5000, big_step="radix", device=dev)
+    assert build.launches["radix_rank"] == 2      # one hist + one apply
+    compose = build_wavelet_matrix(rows, 5000, device=dev)
+    a, b = tree_named_leaves(radix), tree_named_leaves(compose)
+    assert all(torch.equal(a[name], b[name]) for name in a)

@@ -150,10 +150,6 @@ def test_converter_round_trip(stacked):
 
 def test_unported_routes_raise():
     seq = np.zeros(64, np.int32)
-    for big_step in ("radix", "xla"):
-        with pytest.raises(NotImplementedError):
-            twm.build_wavelet_matrix(seq, 16, big_step=big_step,
-                                     device="cpu")
     with pytest.raises(NotImplementedError):
         twm.build_wavelet_matrix(seq, 16, fused=False, device="cpu")
     with pytest.raises(ValueError):
