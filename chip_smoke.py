@@ -4,9 +4,12 @@
     python3 chip_smoke.py          # from the root of a checkout, one card
 
 1. Prints the card, its power limit, and the torch and CUDA versions.
-2. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``.
+2. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and prints
+   the registers, shared and local memory and resident blocks per SM of the
+   two single-pass level scans.
 3. Holds each kernel against its plain PyTorch version on the card at
-   ragged shapes (exact equality: every output is an integer).
+   ragged shapes (exact equality: every output is an integer); each level
+   scan runs twice on the same inputs and must repeat itself.
 4. Runs the main path at full width: a 2^27-token Zipfian stream over
    Qwen2's vocabulary (σ = 151,936, 18 levels), 128 shards of 2^20,
    τ = 8, sample rate 512; the build through the kernels, checked leaf for
@@ -14,24 +17,30 @@
    the sharded quantile kernel, all checked against the plain descent and
    32 against numpy, and the same batch of range counts, 32 checked
    against numpy. Launch counts are zeroed just before this run and read
-   just after it; each kernel must have launched.
+   just after it; each kernel must have launched, ``wm_level_step`` once a
+   level plus once for every level's zero totals.
 5. Runs the second path on the same stream: the whole 2^27 tokens built as
    one τ-chunked wavelet tree (Theorem 4.1) with the radix big step,
    through the tree's kernels (launch counts zeroed just before, each must
-   have launched), then with the compose big step and by the plain build;
+   have launched, ``wt_level_step`` once for each of the 8 moved levels
+   l ≤ 8), then with the compose big step and by the plain build;
    all three equal leaf for leaf. The sharded matrix of step 4 is rebuilt
    with the radix big step and must equal its compose build. 4,096 each of
    tree access, rank and select run on the card, 32 of each checked
    against numpy.
 6. Times each kernel by CUDA events at its path's shapes beside its plain
    version, its bound and, where one torch call computes the same
-   function, that call; prints the ``kernels`` JSON line.
+   function, that call; prints the ``phases`` JSON line (the single-row
+   and single-shard forms, the totals count, the reference's two matrix
+   phase kernels and the two-launch level they make, the tree level at
+   l = 0) and the ``kernels`` JSON line.
 
 Exits non-zero on any failure; prints no result without a CUDA device or
 outside a checkout. The last line is the ``{"ok": true, ...}`` object.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -162,6 +171,14 @@ def main() -> None:
         build.library(name)
     print(f"kernel build (nvcc, {len(build.SOURCES)} sources in parallel): "
           f"{time.perf_counter() - t0:.3f} s")
+    for src, entry in (("wm_level", "wm_level_scan_info"),
+                       ("wt_level", "wt_level_scan_info")):
+        attrs = (ctypes.c_int * 4)()
+        lib = build.library(src)
+        build.check(lib, getattr(lib, entry)(attrs), entry)
+        print(f"{entry[:-5]} kernel: {attrs[0]} registers, {attrs[1]} B "
+              f"static shared memory, {attrs[2]} B local memory, "
+              f"{attrs[3]} resident blocks of 256 threads per SM")
 
     # ---- 3. each kernel against its plain version, ragged shapes -------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -185,24 +202,79 @@ def main() -> None:
             max_abs_err(ops.rank_build(words[2], n),      # L = 1
                         ref.rank_build_ref(words[2], n)))
 
-    for n, shift in ((1, 0), (1000, 3), (1024, 7), (1025, 0), (5000, 5),
-                     (3 * 1024, 1), (70_001, 6)):
-        keys = torch.randint(0, 256, (4, n), generator=gen, device=dev,
+    def twice(fn):
+        """A kernel's outputs, after a second run gave the same ones."""
+        first, second = fn(), fn()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            fail("two runs of a kernel on the same inputs differ")
+        return first
+
+    # the zero scans: ragged n (one tile is 8,192 keys), 1 and 4 rows, rows
+    # off 16-byte alignment, all-zero and all-one rows, and one row of
+    # 2^22 + 123 keys whose look-back crosses 513 tiles
+    for n, rows, strided in ((1, 4, False), (31, 1, False), (1000, 4, True),
+                             (8191, 4, False), (8193, 1, False),
+                             (3 * 8192 + 100, 4, False),
+                             (5 * 8192 + 77, 4, True), (70_001, 1, True),
+                             ((1 << 22) + 123, 1, False)):
+        keys = torch.randint(0, 256, (rows, n + 1), generator=gen,
+                             device=dev, dtype=torch.int32)
+        if rows > 1:
+            keys[0], keys[1] = 0, 255
+        keys = keys[:, 1:] if strided else keys[:, :n].contiguous()
+        e = 0
+        for shift in (0, 3, 7):
+            total = wm_level.wm_level_zeros(keys, shift, 1, n)[:, 0]
+            e = max(e, max_abs_err(total, wm_level.wm_level_zeros_plain(
+                keys, shift, 1, n)[:, 0]))
+            got = twice(lambda: wm_level.wm_level(keys, total, shift, n))
+            e = max(e, max_abs_err(got, wm_level.wm_level_plain(
+                keys, total, shift, n)))
+            e = max(e, max_abs_err(ops.wm_level_step(keys, shift, n), got))
+            for r in range(min(rows, 2) if n < 1 << 22 else 0):
+                e = max(e, max_abs_err(tuple(x[r] for x in got),
+                                       ref.wm_level_step_ref(keys[r], shift,
+                                                             n)))
+            if n < 1 << 22:        # the kept two-launch phases
+                counts = wm_level.wm_counts(keys, shift, n)
+                e = max(e, max_abs_err(counts, wm_level.wm_counts_plain(
+                    keys, shift, n)))
+                incl = torch.cumsum(counts, 1)
+                zexcl = (incl - counts).int()
+                e = max(e, max_abs_err(
+                    wm_level.wm_apply(keys, zexcl, total, shift, n),
+                    wm_level.wm_apply_plain(keys, zexcl, total, shift, n)))
+        syms = torch.randint(0, SIGMA, (rows, n), generator=gen, device=dev,
                              dtype=torch.int32)
-        keys[0] = 0
-        keys[1] = 255
-        counts = wm_level.wm_counts(keys, shift, n)
-        e = max_abs_err(counts, wm_level.wm_counts_plain(keys, shift, n))
-        incl = torch.cumsum(counts, 1)
-        zexcl, total = (incl - counts).int(), incl[:, -1].int()
         e = max(e, max_abs_err(
-            wm_level.wm_apply(keys, zexcl, total, shift, n),
-            wm_level.wm_apply_plain(keys, zexcl, total, shift, n)))
-        dest, bitmap, z = ops.wm_level_step(keys, shift, n)
-        for r in range(keys.shape[0]):
-            e = max(e, max_abs_err((dest[r], bitmap[r], z[r]),
-                                   ref.wm_level_step_ref(keys[r], shift, n)))
+            wm_level.wm_level_zeros(syms, 0, 18, n),
+            wm_level.wm_level_zeros_plain(syms, 0, 18, n)))
         ragged_err["wm_level_step"] = max(ragged_err["wm_level_step"], e)
+
+        # a tree level at l = 0, 1, 5, 8 on the same keys; about half of the
+        # nodes are empty
+        for l in (0, 1, 5, 8):
+            nodes, nbkt = 1 << l, 2 << l
+            used = torch.randperm(nodes, generator=gen, device=dev)[
+                :max(1, nodes // 2)]
+            nid = torch.sort(used[torch.randint(
+                0, used.numel(), (rows, n), generator=gen, device=dev)],
+                1).values.to(torch.int32)
+            shift = l % 8
+            starts = wt_level.bucket_starts_plain(keys, nid, shift, nbkt, n)
+            got = twice(lambda: wt_level.wt_level(keys, nid, shift, nbkt, n,
+                                                  starts))
+            e = max(max_abs_err(got, wt_level.wt_level_plain(
+                        keys, nid, shift, nbkt, n, starts)),
+                    max_abs_err(wt_level.wt_level(keys, nid, shift, nbkt, n),
+                                got))
+            if n < 1 << 22:
+                e = max(e, max_abs_err((got[0][rows - 1], got[1][rows - 1]),
+                                       ref.wt_level_step_ref(
+                                           keys[rows - 1], nid[rows - 1],
+                                           shift, n)))
+            ragged_err["wt_level_step"] = max(ragged_err["wt_level_step"], e)
+    del keys, syms, nid, starts, got
 
     for num_shards, shard_bits, n, sigma in ((1, 12, 3000, 37),
                                              (3, 10, 2500, 2),
@@ -253,23 +325,6 @@ def main() -> None:
                 e = max(e, max_abs_err(got[r], ref.radix_rank_ref(d[r], nb)))
             ragged_err["radix_rank"] = max(ragged_err["radix_rank"], e)
 
-            nid = torch.sort(torch.randint(0, max(1, nb // 2), (2, n),
-                                           generator=gen, device=dev,
-                                           dtype=torch.int32), 1).values
-            sub = torch.randint(0, 256, (2, n), generator=gen, device=dev,
-                                dtype=torch.int32)
-            shift = nb % 8
-            hist = wt_level.wt_counts(sub, nid, shift, nb, n)
-            e = max_abs_err(hist, wt_level.wt_counts_plain(sub, nid, shift,
-                                                           nb, n))
-            offsets = radix_rank.bucket_offsets(hist)
-            got = wt_level.wt_apply(sub, nid, offsets, shift, nb, n)
-            e = max(e, max_abs_err(got, wt_level.wt_apply_plain(
-                sub, nid, offsets, shift, nb, n)))
-            e = max(e, max_abs_err((got[0][1], got[1][1]),
-                                   ref.wt_level_step_ref(sub[1], nid[1],
-                                                         shift, n)))
-            ragged_err["wt_level_step"] = max(ragged_err["wt_level_step"], e)
         bits = torch.randint(0, 2, (3, n), generator=gen, device=dev,
                              dtype=torch.int32)
         bits[0] = 1
@@ -312,6 +367,10 @@ def main() -> None:
     torch.cuda.synchronize()
     t_count = time.perf_counter() - t0
     launches = read_launches("matrix path", MATRIX_KERNELS)
+    if launches["wm_level_step"] != eng.shards.nbits + 1:
+        fail(f"matrix path: {launches['wm_level_step']} wm_level_step "
+             f"launches, want one a level and one totals count "
+             f"({eng.shards.nbits + 1})")
     peak = torch.cuda.max_memory_allocated()
     print(f"build: {N_TOKENS} tokens, {eng.num_shards} shards of "
           f"{eng.shard_size} in {t_build:.6f} s "
@@ -399,24 +458,22 @@ def main() -> None:
 
     nbits = eng.shards.nbits
     keys = bitops.extract_field(shards_in, nbits - TAU, TAU).to(torch.int32)
-
-    def level_plain():
-        counts = wm_level.wm_counts_plain(keys, TAU - 1, size)
-        incl = torch.cumsum(counts, 1)
-        dest, bitmap = wm_level.wm_apply_plain(
-            keys, (incl - counts).int(), incl[:, -1].int(), TAU - 1, size)
-        return dest, bitmap, incl[:, -1].int()
-
-    got = ops.wm_level_step(keys, TAU - 1, size)
+    totals = ops.wm_level_zeros(shards_in, nbits)[:, 0]
+    level_bits = (keys >> (TAU - 1)) & 1
+    got = ops.wm_level_step(keys, TAU - 1, size, totals)
     report("wm_level_step", "src/repro_torch/kernels/csrc/wm_level.cu",
            "src/repro/kernels/wm_level.py:132",
            ["src/repro/kernels/wm_level.py:52",
-            "src/repro/kernels/wm_level.py:166"], got, level_plain(),
-           cuda_ms(lambda: ops.wm_level_step(keys, TAU - 1, size), 20),
-           cuda_ms(level_plain, 3),
+            "src/repro/kernels/wm_level.py:166"], got,
+           wm_level.wm_level_plain(keys, totals, TAU - 1, size),
+           cuda_ms(lambda: ops.wm_level_step(keys, TAU - 1, size, totals), 20),
+           cuda_ms(lambda: wm_level.wm_level_plain(keys, totals, TAU - 1,
+                                                   size), 3),
            keys.numel() * 8 + got[1].numel() * 4 + got[2].numel() * 4,
-           keys.numel() * 24)
-
+           keys.numel() * 24,
+           library_ms=cuda_ms(lambda: torch.sort(level_bits, dim=1,
+                                                 stable=True), 20))
+    del level_bits
     args, kw = ops.sharded_quantile_operands(eng.shards, SHARD_BITS,
                                              N_TOKENS, lo_t, hi_t, k_t)
     probes = 0                 # rank probes of non-empty local ranges
@@ -463,14 +520,25 @@ def main() -> None:
         if err:
             fail(f"{name} disagrees with its plain version")
 
+    zeros = ops.wm_level_zeros(shards_in, nbits)
+    report_phase("wm_level_zeros (every level's totals, once a build)",
+                 "src/repro/kernels/wm_level.py:132", zeros,
+                 wm_level.wm_level_zeros_plain(shards_in, 0, nbits, size),
+                 cuda_ms(lambda: ops.wm_level_zeros(shards_in, nbits), 20),
+                 cuda_ms(lambda: wm_level.wm_level_zeros_plain(
+                     shards_in, 0, nbits, size), 3),
+                 shards_in.numel() * 4 + zeros.numel() * 4,
+                 shards_in.numel() * nbits, 1)
+    del zeros
+    # the reference's two phase kernels, off the build path, and the
+    # two-launch level they make, at the same shape as the one-launch level
     counts = wm_level.wm_counts(keys, TAU - 1, size)
     report_phase("wm_counts", "src/repro/kernels/wm_level.py:52", counts,
                  wm_level.wm_counts_plain(keys, TAU - 1, size),
                  cuda_ms(lambda: wm_level.wm_counts(keys, TAU - 1, size), 20),
                  cuda_ms(lambda: wm_level.wm_counts_plain(keys, TAU - 1,
                                                           size), 3),
-                 keys.numel() * 4 + counts.numel() * 4, keys.numel() * 4,
-                 launches["wm_level_step"] // 2)
+                 keys.numel() * 4 + counts.numel() * 4, keys.numel() * 4, 0)
     incl = torch.cumsum(counts, 1)
     zexcl, total = (incl - counts).int(), incl[:, -1].int()
     got = wm_level.wm_apply(keys, zexcl, total, TAU - 1, size)
@@ -481,7 +549,23 @@ def main() -> None:
                  cuda_ms(lambda: wm_level.wm_apply_plain(
                      keys, zexcl, total, TAU - 1, size), 3),
                  keys.numel() * 8 + got[1].numel() * 4 + zexcl.numel() * 4,
-                 keys.numel() * 20, launches["wm_level_step"] // 2)
+                 keys.numel() * 20, 0)
+
+    def two_launch_level():
+        c = wm_level.wm_counts(keys, TAU - 1, size)
+        inc = torch.cumsum(c, 1)
+        t = inc[:, -1].int()
+        return (*wm_level.wm_apply(keys, (inc - c).int(), t, TAU - 1, size),
+                t)
+
+    report_phase("wm_level two-launch (wm_counts + cumsum + wm_apply)",
+                 "src/repro/kernels/wm_level.py:132", two_launch_level(),
+                 wm_level.wm_level_plain(keys, totals, TAU - 1, size),
+                 cuda_ms(two_launch_level, 20),
+                 cuda_ms(lambda: wm_level.wm_level_plain(keys, totals,
+                                                         TAU - 1, size), 3),
+                 keys.numel() * 8 + got[1].numel() * 4 + total.numel() * 4,
+                 keys.numel() * 24, 0)
     row0 = words[:1]
     got = ops.rank_build(row0[0], size)
     report_phase("rank_build (L = 1, one level of one shard)",
@@ -510,7 +594,7 @@ def main() -> None:
                  cuda_ms(lambda: wm_quantile.wm_quantile_sharded_plain(
                      *args1, **kw1), 3),
                  NUM_QUERIES * 16 + probes1 * PROBE_BYTES, probes1 * 40, 0)
-    del keys, counts, incl, zexcl, total, got, one, args1, kw1
+    del keys, totals, counts, incl, zexcl, total, got, one, args1, kw1
 
     # ---- 6. the tree path at full width: one wavelet tree of the stream --
     seq = shards_in.reshape(-1)[:N_TOKENS]
@@ -523,6 +607,9 @@ def main() -> None:
     torch.cuda.synchronize()
     t_tree = time.perf_counter() - t0
     tree_launches = read_launches("tree path", TREE_KERNELS)
+    if tree_launches["wt_level_step"] != 8:
+        fail(f"tree path: {tree_launches['wt_level_step']} wt_level_step "
+             f"launches, want one for each moved level l <= 8 (8)")
     peak_tree = torch.cuda.max_memory_allocated()
     print(f"tree build (radix big step, tokens already on the card): "
           f"{N_TOKENS} tokens in {t_tree:.6f} s "
@@ -642,46 +729,41 @@ def main() -> None:
     sub = bitops.extract_field(order, nbits - 2 * TAU, TAU).to(torch.int32)
     nid = wtree._level_nid(wt.node_starts, TAU, n)
     nbkt, shift = 1 << (TAU + 1), TAU - 1
+    starts = wt.node_starts[TAU + 1, :nbkt]
     del order
 
     def wt_plain():
-        hist = wt_level.wt_counts_plain(sub[None], nid[None], shift, nbkt, n)
-        offsets = radix_rank.bucket_offsets(hist)
-        dest, bitmap = wt_level.wt_apply_plain(sub[None], nid[None], offsets,
-                                               shift, nbkt, n)
+        dest, bitmap = wt_level.wt_level_plain(sub[None], nid[None], shift,
+                                               nbkt, n, starts[None])
         return dest[0], bitmap[0]
 
     key = (nid << 1) | ((sub >> shift) & 1)
-    got = ops.wt_level_step_fused(sub, nid, shift, nbkt, n)
+    got = ops.wt_level_step_fused(sub, nid, shift, nbkt, n, starts)
     report("wt_level_step", "src/repro_torch/kernels/csrc/wt_level.cu",
            "src/repro/kernels/wt_level.py:83", [], got, wt_plain(),
-           cuda_ms(lambda: ops.wt_level_step_fused(sub, nid, shift, nbkt, n),
-                   20),
+           cuda_ms(lambda: ops.wt_level_step_fused(sub, nid, shift, nbkt, n,
+                                                   starts), 20),
            cuda_ms(wt_plain, 3), n * 12 + got[1].numel() * 4, n * 12,
            path="tree", path_launches=tree_launches,
            library_ms=cuda_ms(lambda: torch.sort(key, stable=True), 20))
     del key
-    s1, v1 = sub[None], nid[None]
-    hist = wt_level.wt_counts(s1, v1, shift, nbkt, n)
-    report_phase("wt_counts (l = 8)", "src/repro/kernels/wt_level.py:83",
-                 hist, wt_level.wt_counts_plain(s1, v1, shift, nbkt, n),
-                 cuda_ms(lambda: wt_level.wt_counts(s1, v1, shift, nbkt, n),
-                         20),
-                 cuda_ms(lambda: wt_level.wt_counts_plain(s1, v1, shift, nbkt,
-                                                          n), 3),
-                 n * 8 + hist.numel() * 4, n * 8,
-                 tree_launches["wt_level_step"] // 2)
-    offsets = radix_rank.bucket_offsets(hist)
-    report_phase("wt_apply (l = 8)", "src/repro/kernels/wt_level.py:83",
-                 wt_level.wt_apply(s1, v1, offsets, shift, nbkt, n),
-                 wt_level.wt_apply_plain(s1, v1, offsets, shift, nbkt, n),
-                 cuda_ms(lambda: wt_level.wt_apply(s1, v1, offsets, shift,
-                                                   nbkt, n), 20),
-                 cuda_ms(lambda: wt_level.wt_apply_plain(
-                     s1, v1, offsets, shift, nbkt, n), 3),
-                 n * 12 + offsets.numel() * 4 + n // 8, n * 12,
-                 tree_launches["wt_level_step"] // 2)
-    del hist, offsets
+
+    # level 0: one node, two buckets, the same work per key
+    sub0 = bitops.extract_field(seq, nbits - TAU, TAU).to(torch.int32)
+    nid0 = torch.zeros_like(sub0)
+    starts0 = wt.node_starts[1, :2]
+    got = ops.wt_level_step_fused(sub0, nid0, TAU - 1, 2, n, starts0)
+    report_phase("wt_level_step (l = 0)", "src/repro/kernels/wt_level.py:83",
+                 got, tuple(x[0] for x in wt_level.wt_level_plain(
+                     sub0[None], nid0[None], TAU - 1, 2, n, starts0[None])),
+                 cuda_ms(lambda: ops.wt_level_step_fused(
+                     sub0, nid0, TAU - 1, 2, n, starts0), 20),
+                 cuda_ms(lambda: wt_level.wt_level_plain(
+                     sub0[None], nid0[None], TAU - 1, 2, n, starts0[None]),
+                     3),
+                 n * 12 + got[1].numel() * 4, n * 12,
+                 tree_launches["wt_level_step"])
+    del sub0, nid0
 
     bits = ((sub >> (shift - 1)) & 1).contiguous()
     got = ops.bitpack(bits)

@@ -8,9 +8,11 @@ partitions (``big_step="compose"``), by one stable counting sort on the
 reversed τ-bit field (``"radix"``, through the ``radix_rank`` kernels on
 CUDA tensors) or by the vendor's stable sort (``"xla"``, ``torch.sort``).
 The per-level step routes through the
-``wm_level_step`` kernel and the rank tables through ``rank_build_levels``
-on CUDA tensors; the plain path gathers with the select-based
-``stable_partition_gather``. Both give bit-identical matrices.
+``wm_level_step`` kernel (one launch a level, given every level's zero
+count, which one launch takes from the input before the first level) and
+the rank tables through ``rank_build_levels`` on CUDA tensors; the plain
+path gathers with the select-based ``stable_partition_gather``. Both give
+bit-identical matrices.
 
 Sequences may carry one leading batch axis (S, n): each row is built into
 its own matrix and every leaf gains that leading axis — the stacked shard
@@ -87,6 +89,11 @@ def build_wavelet_matrix(seq, sigma: int, tau: int = 8,
     rows, n = order.shape
     nbits = num_levels(sigma)
     level_words, zeros = [], []
+    if use_kernels:
+        from repro_torch.kernels import ops
+        # a level's zeros survive every permutation of its row: count the
+        # zeros of all levels once, from the input
+        level_zeros = ops.wm_level_zeros(order, nbits)
 
     for alpha0 in range(0, nbits, tau):
         width = min(tau, nbits - alpha0)
@@ -106,8 +113,8 @@ def build_wavelet_matrix(seq, sigma: int, tau: int = 8,
             move = (alpha0 + t < nbits - 1) and (t < width - 1
                                                  or idx is not None)
             if use_kernels:
-                from repro_torch.kernels import ops
-                dest, words, z = ops.wm_level_step(sub, shift, n)
+                dest, words, z = ops.wm_level_step(
+                    sub, shift, n, level_zeros[:, alpha0 + t])
                 if move:
                     if t < width - 1:
                         sub = apply_permutation_dest(sub, dest)

@@ -9,7 +9,8 @@ of each symbol; ``node_starts[l][v]`` is the offset of node v in it.
 levels a big step regroups the full-width symbols by their top bits, and
 the levels in between split narrow τ-bit keys ("short lists") per node.
 On CUDA tensors the shallow levels (2^(l+1) ≤ 512 (node, bit) buckets) go
-through the ``wt_level`` kernels; the deeper ones through the segmented
+through the ``wt_level`` kernel, one launch a level given the level's
+bucket starts from ``node_starts``; the deeper ones through the segmented
 select-gather (``rank_select.segmented_partition_gather``) with their
 bitmaps packed by the ``bitpack`` kernel; the radix big step through the
 ``radix_rank`` kernels where its bucket count allows; and all directories
@@ -117,7 +118,7 @@ def build_wavelet_tree(seq, sigma: int, tau: int = 8,
 
     ``seq``: (n,) symbols in [0, sigma), moved to ``device``. Each
     node-segmented stable partition is applied as a gather (or, through the
-    ``wt_level`` kernels, as the scatter of its destinations); node
+    ``wt_level`` kernel, as the scatter of its destinations); node
     membership is re-derived per level from ``node_starts``; the composed
     permutation exists only when a compose big step consumes it.
     ``use_kernels`` (``None``: on a CUDA device) routes the shallow levels,
@@ -157,8 +158,10 @@ def build_wavelet_tree(seq, sigma: int, tau: int = 8,
             if move and use_kernels and _wt_kernel_fits(l):
                 from repro_torch.kernels import ops
                 nid = _level_nid(node_starts, l, n)
-                dest, words = ops.wt_level_step_fused(sub, nid, shift,
-                                                      1 << (l + 1), n)
+                nbkt = 1 << (l + 1)
+                # bucket (v, b) starts where child 2v + b does
+                dest, words = ops.wt_level_step_fused(
+                    sub, nid, shift, nbkt, n, node_starts[l + 1, :nbkt])
                 if t < width - 1:
                     sub = apply_permutation_dest(sub, dest)
                 if need_idx:

@@ -34,7 +34,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "wm_level": {
         "wm_counts": [_P, _I, _I, _L, _I, _P, _I, _P],
         "wm_apply": [_P, _I, _I, _L, _I, _I, _P, _P, _P, _L, _P, _I, _L,
-                     _P]},
+                     _P],
+        "wm_level_zeros": [_P, _I, _I, _L, _I, _I, _P, _P],
+        "wm_level_scan": [_P, _I, _I, _L, _I, _P, _L, _P, _P, _L, _P, _I,
+                          _L, _P, _P],
+        "wm_level_scan_info": [_P]},
     "wm_quantile": {
         "wm_quantile_max_shards": [],
         "wm_quantile_sharded": ([_P] * 3 + [_I] + [_P, _L] * 3 + [_P]
@@ -43,9 +47,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "radix_hist": [_P, _I, _I, _L, _I, _P, _I, _P],
         "radix_apply": [_P, _I, _I, _L, _I, _I, _P, _P, _L, _P]},
     "wt_level": {
-        "wt_counts": [_P, _P, _I, _I, _L, _L, _I, _I, _P, _I, _P],
-        "wt_apply": [_P, _P, _I, _I, _L, _L, _I, _I, _I, _P, _P, _L, _P, _I,
-                     _L, _P]},
+        "wt_level_scan": [_P, _P, _I, _I, _L, _L, _I, _P, _I, _P, _L, _P,
+                          _I, _L, _P, _P],
+        "wt_level_scan_info": [_P]},
     "bitpack": {
         "bitpack": [_P, _I, _I, _L, _P, _I, _L, _P]},
 }

@@ -1,4 +1,4 @@
-// Blocked stable bucket rank, shared by radix_rank.cu and wt_level.cu.
+// Blocked stable bucket rank of radix_rank.cu.
 //
 // A stable counting sort gives element i the destination
 //   base[key_i] + across[tile_i][key_i] + (# j < i in the same tile with

@@ -2,24 +2,33 @@
 // LSB-first packed bitmap (zero past n), the zero count, and every element's
 // destination under the stable 0/1 partition.
 //
-// Replaces repro/kernels/wm_level.py:wm_level_fused_pallas; its two phases
-// also serve the contracts of wm_counts_pallas and wm_apply_pallas. The fused
-// Pallas form runs a (2, nblocks) grid in order and carries the block counts
-// in VMEM scratch from the count pass to the apply pass. CUDA blocks have no
-// order, so the level is two launches with a tiny scan between them:
-//   1. wm_counts: zeros per 1024-key block            -> (R, nb) int32
-//   2. (torch)    exclusive cumsum of the counts and the row totals
-//   3. wm_apply:  destinations and bitmap words, given the offsets
-// One thread holds one key; with lane i holding key i of its warp,
-// __ballot_sync(bit) is exactly the bitmap word, and
+// Replaces repro/kernels/wm_level.py:wm_level_fused_pallas with one launch:
+// wm_level_scan, the single-pass zero scan of zero_scan.cuh with one node per
+// row (s0 = 0, s1 = the row's total zeros, zs = 0). The fused Pallas form
+// counts the zeros in a first pass over a sequential (2, nblocks) grid; a
+// level's zero count is permutation-invariant, so the build counts the zeros
+// of every level of every row once, before its first level (wm_level_zeros),
+// and hands each level its totals.
+//
+// wm_level_zeros: one block per 12,288 keys of a row; each thread adds up
+// the bits of 12 keys at a time in four words of eight 4-bit counters (bit
+// 4f + g of the key in field f of word g), then flushes them into 32 per-bit
+// counters; a 31-shuffle transpose-reduce leaves bit b's warp total in lane
+// b; shared-memory and then global atomics sum the blocks. Bound: bytes,
+// 4 B per key read once.
+//
+// wm_counts and wm_apply are the counterparts of the reference's two phase
+// kernels (wm_counts_pallas, wm_apply_pallas), off the build path: a count
+// launch of zeros per 1024-key block, and an apply launch given the
+// exclusive block offsets. One thread holds one key; with lane i holding key
+// i of its warp, __ballot_sync(bit) is exactly the bitmap word, and
 // __popc(~ballot & lanemask_lt) is the number of zeros before the lane.
 // Keys past n read as ones (the reference pads with ones): they sort after
 // every real key, are never written, and are masked out of the bitmap.
 //
 // Bound on the H100: bytes. Per key 4 B are read and 4 B of destination plus
-// 1/8 B of bitmap written; the count pass reads the keys a second time.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// 1/8 B of bitmap written.
+#include "zero_scan.cuh"
 
 namespace {
 
@@ -90,8 +99,8 @@ __global__ void wm_apply_kernel(const int32_t* __restrict__ keys, int n,
   const int local_zeros = warp_excl[warp] + lane_zeros;  // zeros before key
   const int zb = zeros_excl[row * nb + blk];
   if (valid) {
-    const int d = bit == 0u
-        ? zb + local_zeros
+    const int d =
+        bit == 0u ? zb + local_zeros
         : total_zeros[row] + (blk * kBlock - zb)
               + (static_cast<int>(threadIdx.x) - local_zeros);
     dest[row * dest_stride + i] = d;
@@ -99,6 +108,78 @@ __global__ void wm_apply_kernel(const int32_t* __restrict__ keys, int n,
   const long long w = static_cast<long long>(blk) * kWarps + warp;
   if (lane == 0 && w < W) bitmap[row * bitmap_stride + w] =
       static_cast<int32_t>(word);
+}
+
+constexpr int kCountThreads = 256;
+constexpr int kCountGroup = 3;        // 16-byte loads per flush: 12 keys < 16
+constexpr int kCountRounds = 4;
+constexpr int kCountChunk = kCountThreads * kCountGroup * kCountRounds * 4;
+
+// One step of the warp's transpose-reduce of 32 per-bit counters: a lane
+// keeps the half of its first 2D counters that its bit D selects and adds
+// its partner's; after the steps 16, 8, 4, 2, 1 lane b holds bit b's total.
+template <int D>
+__device__ __forceinline__ void fold(unsigned (&v)[32], int lane) {
+  const bool upper = lane & D;
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    const unsigned send = upper ? v[k] : v[k + D];
+    const unsigned keep = upper ? v[k + D] : v[k];
+    v[k] = keep + __shfl_xor_sync(zero_scan::kFull, send, D);
+  }
+}
+
+// Zeros of bits lo + width - 1 - j (j < width, level order) of the first n
+// keys of each row, added into out (rows, width); one block per chunk.
+template <bool kVec>
+__global__ void __launch_bounds__(kCountThreads)
+    wm_level_zeros_kernel(const int32_t* __restrict__ keys, int n,
+                          long long key_stride, int lo, int width,
+                          int chunks, int32_t* __restrict__ out) {
+  __shared__ int s_ones[32];
+  const int row = blockIdx.x / chunks;
+  const int base = (blockIdx.x % chunks) * kCountChunk;
+  const int32_t* krow = keys + static_cast<long long>(row) * key_stride;
+  if (threadIdx.x < 32) s_ones[threadIdx.x] = 0;
+  unsigned ones[32];
+#pragma unroll
+  for (int b = 0; b < 32; ++b) ones[b] = 0;
+#pragma unroll
+  for (int r = 0; r < kCountRounds; ++r) {
+    unsigned acc[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int g = 0; g < kCountGroup; ++g) {
+      int k[4];
+      const int i =
+          base + ((r * kCountGroup + g) * kCountThreads + threadIdx.x) * 4;
+      zero_scan::load4<kVec>(krow, i, n, 0, k);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          acc[f] += (static_cast<uint32_t>(k[c]) >> f) & 0x11111111u;
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) ones[4 * j + f] += (acc[f] >> (4 * j)) & 15u;
+    }
+  }
+  const int lane = threadIdx.x & 31;
+  fold<16>(ones, lane);
+  fold<8>(ones, lane);
+  fold<4>(ones, lane);
+  fold<2>(ones, lane);
+  fold<1>(ones, lane);
+  __syncthreads();
+  atomicAdd(&s_ones[lane], static_cast<int>(ones[0]));
+  __syncthreads();
+  if (threadIdx.x < width) {
+    const int real = min(n - base, kCountChunk);
+    atomicAdd(out + static_cast<long long>(row) * width + threadIdx.x,
+              real - s_ones[lo + width - 1 - threadIdx.x]);
+  }
 }
 
 }  // namespace
@@ -143,4 +224,73 @@ extern "C" int wm_apply(const void* keys, int rows, int n,
         static_cast<int32_t*>(bitmap), W, bitmap_stride);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// keys: (rows, key_stride) int32, the first n of each row used; out: (rows,
+// width) int32, zeroed; lo + width <= 32.
+extern "C" int wm_level_zeros(const void* keys, int rows, int n,
+                              long long key_stride, int lo, int width,
+                              void* out, void* stream) {
+  if (lo < 0 || width < 1 || lo + width > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (n + kCountChunk - 1) / kCountChunk;
+  const long long grid = static_cast<long long>(rows) * chunks;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
+                   (rows == 1 || key_stride % 4 == 0);
+  if (grid > 0) {
+    const auto st = static_cast<cudaStream_t>(stream);
+    const auto* k = static_cast<const int32_t*>(keys);
+    auto* o = static_cast<int32_t*>(out);
+    const unsigned g = static_cast<unsigned>(grid);
+    if (vec)
+      wm_level_zeros_kernel<true><<<g, kCountThreads, 0, st>>>(
+          k, n, key_stride, lo, width, chunks, o);
+    else
+      wm_level_zeros_kernel<false><<<g, kCountThreads, 0, st>>>(
+          k, n, key_stride, lo, width, chunks, o);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One level in one launch. total_zeros: (rows,) with stride total_stride,
+// the zeros of each row's level bit; zeros_out: (rows,) the zeros the scan
+// counted; status: rows * ceil(n / 8192) + 1 zeroed 64-bit words, the last
+// of them the tile counter.
+extern "C" int wm_level_scan(const void* keys, int rows, int n,
+                             long long key_stride, int shift,
+                             const void* total_zeros, long long total_stride,
+                             void* zeros_out, void* dest,
+                             long long dest_stride, void* bitmap, int W,
+                             long long bitmap_stride, void* status,
+                             void* stream) {
+  zero_scan::Params p{};
+  p.keys = static_cast<const int32_t*>(keys);
+  p.key_stride = key_stride;
+  p.n = n;
+  p.shift = shift;
+  p.tiles_per_row = (n + zero_scan::kTile - 1) / zero_scan::kTile;
+  p.total_zeros = static_cast<const int32_t*>(total_zeros);
+  p.total_stride = total_stride;
+  p.zeros_out = static_cast<int32_t*>(zeros_out);
+  p.dest = static_cast<int32_t*>(dest);
+  p.dest_stride = dest_stride;
+  p.bitmap = static_cast<int32_t*>(bitmap);
+  p.bitmap_stride = bitmap_stride;
+  p.W = W;
+  p.status = static_cast<unsigned long long*>(status);
+  p.next_tile = reinterpret_cast<unsigned int*>(
+      p.status + static_cast<long long>(rows) * p.tiles_per_row);
+  const bool vec = reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
+                   (rows == 1 || key_stride % 4 == 0) &&
+                   reinterpret_cast<uintptr_t>(dest) % 16 == 0 &&
+                   (rows == 1 || dest_stride % 4 == 0);
+  return zero_scan::launch<false>(p, rows, vec,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// Registers, static shared bytes, local bytes and resident blocks per SM of
+// wm_level_scan's kernel, into out[0..3].
+extern "C" int wm_level_scan_info(void* out) {
+  return zero_scan::info<false>(static_cast<int*>(out));
 }

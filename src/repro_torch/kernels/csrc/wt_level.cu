@@ -1,139 +1,68 @@
 // One segmented wavelet-tree level over R rows of narrow keys: the level's
 // bit, the LSB-first packed bitmap (zero past n), and every element's
 // destination under the stable per-node 0/1 partition, i.e. the stable sort
-// by bucket (nid << 1) | bit, with nbkt = 2^(l+1) <= 512 buckets.
+// by bucket (nid << 1) | bit over nbkt = 2^(l+1) <= 512 buckets.
 //
-// Replaces repro/kernels/wt_level.py:wt_level_fused_pallas. The Pallas form
-// carries the per-block (node, bit) histograms in VMEM scratch across a
-// sequential (2, nblocks) grid; CUDA blocks have no order, so the level is a
-// count launch (wt_counts), the offsets' scan in torch, and an apply launch
-// (wt_apply), on the blocked stable bucket rank of bucket_rank.cuh.
-// In the apply warp, round r covers keys 32r..32r+31 of the tile, so
-// __ballot_sync of the bits in that round is bitmap word r of the tile.
+// Replaces repro/kernels/wt_level.py:wt_level_fused_pallas with one launch:
+// wt_level_scan, the single-pass zero scan of zero_scan.cuh with a per-row
+// node table. The Pallas form carries per-block (node, bit) histograms across
+// a sequential (2, nblocks) grid. Here no histogram exists: the caller passes
+// the level's bucket starts (the tree build knows them from its node offsets
+// before the first level), node v's 0s start at s0 = start[2v] and its 1s at
+// s1 = start[2v + 1], zs = the zeros of nodes before v, and one row-wide
+// zero prefix places every key.
 //
 // Bound on the H100: bytes. Per key 4 B of key and 4 B of node id are read,
-// 4 B of destination and 1/8 B of bitmap written; the (tiles, nbkt+1)
-// histogram and its offsets add 4 (nbkt+1) / 1024 B per key at each pass
-// (2 B at l = 8). The count phase reads the keys and node ids a second time.
-#include "bucket_rank.cuh"
-
-namespace {
-
-using bucket_rank::kApplyWarps;
-using bucket_rank::kFull;
-using bucket_rank::kMaxBuckets;
-using bucket_rank::kTile;
-
-struct Level {
-  const int32_t* sub;
-  const int32_t* nid;
-  int n, shift, nbkt;
-
-  __device__ __forceinline__ unsigned bit(long long i) const {
-    return (static_cast<uint32_t>(sub[i]) >> shift) & 1u;
-  }
-  __device__ __forceinline__ int key(long long i, unsigned b) const {
-    return i < n ? bucket_rank::clamp_key((nid[i] << 1) | static_cast<int>(b),
-                                          nbkt)
-                 : nbkt;
-  }
-};
-
-__global__ void wt_counts_kernel(const int32_t* __restrict__ sub,
-                                 const int32_t* __restrict__ nid, int n,
-                                 long long sub_stride, long long nid_stride,
-                                 int shift, int nbkt, int nb,
-                                 int32_t* __restrict__ hist) {
-  const long long row = blockIdx.x / nb;
-  const int tile = blockIdx.x % nb;
-  const Level lv{sub + row * sub_stride, nid + row * nid_stride, n, shift,
-                 nbkt};
-  const long long i = static_cast<long long>(tile) * kTile + threadIdx.x;
-  const unsigned b = i < n ? lv.bit(i) : 0u;
-  bucket_rank::tile_histogram(lv.key(i, b), nbkt + 1,
-                              hist + (row * nb + tile) * (nbkt + 1));
-}
-
-__global__ void wt_apply_kernel(const int32_t* __restrict__ sub,
-                                const int32_t* __restrict__ nid, int rows,
-                                int n, long long sub_stride,
-                                long long nid_stride, int shift, int nbkt,
-                                int nb, const int32_t* __restrict__ offsets,
-                                int32_t* __restrict__ dest,
-                                long long dest_stride,
-                                int32_t* __restrict__ bitmap, int W,
-                                long long bitmap_stride) {
-  __shared__ int counters[kApplyWarps][kMaxBuckets + 1];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long t = static_cast<long long>(blockIdx.x) * kApplyWarps + warp;
-  if (t >= static_cast<long long>(rows) * nb) return;  // whole warp leaves
-  const long long row = t / nb;
-  const int tile = static_cast<int>(t % nb);
-  const int nb1 = nbkt + 1;
-  const Level lv{sub + row * sub_stride, nid + row * nid_stride, n, shift,
-                 nbkt};
-  bucket_rank::TileRanker ranker{counters[warp]};
-  ranker.seed(offsets + t * nb1, nb1, lane);
-  int32_t* out = dest + row * dest_stride;
-  unsigned my_word = 0;
-  for (int r = 0; r < 32; ++r) {
-    const long long i = static_cast<long long>(tile) * kTile + r * 32 + lane;
-    const bool valid = i < n;
-    const unsigned b = valid ? lv.bit(i) : 0u;
-    const unsigned word = __ballot_sync(kFull, b);
-    if (lane == r) my_word = word;
-    const int d = ranker.rank(lv.key(i, b), lane);
-    if (valid) out[i] = d;
-  }
-  const long long w = static_cast<long long>(tile) * 32 + lane;
-  if (w < W) bitmap[row * bitmap_stride + w] = static_cast<int32_t>(my_word);
-}
-
-}  // namespace
+// 4 B of destination and 1/8 B of bitmap written; the table (3 ints a node)
+// is read once per tile from L2.
+#include "zero_scan.cuh"
 
 extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// sub, nid: (rows, *_stride) int32, the first n of each row used; hist:
-// (rows, nb, nbkt + 1) int32, nb = ceil(n / 1024).
-extern "C" int wt_counts(const void* sub, const void* nid, int rows, int n,
-                         long long sub_stride, long long nid_stride, int shift,
-                         int nbkt, void* hist, int nb, void* stream) {
-  if (nbkt < 1 || nbkt > kMaxBuckets)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long grid = static_cast<long long>(rows) * nb;
-  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  if (grid > 0) {
-    wt_counts_kernel<<<static_cast<unsigned>(grid), kTile, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(sub), static_cast<const int32_t*>(nid), n,
-        sub_stride, nid_stride, shift, nbkt, nb, static_cast<int32_t*>(hist));
-  }
-  return static_cast<int>(cudaGetLastError());
+// sub, nid: (rows, *_stride) int32, the first n of each row used, node ids
+// non-decreasing in [0, nodes); table: (rows, 3, nodes) int32, s0 | s1 | zs;
+// dest: (rows, dest_stride) int32; bitmap: (rows, bitmap_stride) int32 with
+// W = ceil(n / 32) words written per row; status: rows * ceil(n / 8192) + 1
+// zeroed 64-bit words, the last of them the tile counter.
+extern "C" int wt_level_scan(const void* sub, const void* nid, int rows,
+                             int n, long long sub_stride,
+                             long long nid_stride, int shift,
+                             const void* table, int nodes, void* dest,
+                             long long dest_stride, void* bitmap, int W,
+                             long long bitmap_stride, void* status,
+                             void* stream) {
+  zero_scan::Params p{};
+  p.keys = static_cast<const int32_t*>(sub);
+  p.key_stride = sub_stride;
+  p.n = n;
+  p.shift = shift;
+  p.tiles_per_row = (n + zero_scan::kTile - 1) / zero_scan::kTile;
+  p.nid = static_cast<const int32_t*>(nid);
+  p.nid_stride = nid_stride;
+  p.table = static_cast<const int32_t*>(table);
+  p.nodes = nodes;
+  p.dest = static_cast<int32_t*>(dest);
+  p.dest_stride = dest_stride;
+  p.bitmap = static_cast<int32_t*>(bitmap);
+  p.bitmap_stride = bitmap_stride;
+  p.W = W;
+  p.status = static_cast<unsigned long long*>(status);
+  p.next_tile = reinterpret_cast<unsigned int*>(
+      p.status + static_cast<long long>(rows) * p.tiles_per_row);
+  const bool vec = reinterpret_cast<uintptr_t>(sub) % 16 == 0 &&
+                   (rows == 1 || sub_stride % 4 == 0) &&
+                   reinterpret_cast<uintptr_t>(nid) % 16 == 0 &&
+                   (rows == 1 || nid_stride % 4 == 0) &&
+                   reinterpret_cast<uintptr_t>(dest) % 16 == 0 &&
+                   (rows == 1 || dest_stride % 4 == 0);
+  return zero_scan::launch<true>(p, rows, vec,
+                                 static_cast<cudaStream_t>(stream));
 }
 
-// offsets: (rows, nb, nbkt + 1) int32, bucket base plus the bucket's count in
-// earlier tiles; dest: (rows, dest_stride) int32; bitmap: (rows,
-// bitmap_stride) int32 with W = ceil(n / 32) words written per row.
-extern "C" int wt_apply(const void* sub, const void* nid, int rows, int n,
-                        long long sub_stride, long long nid_stride, int shift,
-                        int nbkt, int nb, const void* offsets, void* dest,
-                        long long dest_stride, void* bitmap, int W,
-                        long long bitmap_stride, void* stream) {
-  if (nbkt < 1 || nbkt > kMaxBuckets)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles = static_cast<long long>(rows) * nb;
-  const long long grid = (tiles + kApplyWarps - 1) / kApplyWarps;
-  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  if (grid > 0) {
-    wt_apply_kernel<<<static_cast<unsigned>(grid), kApplyWarps * 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(sub), static_cast<const int32_t*>(nid),
-        rows, n, sub_stride, nid_stride, shift, nbkt, nb,
-        static_cast<const int32_t*>(offsets), static_cast<int32_t*>(dest),
-        dest_stride,
-        static_cast<int32_t*>(bitmap), W, bitmap_stride);
-  }
-  return static_cast<int>(cudaGetLastError());
+// Registers, static shared bytes, local bytes and resident blocks per SM of
+// wt_level_scan's kernel, into out[0..3].
+extern "C" int wt_level_scan_info(void* out) {
+  return zero_scan::info<true>(static_cast<int*>(out));
 }

@@ -1,0 +1,356 @@
+// Single-pass stable 0/1 partition of key rows: a zero scan with decoupled
+// look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan with
+// Decoupled Look-back", NVIDIA 2016), shared by wm_level.cu and wt_level.cu.
+//
+// One launch places every key of a wavelet level. The destination of key i
+// needs Z(i), the zeros before i in its row, and per-node constants that
+// the caller already knows (the bases are permutation-invariant):
+//   zin     = Z(i) - zs                 zeros before i inside i's node
+//   dest(i) = s0 + zin                  if bit(i) == 0
+//           = s1 + (i - s0) - zin       if bit(i) == 1
+// s0 and s1 are where the node's 0s and 1s start in the level's output, zs
+// the zeros of all earlier nodes. A matrix level is one node per row
+// (s0 = 0, s1 = the row's total zeros, zs = 0); a tree level looks the node
+// up in a per-row table of <= kMaxNodes nodes (s0 | s1 | zs) in shared
+// memory. Nodes are contiguous segments of the row (node ids are
+// non-decreasing), so this is the stable sort by (node << 1) | bit.
+//
+// Tiles of kTile = 8192 keys of one row, one per block of 256 threads:
+//   - tile ids come from an atomic counter in launch order, not blockIdx,
+//     so every predecessor of a tile is already running: the look-back
+//     never waits on a block that has not been scheduled;
+//   - each warp owns 1024 consecutive keys in eight slabs of 128; lane l
+//     loads keys 4l..4l+3 of a slab with one 16-byte load, so a thread has
+//     eight such loads in flight per array (keys, node ids);
+//   - __ballot_sync of key c of every lane of a slab gives bit l of
+//     ballot[c] = bit of key 4l + c; the in-warp zero counts come from
+//     popcounts of those ballots, and bitmap word w of the slab (keys
+//     32w..32w+31, lanes 8w..8w+7) interleaves byte w of the four ballots,
+//     so the bitmap is written as whole words, zero past n; after the
+//     ballots a thread keeps its keys only as 32 level bits and its node
+//     ids as bytes, which frees the registers of the loads;
+//   - the tile publishes its zero count in its 64-bit status word, flag in
+//     the top two bits (aggregate, then inclusive prefix), written with
+//     st.release and read with ld.acquire; warp 0 walks back over windows
+//     of 32 predecessors until it finds an inclusive prefix, which the
+//     row's first tile always publishes at once, so rows never share a sum
+//     and a row of up to 2^31 keys cannot reach the flag bits;
+//   - the other warps write the bitmap words while warp 0 looks back; then
+//     every thread stores its 32 destinations as eight 16-byte stores.
+// The tile shape is the fastest of a sweep of (threads, loads per thread)
+// on the H100 (launch/sweep_level_scan.py): larger tiles spread the fixed
+// chain of a block (tile id, loads, look-back, stores) over more keys,
+// until the registers that hold the loads in flight cut the resident
+// blocks per SM.
+// Keys past n read as ones (the reference pads with ones): they are never
+// written and their bitmap bits are 0. The caller zeroes the status words
+// and the tile counter; the kernel allocates nothing.
+//
+// Bound on the H100: bytes. Per key 4 B of key (and 4 B of node id for a
+// tree level) in, 4 B of destination and 1/8 B of bitmap out.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace zero_scan {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSlabs = 8;                    // 16-byte loads per thread
+constexpr int kWarpKeys = kSlabs * 128;
+constexpr int kTile = kWarps * kWarpKeys;    // 8192 keys per tile
+constexpr int kMaxNodes = 256;
+constexpr unsigned kFull = 0xffffffffu;
+
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kPrefix = 2ull << 62;
+constexpr unsigned long long kCount = kAggregate - 1;
+
+struct Params {
+  const int32_t* keys;
+  long long key_stride;
+  int n, shift, tiles_per_row;
+  // tree level: node ids and the per-row node table (s0 | s1 | zs)
+  const int32_t* nid;
+  long long nid_stride;
+  const int32_t* table;
+  int nodes;
+  // matrix level: the rows' total zeros, and the zeros the scan counted
+  const int32_t* total_zeros;
+  long long total_stride;
+  int32_t* zeros_out;
+  int32_t* dest;
+  long long dest_stride;
+  int32_t* bitmap;
+  long long bitmap_stride;
+  int W;
+  unsigned long long* status;    // one word per tile, zeroed
+  unsigned int* next_tile;       // zeroed
+};
+
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Keys i..i+3 of a row (pad past n): one 16-byte load where all four are
+// real and the row is 16-byte aligned.
+template <bool kVec>
+__device__ __forceinline__ void load4(const int32_t* __restrict__ row,
+                                      int i, int n, int pad, int (&v)[4]) {
+  if (kVec && i + 3 < n) {
+    const int4 x = *reinterpret_cast<const int4*>(row + i);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = i + c < n ? row[i + c] : pad;
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(int32_t* __restrict__ row, int i,
+                                       int n, const int (&v)[4]) {
+  if (kVec && i + 3 < n) {
+    *reinterpret_cast<int4*>(row + i) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (i + c < n) row[i + c] = v[c];
+  }
+}
+
+// Bit k of an 8-bit x moved to bit 4k.
+__device__ __forceinline__ unsigned spread4(unsigned x) {
+  x = (x | (x << 12)) & 0x000F000Fu;
+  x = (x | (x << 6)) & 0x03030303u;
+  return (x | (x << 3)) & 0x11111111u;
+}
+
+__device__ __forceinline__ long long warp_sum(long long x) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(kFull, x, d);
+  return x;
+}
+
+// Zeros before tile t in its row (warp 0, all lanes): publish the tile's
+// aggregate, walk back to the nearest inclusive prefix, publish the tile's
+// own. Lanes read the predecessors t-1-lane of a window at once.
+__device__ __forceinline__ long long look_back(unsigned long long* status,
+                                               int t, int first, int agg,
+                                               int lane) {
+  if (t == first) {
+    if (lane == 0) store_release(status + t, kPrefix | agg);
+    return 0;
+  }
+  if (lane == 0) store_release(status + t, kAggregate | agg);
+  long long excl = 0;
+  for (int pos = t - 1;; pos -= 32) {
+    const int q = pos - lane;
+    unsigned long long v = kPrefix;          // before the row: a zero prefix
+    if (q >= first) {
+      do {
+        v = load_acquire(status + q);
+      } while ((v >> 62) == 0);
+    }
+    const unsigned prefixes = __ballot_sync(kFull, (v >> 62) == 2);
+    if (prefixes) {
+      const int k = __ffs(prefixes) - 1;     // the nearest inclusive prefix
+      excl += warp_sum(lane <= k ? static_cast<long long>(v & kCount) : 0);
+      break;
+    }
+    excl += warp_sum(static_cast<long long>(v & kCount));
+  }
+  if (lane == 0) store_release(status + t, kPrefix | (excl + agg));
+  return excl;
+}
+
+// The bitmap words of a warp's keys: word 32r + lane (< 4 kSlabs) is byte
+// (lane & 3) of the four ballots of slab 8r + (lane >> 2), which the lane
+// holds in mine[r]; masked past n.
+template <int kRounds>
+__device__ __forceinline__ void write_words(
+    const Params& p, int row, int warp_base, int lane,
+    const unsigned (&mine)[kRounds][4]) {
+  const int sh = 8 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    unsigned word = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      word |= spread4((mine[r][c] >> sh) & 0xffu) << c;
+    const int gw = warp_base / 32 + 32 * r + lane;
+    const int left = p.n - 32 * gw;
+    if (32 * r + lane < 4 * kSlabs && gw < p.W)
+      p.bitmap[row * p.bitmap_stride + gw] = static_cast<int32_t>(
+          left >= 32 ? word : word & ((1u << left) - 1u));
+  }
+}
+
+template <bool kTree, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    zero_scan_kernel(const Params p) {
+  __shared__ int s_tile, s_excl;
+  __shared__ int s_warp_zeros[kWarps];
+  __shared__ int s_table[kTree ? 3 * kMaxNodes : 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(p.next_tile, 1u));
+  __syncthreads();
+  const int t = s_tile;
+  const int row = t / p.tiles_per_row;
+  const int first = row * p.tiles_per_row;
+  const int warp_base = (t - first) * kTile + warp * kWarpKeys;
+
+  int key[kSlabs][4];
+  const int32_t* krow = p.keys + row * p.key_stride;
+#pragma unroll
+  for (int s = 0; s < kSlabs; ++s)
+    load4<kVec>(krow, warp_base + s * 128 + 4 * lane, p.n, -1, key[s]);
+  // node ids, clamped to the table and packed a byte each, four a slab
+  unsigned nodes[kTree ? kSlabs : 1];
+  if constexpr (kTree) {
+    int nid[kSlabs][4];
+    const int32_t* nrow = p.nid + row * p.nid_stride;
+#pragma unroll
+    for (int s = 0; s < kSlabs; ++s)
+      load4<kVec>(nrow, warp_base + s * 128 + 4 * lane, p.n, 0, nid[s]);
+    const int32_t* trow = p.table + static_cast<long long>(row) * 3 * p.nodes;
+    for (int k = threadIdx.x; k < 3 * p.nodes; k += kThreads)
+      s_table[k] = trow[k];
+#pragma unroll
+    for (int s = 0; s < kSlabs; ++s) {
+      nodes[s] = 0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        nodes[s] |= static_cast<unsigned>(min(max(nid[s][c], 0), p.nodes - 1))
+                    << (8 * c);
+    }
+  }
+
+  // ballots per slab and key slot: the in-warp zero counts and the bitmap;
+  // the keys are kept only as their level bits, bit 4 (s % 8) + c of
+  // bits[s / 8] for key 4 lane + c of slab s
+  const unsigned lt = (1u << lane) - 1u;
+  unsigned bits[(kSlabs + 7) / 8] = {};
+  int zb[kSlabs];                      // zeros of the warp before key 4 lane
+  int warp_zeros = 0;
+  unsigned mine[(kSlabs + 7) / 8][4] = {};   // ballots of this lane's words
+#pragma unroll
+  for (int s = 0; s < kSlabs; ++s) {
+    unsigned ones[4];
+    int before = 0, slab_ones = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const unsigned b = (static_cast<uint32_t>(key[s][c]) >> p.shift) & 1u;
+      bits[s / 8] |= b << (4 * (s % 8) + c);
+      ones[c] = __ballot_sync(kFull, b);
+      before += __popc(~ones[c] & lt);
+      slab_ones += __popc(ones[c]);
+    }
+    zb[s] = warp_zeros + before;
+    warp_zeros += 128 - slab_ones;
+    if ((s % 8) == (lane >> 2)) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) mine[s / 8][c] = ones[c];
+    }
+  }
+  if (lane == 0) s_warp_zeros[warp] = warp_zeros;
+  __syncthreads();
+  int warp_excl = 0, agg = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int z = s_warp_zeros[w];
+    warp_excl += w < warp ? z : 0;
+    agg += z;
+  }
+
+  if (warp == 0) {
+    const long long excl = look_back(p.status, t, first, agg, lane);
+    if (lane == 0) {
+      s_excl = static_cast<int>(excl);
+      if constexpr (!kTree) {               // the last tile: the row's zeros
+        if (t == first + p.tiles_per_row - 1)
+          p.zeros_out[row] = static_cast<int>(excl) + agg;
+      }
+    }
+  } else {
+    write_words(p, row, warp_base, lane, mine);
+  }
+  __syncthreads();
+  if (warp == 0) write_words(p, row, warp_base, lane, mine);
+
+  int s0 = 0, s1 = 0, zs = 0;
+  if constexpr (!kTree) s1 = p.total_zeros[row * p.total_stride];
+  const int zbase = s_excl + warp_excl;
+  int32_t* drow = p.dest + row * p.dest_stride;
+#pragma unroll
+  for (int s = 0; s < kSlabs; ++s) {
+    const int i0 = warp_base + s * 128 + 4 * lane;
+    int z = zbase + zb[s];                     // Z(i0)
+    int d[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int bit = (bits[s / 8] >> (4 * (s % 8) + c)) & 1u;
+      if constexpr (kTree) {
+        const int v = (nodes[s] >> (8 * c)) & 0xffu;
+        s0 = s_table[v];
+        s1 = s_table[p.nodes + v];
+        zs = s_table[2 * p.nodes + v];
+      }
+      const int zin = z - zs;
+      d[c] = bit ? s1 + (i0 + c - s0) - zin : s0 + zin;
+      z += 1 - bit;
+    }
+    store4<kVec>(drow, i0, p.n, d);
+  }
+}
+
+// The one-node (matrix) or table (tree) scan over `rows` rows. `vec`: every
+// row of keys, node ids and destinations starts 16-byte aligned.
+template <bool kTree>
+int launch(const Params& p, int rows, bool vec, cudaStream_t stream) {
+  const long long tiles = static_cast<long long>(rows) * p.tiles_per_row;
+  if (tiles > 0x7fffffffLL ||
+      static_cast<long long>(p.n) + kTile > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kTree && (p.nodes < 1 || p.nodes > kMaxNodes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tiles > 0) {
+    const unsigned grid = static_cast<unsigned>(tiles);
+    if (vec)
+      zero_scan_kernel<kTree, true><<<grid, kThreads, 0, stream>>>(p);
+    else
+      zero_scan_kernel<kTree, false><<<grid, kThreads, 0, stream>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers, static shared bytes, local bytes and resident blocks per SM of
+// the vectorised kernel, into out[0..3].
+template <bool kTree>
+int info(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, zero_scan_kernel<kTree, true>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, zero_scan_kernel<kTree, true>, kThreads, 0);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = blocks;
+  return static_cast<int>(err);
+}
+
+}  // namespace zero_scan

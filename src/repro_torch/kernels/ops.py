@@ -53,16 +53,19 @@ def radix_rank(digits: torch.Tensor, num_buckets: int) -> torch.Tensor:
 
 
 def wt_level_step_fused(sub: torch.Tensor, nid: torch.Tensor, shift: int,
-                        nbkt: int, n: int):
+                        nbkt: int, n: int,
+                        bucket_starts: torch.Tensor | None = None):
     """One segmented wavelet-tree level on narrow keys ``sub`` (n,) or
     (R, n) with node ids ``nid`` (non-decreasing per row): (dest int32
     stable per-node partition destinations, bitmap (…, ceil(n/32)) int32).
-    ``nbkt`` = 2^(l+1) ≤ ``wt_level.MAX_KEYS``. Count launch, the offsets'
-    scan in torch, apply launch."""
+    ``nbkt`` = 2^(l+1) ≤ ``wt_level.MAX_KEYS``; ``bucket_starts`` (…, nbkt)
+    int32, the start of every (node, bit) bucket in the level's output (a
+    tree build passes ``node_starts[l + 1, :nbkt]``). With them one launch;
+    without, a per-row bucket count comes first."""
     s, v = _rows(sub), _rows(nid)
-    offsets = _radix_rank.bucket_offsets(
-        _wt_level.wt_counts(s, v, shift, nbkt, n))
-    dest, bitmap = _wt_level.wt_apply(s, v, offsets, shift, nbkt, n)
+    starts = (None if bucket_starts is None
+              else bucket_starts.reshape(s.shape[0], nbkt).to(torch.int32))
+    dest, bitmap = _wt_level.wt_level(s, v, shift, nbkt, n, starts)
     lead = sub.shape[:-1]
     return dest.reshape(lead + (n,)), bitmap.reshape(lead + (-1,))
 
@@ -83,24 +86,37 @@ def rank_build(words: torch.Tensor, n: int):
     return superblock[0], block[0]
 
 
-def wm_level_step(sub: torch.Tensor, shift: int, n: int):
+def wm_level_zeros(seq: torch.Tensor, nbits: int) -> torch.Tensor:
+    """Zeros of every level of every row of ``seq`` (n,) or (R, n): (…,
+    nbits) int32, column l counting the symbols whose bit ``nbits - 1 - l``
+    is 0. One launch over the rows. A permutation of a row keeps its
+    counts, so a matrix build takes every level's totals from its input."""
+    keys = _rows(seq)
+    zeros = _wm_level.wm_level_zeros(keys, 0, nbits, keys.shape[1])
+    return zeros.reshape(seq.shape[:-1] + (nbits,))
+
+
+def wm_level_step(sub: torch.Tensor, shift: int, n: int,
+                  total_zeros: torch.Tensor | None = None):
     """One wavelet-matrix level on narrow keys ``sub`` (n,) or (R, n).
 
-    ``shift``: bit position of this level's bit inside the key. Returns
-    (dest (…, n) int32 stable-partition destinations, bitmap (…,
-    ceil(n/32)) int32, total_zeros (…,) int32) — the contract of both
-    ``wm_level_step`` and ``wm_level_step_fused`` in the reference. Count
-    launch, exclusive scan of the block counts in torch, apply launch.
+    ``shift``: bit position of this level's bit inside the key;
+    ``total_zeros`` (…,) int32: the zeros of that bit in each row (a matrix
+    build passes the column of :func:`wm_level_zeros`). Returns (dest (…,
+    n) int32 stable-partition destinations, bitmap (…, ceil(n/32)) int32,
+    total_zeros (…,) int32 as the level counted them) — the contract of
+    both ``wm_level_step`` and ``wm_level_step_fused`` in the reference.
+    With the totals one launch; without, a count launch first.
     """
-    keys = sub.reshape(-1, sub.shape[-1]).to(torch.int32).contiguous()
-    counts = _wm_level.wm_counts(keys, shift, n)
-    incl = torch.cumsum(counts, 1)
-    zeros_excl = (incl - counts).to(torch.int32)
-    total = incl[:, -1].to(torch.int32)
-    dest, bitmap = _wm_level.wm_apply(keys, zeros_excl, total, shift, n)
+    keys = _rows(sub)
+    if total_zeros is None:
+        total = _wm_level.wm_level_zeros(keys, shift, 1, n)[:, 0]
+    else:
+        total = total_zeros.reshape(keys.shape[0]).to(torch.int32)
+    dest, bitmap, zeros = _wm_level.wm_level(keys, total, shift, n)
     lead = sub.shape[:-1]
     return (dest.reshape(lead + (n,)), bitmap.reshape(lead + (-1,)),
-            total.reshape(lead))
+            zeros.reshape(lead))
 
 
 def _pad_rank_rows(words: torch.Tensor, superblock: torch.Tensor,

@@ -1,12 +1,20 @@
-"""One wavelet-matrix level over stacked key rows: CUDA kernel + plain version.
+"""One wavelet-matrix level over stacked key rows: CUDA kernels + plain
+versions.
 
-Replaces ``repro/kernels/wm_level.py:wm_level_fused_pallas``; its two
-phases also serve the contracts of ``wm_counts_pallas`` and
-``wm_apply_pallas``. The fused Pallas form carries the per-block zero counts
-across a sequential TPU grid; CUDA blocks have no order, so the level is a
-count launch, a tiny torch scan (``ops.wm_level_step``) and an apply launch
-(``csrc/wm_level.cu``). Bound on the H100 by bytes: 4 B of key in, 4 B of
-destination and 1/8 B of bitmap out per key.
+Replaces ``repro/kernels/wm_level.py:wm_level_fused_pallas`` with one
+launch per level (:func:`wm_level`, ``wm_level_scan`` in
+``csrc/wm_level.cu``): a single-pass zero scan with decoupled look-back
+(``csrc/zero_scan.cuh``) that places every key given its row's total
+zeros. A level's zero count does not change when the row is permuted, so
+the build counts the zeros of every level of every row once, before the
+first level (:func:`wm_level_zeros`, one launch over its input). Bound on
+the H100 by bytes: 4 B of key in, 4 B of destination and 1/8 B of bitmap
+out per key.
+
+``wm_counts`` and ``wm_apply`` are the counterparts of the reference's two
+phase kernels ``wm_counts_pallas`` and ``wm_apply_pallas``; no build calls
+them. The plain version of a level is those two phases with a torch scan
+between them.
 
 Keys past ``n`` read as ones, as the reference pads them: they sort after
 every real key, their destinations are never written, and their bitmap
@@ -22,6 +30,7 @@ from repro_torch.core import bitops
 from . import build
 
 BLOCK = 1024                  # keys per block of the count/apply phases
+TILE = 8192                   # keys per tile of the zero scan
 
 
 def _level_bits(keys: torch.Tensor, shift: int, n: int) -> torch.Tensor:
@@ -55,6 +64,29 @@ def wm_apply_plain(keys: torch.Tensor, zeros_excl: torch.Tensor,
     bm_bit = torch.where(gidx < n, bit.reshape(rows, -1), 0)
     bitmap = bitops.pack_bits(bm_bit)[:, :bitops.num_words(n)]
     return dest, bitmap
+
+
+def wm_level_zeros_plain(keys: torch.Tensor, lo: int, width: int,
+                         n: int) -> torch.Tensor:
+    """(R, width) int32: column j holds the zeros of bit ``lo + width - 1 -
+    j`` among the first n keys of each row (level order: the top bit
+    first)."""
+    k = bitops.u32(keys[:, :n])
+    return torch.stack([n - ((k >> b) & 1).sum(-1)
+                        for b in range(lo + width - 1, lo - 1, -1)],
+                       -1).to(torch.int32)
+
+
+def wm_level_plain(keys: torch.Tensor, total_zeros: torch.Tensor,
+                   shift: int, n: int):
+    """(dest (R, n), bitmap (R, ceil(n/32)), counted zeros (R,)) int32 of
+    one level, the ones placed after the given ``total_zeros`` (R,): the
+    count and apply phases with an exclusive scan of the block counts."""
+    counts = wm_counts_plain(keys, shift, n)
+    incl = torch.cumsum(counts, 1)
+    dest, bitmap = wm_apply_plain(keys, (incl - counts).to(torch.int32),
+                                  total_zeros, shift, n)
+    return dest, bitmap, incl[:, -1].to(torch.int32)
 
 
 def _check_keys(keys: torch.Tensor, shift: int, n: int) -> None:
@@ -114,3 +146,62 @@ def wm_apply(keys: torch.Tensor, zeros_excl: torch.Tensor,
     build.launches["wm_level_step"] += 1
     build.check(lib, err, "wm_apply")
     return dest, bitmap
+
+
+def _check_totals(total_zeros: torch.Tensor, keys: torch.Tensor) -> None:
+    if (total_zeros.shape != (keys.shape[0],)
+            or total_zeros.dtype != torch.int32
+            or total_zeros.device != keys.device):
+        raise ValueError(f"total_zeros must be ({keys.shape[0]},) int32 on "
+                         f"{keys.device}, got {tuple(total_zeros.shape)} "
+                         f"{total_zeros.dtype} on {total_zeros.device}")
+
+
+def wm_level_zeros(keys: torch.Tensor, lo: int, width: int,
+                   n: int) -> torch.Tensor:
+    """Zeros of bits ``lo + width - 1`` down to ``lo`` in each row, (R,
+    width) int32 in level order: the CUDA kernel for a CUDA tensor (one
+    launch), else the plain version."""
+    _check_keys(keys, lo, n)
+    if not 1 <= width <= 32 - lo:
+        raise ValueError(f"bits [{lo}, {lo + width}) out of [0, 32)")
+    if keys.device.type == "cpu":
+        return wm_level_zeros_plain(keys, lo, width, n)
+    out = torch.zeros((keys.shape[0], width), dtype=torch.int32,
+                      device=keys.device)
+    lib = build.library("wm_level")
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    err = lib.wm_level_zeros(keys.data_ptr(), keys.shape[0], n,
+                             keys.stride(0), lo, width, out.data_ptr(),
+                             stream)
+    build.launches["wm_level_step"] += 1
+    build.check(lib, err, "wm_level_zeros")
+    return out
+
+
+def wm_level(keys: torch.Tensor, total_zeros: torch.Tensor, shift: int,
+             n: int):
+    """One level given each row's total zeros (R,) int32 (any stride):
+    (dest (R, n), bitmap (R, ceil(n/32)), the zeros the level counted (R,))
+    int32. One launch of the zero scan for a CUDA tensor, else the plain
+    version."""
+    _check_keys(keys, shift, n)
+    _check_totals(total_zeros, keys)
+    if keys.device.type == "cpu":
+        return wm_level_plain(keys, total_zeros, shift, n)
+    rows, W = keys.shape[0], bitops.num_words(n)
+    tiles = rows * ((n + TILE - 1) // TILE)
+    status = torch.zeros(tiles + 1, dtype=torch.int64, device=keys.device)
+    dest = torch.empty((rows, n), dtype=torch.int32, device=keys.device)
+    bitmap = torch.empty((rows, W), dtype=torch.int32, device=keys.device)
+    zeros = torch.empty(rows, dtype=torch.int32, device=keys.device)
+    lib = build.library("wm_level")
+    err = lib.wm_level_scan(keys.data_ptr(), rows, n, keys.stride(0), shift,
+                            total_zeros.data_ptr(), total_zeros.stride(0),
+                            zeros.data_ptr(), dest.data_ptr(), dest.stride(0),
+                            bitmap.data_ptr(), W, bitmap.stride(0),
+                            status.data_ptr(),
+                            torch.cuda.current_stream(keys.device).cuda_stream)
+    build.launches["wm_level_step"] += 1
+    build.check(lib, err, "wm_level_scan")
+    return dest, bitmap, zeros

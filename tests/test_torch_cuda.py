@@ -105,6 +105,7 @@ def test_main_path_on_the_card_matches_the_cpu():
     got = eng.range_quantile(lo, hi, k)
     assert all(build.launches[name] > 0 for name in (
         "rank_build_levels", "wm_level_step", "wm_quantile_sharded"))
+    assert build.launches["wm_level_step"] == 13 + 1   # levels + totals
     cpu = build_sharded_analytics(toks, 5000, shard_bits=12, device="cpu")
     a, b = tree_named_leaves(eng.shards), tree_named_leaves(cpu.shards)
     assert all(torch.equal(a[name].cpu(), b[name]) for name in a)
@@ -131,25 +132,99 @@ def test_radix_rank_kernels_match_plain(n, nb):
         assert torch.equal(got[r], ref.radix_rank_ref(d[r], nb))
 
 
+def _twice(fn):
+    """Run a kernel twice; both runs must give identical outputs."""
+    first, second = fn(), fn()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    return first
+
+
+def _level_keys(rows: int, n: int, seed: int, dev, strided: bool):
+    """(rows, n) keys below 256, an all-zero and an all-one row first; with
+    ``strided``, a view whose rows start off 16-byte alignment."""
+    keys = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (rows, n + 1)).astype(np.int32)).to(dev)
+    keys[0] = 0
+    if rows > 1:
+        keys[1] = 255
+    return keys[:, 1:] if strided else keys[:, :n].contiguous()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 31, 1000, 1024, 1025, 70001])
-@pytest.mark.parametrize("nodes", [1, 16, 256])
-def test_wt_level_kernels_match_plain(n, nodes):
+@pytest.mark.parametrize("n", [1, 31, 8191, 8193, 3 * 8192 + 100,
+                               5 * 8192 + 77])
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("strided", [False, True])
+def test_wm_level_scan_matches_plain(n, rows, strided):
     dev = _card()
-    rng = np.random.default_rng(n + nodes)
-    nid = torch.from_numpy(np.sort(rng.integers(0, nodes, (2, n)), 1).astype(
+    keys = _level_keys(rows, n, n + rows, dev, strided)
+    for shift in (0, 7):
+        total = wm_level.wm_level_zeros(keys, shift, 1, n)[:, 0]
+        assert torch.equal(total, wm_level.wm_level_zeros_plain(
+            keys, shift, 1, n)[:, 0])
+        got = _twice(lambda: wm_level.wm_level(keys, total, shift, n))
+        want = wm_level.wm_level_plain(keys, total, shift, n)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert all(torch.equal(g, w) for g, w in zip(
+            ops.wm_level_step(keys, shift, n), got))
+        for r in range(rows):
+            assert all(torch.equal(g[r], w) for g, w in zip(
+                got, ref.wm_level_step_ref(keys[r], shift, n)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 12_289, 70_001])
+def test_wm_level_zeros_matches_plain(n):
+    dev = _card()
+    keys = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 151_936, (3, n)).astype(np.int32)).to(dev)
+    for lo, width in ((0, 18), (5, 1), (0, 32)):
+        assert torch.equal(wm_level.wm_level_zeros(keys, lo, width, n),
+                           wm_level.wm_level_zeros_plain(keys, lo, width, n))
+
+
+@pytest.mark.cuda
+def test_level_scans_walk_back_over_a_long_row():
+    """One row of 2^22 + 123 keys: the look-back crosses 513 tiles."""
+    dev = _card()
+    n = (1 << 22) + 123
+    rng = np.random.default_rng(4)
+    keys = torch.from_numpy(rng.integers(0, 256, (1, n)).astype(
+        np.int32)).to(dev)
+    total = wm_level.wm_level_zeros(keys, 3, 1, n)[:, 0]
+    got = _twice(lambda: wm_level.wm_level(keys, total, 3, n))
+    assert all(torch.equal(g, w) for g, w in zip(
+        got, wm_level.wm_level_plain(keys, total, 3, n)))
+    nid = torch.from_numpy(np.sort(rng.integers(0, 256, (1, n)), 1).astype(
+        np.int32)).to(dev)
+    starts = wt_level.bucket_starts_plain(keys, nid, 3, 512, n)
+    got = _twice(lambda: wt_level.wt_level(keys, nid, 3, 512, n, starts))
+    assert all(torch.equal(g, w) for g, w in zip(
+        got, wt_level.wt_level_plain(keys, nid, 3, 512, n, starts)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 8191, 8193, 3 * 8192 + 100,
+                               5 * 8192 + 77, 70001])
+@pytest.mark.parametrize("l", [0, 1, 5, 8])
+def test_wt_level_scan_matches_plain(n, l):
+    dev = _card()
+    rng = np.random.default_rng(n + l)
+    nodes, nbkt = 1 << l, 2 << l
+    used = rng.choice(nodes, max(1, nodes // 2), replace=False)  # empties
+    nid = torch.from_numpy(np.sort(rng.choice(used, (2, n)), 1).astype(
         np.int32)).to(dev)
     sub = torch.from_numpy(rng.integers(0, 256, (2, n)).astype(
         np.int32)).to(dev)
+    sub[0] = 0                                    # all bits 0 in row 0
     for shift in (0, 7):
-        hist = wt_level.wt_counts(sub, nid, shift, 2 * nodes, n)
-        assert torch.equal(hist, wt_level.wt_counts_plain(sub, nid, shift,
-                                                          2 * nodes, n))
-        offsets = radix_rank.bucket_offsets(hist)
-        got = wt_level.wt_apply(sub, nid, offsets, shift, 2 * nodes, n)
-        want = wt_level.wt_apply_plain(sub, nid, offsets, shift,
-                                       2 * nodes, n)
+        starts = wt_level.bucket_starts_plain(sub, nid, shift, nbkt, n)
+        got = _twice(lambda: wt_level.wt_level(sub, nid, shift, nbkt, n,
+                                               starts))
+        want = wt_level.wt_level_plain(sub, nid, shift, nbkt, n, starts)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert all(torch.equal(g, w) for g, w in zip(
+            wt_level.wt_level(sub, nid, shift, nbkt, n), got))
         assert all(torch.equal(g, w) for g, w in zip(
             (got[0][1], got[1][1]),
             ref.wt_level_step_ref(sub[1], nid[1], shift, n)))
@@ -175,7 +250,10 @@ def test_tree_on_the_card_matches_the_cpu(big_step):
     seq = np.random.default_rng(1).integers(0, sigma, n).astype(np.int32)
     build.reset_launches()
     wt = build_wavelet_tree(seq, sigma, big_step=big_step, device=dev)
-    assert build.launches["wt_level_step"] > 0
+    # one launch a moved level l <= 8; a radix or xla big step leaves the
+    # chunk's last level (7) unmoved
+    assert build.launches["wt_level_step"] == (9 if big_step == "compose"
+                                               else 8)
     assert build.launches["bitpack"] > 0
     assert (build.launches["radix_rank"] > 0) == (big_step == "radix")
     cpu = build_wavelet_tree(seq, sigma, big_step=big_step, device="cpu")

@@ -215,9 +215,9 @@ def test_wt_level_step_matches_pallas_interpret():
                                            2 * nodes, n)
     assert np.array_equal(dest.numpy(), np.asarray(jd))
     assert np.array_equal(bitmap.numpy().view(np.uint32), np.asarray(jb))
-    hist = wt_level.wt_counts(torch.from_numpy(sub)[None],
-                              torch.from_numpy(nid)[None], shift, 2 * nodes,
-                              n)
+    hist = wt_level.wt_counts_plain(torch.from_numpy(sub)[None],
+                                    torch.from_numpy(nid)[None], shift,
+                                    2 * nodes, n)
     assert hist.shape == (1, 3, 2 * nodes + 1)
     assert int(hist[0, :, :-1].sum()) == n           # padding: sentinel only
 
@@ -245,12 +245,14 @@ def test_bitpack_matches_pallas_interpret():
 def test_tree_kernel_wrappers_reject_bad_inputs():
     z = torch.zeros((1, 10), dtype=torch.int32)
     with pytest.raises(ValueError):
-        wt_level.wt_counts(z, z, 0, 1024, 10)
+        wt_level.wt_level(z, z, 0, 1024, 10)
     with pytest.raises(ValueError):
-        wt_level.wt_counts(z, z.long(), 0, 4, 10)
+        wt_level.wt_level(z, z.long(), 0, 4, 10)
     with pytest.raises(ValueError):
-        wt_level.wt_apply(z, z, torch.zeros((1, 2, 5), dtype=torch.int32), 0,
-                          4, 10)
+        wt_level.wt_level(z, z, 0, 3, 10)             # odd bucket count
+    with pytest.raises(ValueError):
+        wt_level.wt_level(z, z, 0, 4, 10,
+                          torch.zeros((1, 5), dtype=torch.int32))
     with pytest.raises(ValueError):
         bitpack.bitpack(torch.zeros((2, 5), dtype=torch.int32), 10)
     with pytest.raises(ValueError):
