@@ -6,10 +6,11 @@
 1. Prints the card, its power limit, and the torch and CUDA versions.
 2. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and prints
    the registers, shared and local memory and resident blocks per SM of the
-   two single-pass level scans.
+   four single-pass scans (the two level scans, ``rank_build_levels`` and
+   ``radix_scan``).
 3. Holds each kernel against its plain PyTorch version on the card at
-   ragged shapes (exact equality: every output is an integer); each level
-   scan runs twice on the same inputs and must repeat itself.
+   ragged shapes (exact equality: every output is an integer); each
+   single-pass scan runs twice on the same inputs and must repeat itself.
 4. Runs the main path at full width: a 2^27-token Zipfian stream over
    Qwen2's vocabulary (σ = 151,936, 18 levels), 128 shards of 2^20,
    τ = 8, sample rate 512; the build through the kernels, checked leaf for
@@ -23,17 +24,20 @@
    one τ-chunked wavelet tree (Theorem 4.1) with the radix big step,
    through the tree's kernels (launch counts zeroed just before, each must
    have launched, ``wt_level_step`` once for each of the 8 moved levels
-   l ≤ 8), then with the compose big step and by the plain build;
-   all three equal leaf for leaf. The sharded matrix of step 4 is rebuilt
-   with the radix big step and must equal its compose build. 4,096 each of
+   l ≤ 8, ``radix_rank`` exactly once, given the bucket starts), then with
+   the compose big step and by the plain build; all three equal leaf for
+   leaf. The sharded matrix of step 4 is rebuilt with the radix big step
+   (``radix_rank`` exactly 4 launches: a totals count and a scan for each
+   of its 2 big steps) and must equal its compose build. 4,096 each of
    tree access, rank and select run on the card, 32 of each checked
    against numpy.
 6. Times each kernel by CUDA events at its path's shapes beside its plain
    version, its bound and, where one torch call computes the same
    function, that call; prints the ``phases`` JSON line (the single-row
    and single-shard forms, the totals count, the reference's two matrix
-   phase kernels and the two-launch level they make, the tree level at
-   l = 0) and the ``kernels`` JSON line.
+   phase kernels and the two-launch level they make, ``radix_rank``
+   without the starts and its totals count, the reference's two radix
+   phase kernels, the tree level at l = 0) and the ``kernels`` JSON line.
 
 Exits non-zero on any failure; prints no result without a CUDA device or
 outside a checkout. The last line is the ``{"ok": true, ...}`` object.
@@ -171,14 +175,18 @@ def main() -> None:
         build.library(name)
     print(f"kernel build (nvcc, {len(build.SOURCES)} sources in parallel): "
           f"{time.perf_counter() - t0:.3f} s")
-    for src, entry in (("wm_level", "wm_level_scan_info"),
-                       ("wt_level", "wt_level_scan_info")):
+    for src, entry, shared, threads in (
+            ("wm_level", "wm_level_scan_info", "static", 256),
+            ("wt_level", "wt_level_scan_info", "static", 256),
+            ("rank_build", "rank_build_levels_info", "static", 512),
+            ("radix_rank", "radix_scan_info",
+             "static and dynamic (at 256 buckets)", 256)):
         attrs = (ctypes.c_int * 4)()
         lib = build.library(src)
         build.check(lib, getattr(lib, entry)(attrs), entry)
         print(f"{entry[:-5]} kernel: {attrs[0]} registers, {attrs[1]} B "
-              f"static shared memory, {attrs[2]} B local memory, "
-              f"{attrs[3]} resident blocks of 256 threads per SM")
+              f"{shared} shared memory, {attrs[2]} B local memory, "
+              f"{attrs[3]} resident blocks of {threads} threads per SM")
 
     # ---- 3. each kernel against its plain version, ragged shapes -------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -191,23 +199,38 @@ def main() -> None:
         bits[1] = 1
         return bits
 
-    for n in (1, 31, 32, 128, 1000, 1024, 32 * 1025, 40_000, 131_072 + 77):
-        words = bitops.pack_bits(bitops.pad_bits(bit_rows(n, 5)))
-        W = bitops.num_words(n)
-        got = ops.rank_build_levels(words, n)
-        ragged_err["rank_build_levels"] = max(
-            ragged_err["rank_build_levels"],
-            max_abs_err(got, rank_build.rank_build_levels_plain(words, W)),
-            max_abs_err(got, ref.rank_build_levels_ref(words, n)),
-            max_abs_err(ops.rank_build(words[2], n),      # L = 1
-                        ref.rank_build_ref(words[2], n)))
-
     def twice(fn):
         """A kernel's outputs, after a second run gave the same ones."""
         first, second = fn(), fn()
         if not all(torch.equal(a, b) for a, b in zip(first, second)):
             fail("two runs of a kernel on the same inputs differ")
         return first
+
+    for n in (1, 31, 32, 128, 1000, 1024, 32 * 1025, 40_000, 131_072 + 77):
+        words = bitops.pack_bits(bitops.pad_bits(bit_rows(n, 5)))
+        W = bitops.num_words(n)
+        got = twice(lambda: ops.rank_build_levels(words, n))
+        ragged_err["rank_build_levels"] = max(
+            ragged_err["rank_build_levels"],
+            max_abs_err(got, rank_build.rank_build_levels_plain(words, W)),
+            max_abs_err(got, ref.rank_build_levels_ref(words, n)),
+            max_abs_err(ops.rank_build(words[2], n),      # L = 1
+                        ref.rank_build_ref(words[2], n)))
+    # the tiled scan: W of 1, a tile (16,384 words) - 1, a tile + 1 and
+    # three tiles + 100, on rows longer than W (strided: off 16-byte
+    # alignment), 18 rows and one (L = 1)
+    tile = rank_build.TILE
+    for W in (1, tile - 1, tile + 1, 3 * tile + 100):
+        for rows, strided in ((18, False), (18, True), (1, True)):
+            wide = torch.randint(-(1 << 31), 1 << 31, (rows, W + 3),
+                                 generator=gen, device=dev,
+                                 dtype=torch.int32)
+            wide[0] = -1
+            words = wide[:, 1:] if strided else wide
+            got = twice(lambda: rank_build.rank_build_levels(words, W))
+            ragged_err["rank_build_levels"] = max(
+                ragged_err["rank_build_levels"],
+                max_abs_err(got, rank_build.rank_build_levels_plain(words, W)))
 
     # the zero scans: ragged n (one tile is 8,192 keys), 1 and 4 rows, rows
     # off 16-byte alignment, all-zero and all-one rows, and one row of
@@ -333,6 +356,32 @@ def main() -> None:
             ragged_err["bitpack"],
             max_abs_err(got, bitpack.bitpack_plain(bits, n)),
             max_abs_err(got[2], ref.bitpack_ref(bits[2])))
+    # the one-sweep rank: ragged n (a tile is 8,192 digits) on 3 rows off
+    # 16-byte alignment, and 2^22 + 123 digits in one row and 2^20 + 8 in 4,
+    # so each bucket's look-back crosses up to 513 tiles; skewed digits, a
+    # third of row 0 in the last bucket; with and without the bucket starts
+    rtile = radix_rank.TILE
+    for n, rows in ((1, 3), (rtile - 1, 3), (rtile + 1, 3),
+                    (3 * rtile + 100, 3), (70_001, 3), ((1 << 22) + 123, 1),
+                    ((1 << 20) + 8, 4)):
+        for nb in (2, 33, 256, 512):
+            u = torch.rand((rows, n + 1), generator=gen, device=dev)
+            wide = (u.pow(4) * nb).to(torch.int32).clamp_(max=nb - 1)
+            wide[0, 1:1 + n // 3] = nb - 1
+            d = wide[:, 1:] if rows == 3 else wide[:, :n].contiguous()
+            totals = twice(lambda: (radix_rank.radix_totals(d, nb, n),))[0]
+            e = max_abs_err(totals, radix_rank.radix_totals_plain(d, nb, n))
+            starts = radix_rank.exclusive_starts(totals)
+            got = twice(lambda: (radix_rank.radix_scan(d, nb, n, starts),))[0]
+            e = max(e, max_abs_err(got, radix_rank.radix_rank_plain(
+                        d, nb, n, starts)),
+                    max_abs_err(ops.radix_rank(d, nb), got),
+                    max_abs_err(ops.radix_rank(d, nb, starts), got))
+            for r in range(min(rows, 2)):
+                e = max(e, max_abs_err(got[r], ref.radix_rank_ref(d[r], nb)))
+            ragged_err["radix_rank"] = max(ragged_err["radix_rank"], e)
+    del u, wide, d, totals, starts, got
+
     torch.cuda.synchronize()
     print(f"ragged checks, max_abs_err vs plain versions: "
           f"{json.dumps(ragged_err)}")
@@ -610,6 +659,9 @@ def main() -> None:
     if tree_launches["wt_level_step"] != 8:
         fail(f"tree path: {tree_launches['wt_level_step']} wt_level_step "
              f"launches, want one for each moved level l <= 8 (8)")
+    if tree_launches["radix_rank"] != 1:
+        fail(f"tree path: {tree_launches['radix_rank']} radix_rank launches, "
+             f"want one scan given the bucket starts (1)")
     peak_tree = torch.cuda.max_memory_allocated()
     print(f"tree build (radix big step, tokens already on the card): "
           f"{N_TOKENS} tokens in {t_tree:.6f} s "
@@ -644,8 +696,13 @@ def main() -> None:
                                         big_step="radix",
                                         sample_rate=SAMPLE_RATE, device=dev)
     torch.cuda.synchronize()
+    radix_launches = dict(build.launches)
     print(f"sharded matrix, radix big step: {time.perf_counter() - t0:.6f} s,"
-          f" launches {json.dumps(build.launches)}")
+          f" launches {json.dumps(radix_launches)}")
+    if radix_launches["radix_rank"] != 4:
+        fail(f"sharded matrix, radix big step: {radix_launches['radix_rank']} "
+             f"radix_rank launches, want a totals count and a scan for each "
+             f"of its 2 big steps (4)")
     same_leaves(eng.shards, radix_shards, "sharded matrix: radix build "
                 "against the compose build")
     del radix_shards
@@ -685,47 +742,65 @@ def main() -> None:
 
     # tree kernels at the tree path's shapes
     n = N_TOKENS
+    nbkt0 = 1 << TAU
     digits = (seq >> (nbits - TAU)).contiguous()  # first big step's digits
+    starts = wt.node_starts[TAU, :nbkt0]          # the tree's hand-over
 
     def radix_plain():
-        hist = radix_rank.radix_hist_plain(digits[None], 1 << TAU, n)
-        offsets = radix_rank.bucket_offsets(hist)
-        return radix_rank.radix_apply_plain(digits[None], offsets, 1 << TAU,
-                                            n)[0]
+        return radix_rank.radix_rank_plain(digits[None], nbkt0, n,
+                                           starts[None])[0]
 
-    got = ops.radix_rank(digits, 1 << TAU)
+    got = ops.radix_rank(digits, nbkt0, starts)
     report("radix_rank", "src/repro_torch/kernels/csrc/radix_rank.cu",
            "src/repro/kernels/radix_rank.py:52",
            ["src/repro/kernels/radix_rank.py:79"], got, radix_plain(),
-           cuda_ms(lambda: ops.radix_rank(digits, 1 << TAU), 20),
-           cuda_ms(radix_plain, 3), n * 8, n * 8, path="tree",
+           cuda_ms(lambda: ops.radix_rank(digits, nbkt0, starts), 20),
+           cuda_ms(radix_plain, 3), n * 8 + nbkt0 * 4, n * 8, path="tree",
            path_launches=tree_launches,
            library_ms=cuda_ms(lambda: torch.sort(digits, stable=True), 20))
 
-    hist = radix_rank.radix_hist(digits[None], 1 << TAU, n)
+    # the form without starts (the matrix radix build's), its totals count,
+    # and the reference's two phase kernels, off every path
+    report_phase("radix_rank without starts (radix_totals + radix_scan)",
+                 "src/repro/kernels/radix_rank.py:52",
+                 ops.radix_rank(digits, nbkt0), got,
+                 cuda_ms(lambda: ops.radix_rank(digits, nbkt0), 20),
+                 cuda_ms(lambda: radix_rank.radix_rank_plain(
+                     digits[None], nbkt0, n), 3),
+                 n * 8, n * 8, radix_launches["radix_rank"])
+    totals = radix_rank.radix_totals(digits[None], nbkt0, n)
+    report_phase("radix_totals", "src/repro/kernels/radix_rank.py:52",
+                 totals, radix_rank.radix_totals_plain(digits[None], nbkt0,
+                                                       n),
+                 cuda_ms(lambda: radix_rank.radix_totals(digits[None], nbkt0,
+                                                         n), 20),
+                 cuda_ms(lambda: radix_rank.radix_totals_plain(
+                     digits[None], nbkt0, n), 3),
+                 n * 4 + totals.numel() * 4, n * 4,
+                 radix_launches["radix_rank"] // 2)
+    hist = radix_rank.radix_hist(digits[None], nbkt0, n)
     report_phase("radix_hist", "src/repro/kernels/radix_rank.py:52", hist,
-                 radix_rank.radix_hist_plain(digits[None], 1 << TAU, n),
-                 cuda_ms(lambda: radix_rank.radix_hist(digits[None], 1 << TAU,
+                 radix_rank.radix_hist_plain(digits[None], nbkt0, n),
+                 cuda_ms(lambda: radix_rank.radix_hist(digits[None], nbkt0,
                                                        n), 20),
                  cuda_ms(lambda: radix_rank.radix_hist_plain(
-                     digits[None], 1 << TAU, n), 3),
-                 n * 4 + hist.numel() * 4, n * 4,
-                 tree_launches["radix_rank"] // 2)
+                     digits[None], nbkt0, n), 3),
+                 n * 4 + hist.numel() * 4, n * 4, 0)
     offsets = radix_rank.bucket_offsets(hist)
     report_phase("radix_apply", "src/repro/kernels/radix_rank.py:79",
-                 radix_rank.radix_apply(digits[None], offsets, 1 << TAU, n),
+                 radix_rank.radix_apply(digits[None], offsets, nbkt0, n),
                  radix_rank.radix_apply_plain(digits[None], offsets,
-                                              1 << TAU, n),
+                                              nbkt0, n),
                  cuda_ms(lambda: radix_rank.radix_apply(
-                     digits[None], offsets, 1 << TAU, n), 20),
+                     digits[None], offsets, nbkt0, n), 20),
                  cuda_ms(lambda: radix_rank.radix_apply_plain(
-                     digits[None], offsets, 1 << TAU, n), 3),
-                 n * 8 + offsets.numel() * 4, n * 8,
-                 tree_launches["radix_rank"] // 2)
-    del hist, offsets
+                     digits[None], offsets, nbkt0, n), 3),
+                 n * 8 + offsets.numel() * 4, n * 8, 0)
+    del hist, offsets, totals, digits
 
     # level TAU: the first level after the first big step, 2^(TAU+1) buckets
-    order = wtree._tree_big_step(seq, nbits, TAU, "radix", True)
+    order = wtree._tree_big_step(seq, nbits, TAU, "radix", True,
+                                 wt.node_starts)
     sub = bitops.extract_field(order, nbits - 2 * TAU, TAU).to(torch.int32)
     nid = wtree._level_nid(wt.node_starts, TAU, n)
     nbkt, shift = 1 << (TAU + 1), TAU - 1

@@ -44,11 +44,15 @@ def _sorted_rank(digits: torch.Tensor) -> torch.Tensor:
 
 
 def counting_rank(digits: torch.Tensor, num_buckets: int,
-                  use_kernel: bool | None = None) -> torch.Tensor:
+                  use_kernel: bool | None = None,
+                  bucket_starts: torch.Tensor | None = None) -> torch.Tensor:
     """Stable sort destinations (a permutation of each row), ``int32``.
 
     ``use_kernel`` (default: the digits lie on a CUDA device) routes bucket
     counts up to ``radix_rank.MAX_BUCKETS`` through ``ops.radix_rank``.
+    ``bucket_starts`` (*B, num_buckets) int32, the exclusive scan of each
+    row's digit histogram when the caller knows it, spares the kernel its
+    count; the result is the same with or without it.
     """
     n = digits.shape[-1]
     if use_kernel is None:
@@ -58,7 +62,7 @@ def counting_rank(digits: torch.Tensor, num_buckets: int,
         from repro_torch.kernels import ops
         from repro_torch.kernels.radix_rank import MAX_BUCKETS
         if num_buckets <= MAX_BUCKETS:
-            return ops.radix_rank(digits, num_buckets)
+            return ops.radix_rank(digits, num_buckets, bucket_starts)
     return _sorted_rank(digits)
 
 
@@ -80,10 +84,11 @@ def _invert_permutation(dest: torch.Tensor) -> torch.Tensor:
 
 def sort_pass(keys: torch.Tensor, digits: torch.Tensor, num_buckets: int,
               values: Optional[Tuple[torch.Tensor, ...]] = None,
-              backend: str = "counting", use_kernel: bool | None = None):
+              backend: str = "counting", use_kernel: bool | None = None,
+              bucket_starts: torch.Tensor | None = None):
     """One stable sort pass of ``keys`` (and optional ``values``) by
     ``digits`` (each in [0, num_buckets)) along the last axis. Returns
-    (keys, values)."""
+    (keys, values). ``bucket_starts``: as in :func:`counting_rank`."""
     if backend == "xla":
         _, perm = torch.sort(digits.to(torch.int32), dim=-1, stable=True)
         new_keys = take(keys, perm)
@@ -91,7 +96,8 @@ def sort_pass(keys: torch.Tensor, digits: torch.Tensor, num_buckets: int,
                       if values is not None else None)
         return new_keys, new_values
     if backend == "counting":
-        dest = counting_rank(digits, num_buckets, use_kernel=use_kernel)
+        dest = counting_rank(digits, num_buckets, use_kernel=use_kernel,
+                             bucket_starts=bucket_starts)
         new_keys = apply_permutation_dest(keys, dest)
         new_values = (tuple(apply_permutation_dest(v, dest) for v in values)
                       if values is not None else None)

@@ -13,8 +13,9 @@ through the ``wt_level`` kernel, one launch a level given the level's
 bucket starts from ``node_starts``; the deeper ones through the segmented
 select-gather (``rank_select.segmented_partition_gather``) with their
 bitmaps packed by the ``bitpack`` kernel; the radix big step through the
-``radix_rank`` kernels where its bucket count allows; and all directories
-through ``rank_build_levels``. Every route gives the same bits.
+``radix_rank`` kernel where its bucket count allows, one launch given the
+bucket starts from ``node_starts``; and all directories through
+``rank_build_levels``. Every route gives the same bits.
 """
 from __future__ import annotations
 
@@ -101,13 +102,16 @@ def _finalize_fused(level_words: List[torch.Tensor],
 
 
 def _tree_big_step(order: torch.Tensor, nbits: int, consumed: int,
-                   big_step: str, use_kernels: bool) -> torch.Tensor:
+                   big_step: str, use_kernels: bool,
+                   node_starts: torch.Tensor) -> torch.Tensor:
     """One stable sort keyed on the top ``consumed`` bits: globally a sort
-    by (node, next τ bits)."""
+    by (node, next τ bits). Bucket v of that sort is the depth-``consumed``
+    node v, so its start is ``node_starts[consumed, v]``."""
     key = (bitops.u32(order) >> (nbits - consumed)).to(torch.int32)
     backend = "counting" if big_step == "radix" else "xla"
     return sort_pass(order, key, 1 << consumed, backend=backend,
-                     use_kernel=use_kernels)[0]
+                     use_kernel=use_kernels,
+                     bucket_starts=node_starts[consumed, :1 << consumed])[0]
 
 
 def build_wavelet_tree(seq, sigma: int, tau: int = 8,
@@ -182,7 +186,7 @@ def build_wavelet_tree(seq, sigma: int, tau: int = 8,
                 order = order[idx.long()]
             else:
                 order = _tree_big_step(order, nbits, alpha0 + width,
-                                       big_step, use_kernels)
+                                       big_step, use_kernels, node_starts)
 
     return _finalize_fused(level_words, node_starts, n, nbits, sample_rate,
                            use_kernels)

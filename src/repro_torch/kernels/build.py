@@ -30,7 +30,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # ``const char* kernel_error_string(int)``.
 SIGNATURES: dict[str, dict[str, list]] = {
     "rank_build": {
-        "rank_build_levels": [_P, _I, _I, _L, _P, _I, _P, _I, _P]},
+        "rank_build_levels": [_P, _I, _I, _L, _P, _I, _P, _I, _P, _P],
+        "rank_build_levels_info": [_P]},
     "wm_level": {
         "wm_counts": [_P, _I, _I, _L, _I, _P, _I, _P],
         "wm_apply": [_P, _I, _I, _L, _I, _I, _P, _P, _P, _L, _P, _I, _L,
@@ -45,7 +46,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
                                 + [_I] * 5 + [_P, _P])},
     "radix_rank": {
         "radix_hist": [_P, _I, _I, _L, _I, _P, _I, _P],
-        "radix_apply": [_P, _I, _I, _L, _I, _I, _P, _P, _L, _P]},
+        "radix_apply": [_P, _I, _I, _L, _I, _I, _P, _P, _L, _P],
+        "radix_totals": [_P, _I, _I, _L, _I, _P, _P],
+        "radix_scan": [_P, _I, _I, _L, _I, _P, _L, _P, _L, _P, _P],
+        "radix_scan_info": [_P]},
     "wt_level": {
         "wt_level_scan": [_P, _P, _I, _I, _L, _L, _I, _P, _I, _P, _L, _P,
                           _I, _L, _P, _P],

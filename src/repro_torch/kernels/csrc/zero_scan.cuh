@@ -34,7 +34,8 @@
 //     st.release and read with ld.acquire; warp 0 walks back over windows
 //     of 32 predecessors until it finds an inclusive prefix, which the
 //     row's first tile always publishes at once, so rows never share a sum
-//     and a row of up to 2^31 keys cannot reach the flag bits;
+//     and a row of up to 2^31 keys cannot reach the flag bits
+//     (look_back.cuh);
 //   - the other warps write the bitmap words while warp 0 looks back; then
 //     every thread stores its 32 destinations as eight 16-byte stores.
 // The tile shape is the fastest of a sweep of (threads, loads per thread)
@@ -53,7 +54,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "look_back.cuh"
+
 namespace zero_scan {
+
+using lookback::kFull;
+using lookback::look_back;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -61,12 +67,6 @@ constexpr int kSlabs = 8;                    // 16-byte loads per thread
 constexpr int kWarpKeys = kSlabs * 128;
 constexpr int kTile = kWarps * kWarpKeys;    // 8192 keys per tile
 constexpr int kMaxNodes = 256;
-constexpr unsigned kFull = 0xffffffffu;
-
-constexpr unsigned long long kAggregate = 1ull << 62;
-constexpr unsigned long long kPrefix = 2ull << 62;
-constexpr unsigned long long kCount = kAggregate - 1;
-
 struct Params {
   const int32_t* keys;
   long long key_stride;
@@ -88,22 +88,6 @@ struct Params {
   unsigned long long* status;    // one word per tile, zeroed
   unsigned int* next_tile;       // zeroed
 };
-
-__device__ __forceinline__ void store_release(unsigned long long* p,
-                                              unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long load_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
 
 // Keys i..i+3 of a row (pad past n): one 16-byte load where all four are
 // real and the row is 16-byte aligned.
@@ -136,44 +120,6 @@ __device__ __forceinline__ unsigned spread4(unsigned x) {
   x = (x | (x << 12)) & 0x000F000Fu;
   x = (x | (x << 6)) & 0x03030303u;
   return (x | (x << 3)) & 0x11111111u;
-}
-
-__device__ __forceinline__ long long warp_sum(long long x) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(kFull, x, d);
-  return x;
-}
-
-// Zeros before tile t in its row (warp 0, all lanes): publish the tile's
-// aggregate, walk back to the nearest inclusive prefix, publish the tile's
-// own. Lanes read the predecessors t-1-lane of a window at once.
-__device__ __forceinline__ long long look_back(unsigned long long* status,
-                                               int t, int first, int agg,
-                                               int lane) {
-  if (t == first) {
-    if (lane == 0) store_release(status + t, kPrefix | agg);
-    return 0;
-  }
-  if (lane == 0) store_release(status + t, kAggregate | agg);
-  long long excl = 0;
-  for (int pos = t - 1;; pos -= 32) {
-    const int q = pos - lane;
-    unsigned long long v = kPrefix;          // before the row: a zero prefix
-    if (q >= first) {
-      do {
-        v = load_acquire(status + q);
-      } while ((v >> 62) == 0);
-    }
-    const unsigned prefixes = __ballot_sync(kFull, (v >> 62) == 2);
-    if (prefixes) {
-      const int k = __ffs(prefixes) - 1;     // the nearest inclusive prefix
-      excl += warp_sum(lane <= k ? static_cast<long long>(v & kCount) : 0);
-      break;
-    }
-    excl += warp_sum(static_cast<long long>(v & kCount));
-  }
-  if (lane == 0) store_release(status + t, kPrefix | (excl + agg));
-  return excl;
 }
 
 // The bitmap words of a warp's keys: word 32r + lane (< 4 kSlabs) is byte

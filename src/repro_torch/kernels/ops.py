@@ -36,19 +36,28 @@ def bitpack(bits: torch.Tensor) -> torch.Tensor:
     return words.reshape(bits.shape[:-1] + (-1,))
 
 
-def radix_rank(digits: torch.Tensor, num_buckets: int) -> torch.Tensor:
+def radix_rank(digits: torch.Tensor, num_buckets: int,
+               bucket_starts: torch.Tensor | None = None) -> torch.Tensor:
     """Stable counting-sort destination of every digit of each (…, n) row
-    (digits in [0, num_buckets), num_buckets ≤ ``radix_rank.MAX_BUCKETS``):
-    count launch, the offsets' scan in torch, apply launch. The contract of
-    ``core.sort.counting_rank``; (…, n) int32."""
+    (digits in [0, num_buckets), num_buckets ≤ ``radix_rank.MAX_BUCKETS``).
+    ``bucket_starts`` (…, num_buckets) int32: where each bucket starts in
+    its row's output, when the caller knows it (a tree build does); then
+    one launch, else a totals launch first. The same result either way: the
+    contract of ``core.sort.counting_rank``; (…, n) int32."""
     if num_buckets > _radix_rank.MAX_BUCKETS:
         raise ValueError(f"num_buckets {num_buckets} exceeds "
                          f"{_radix_rank.MAX_BUCKETS}")
     n = digits.shape[-1]
     d = _rows(digits)
-    offsets = _radix_rank.bucket_offsets(
-        _radix_rank.radix_hist(d, num_buckets, n))
-    dest = _radix_rank.radix_apply(d, offsets, num_buckets, n)
+    starts = None
+    if bucket_starts is not None:
+        want = digits.shape[:-1] + (num_buckets,)
+        if bucket_starts.shape != want:
+            raise ValueError(f"bucket_starts {tuple(bucket_starts.shape)} do "
+                             f"not fit digits {tuple(digits.shape)} and "
+                             f"{num_buckets} buckets")
+        starts = bucket_starts.reshape(d.shape[0], num_buckets)
+    dest = _radix_rank.radix_rank(d, num_buckets, n, starts)
     return dest.reshape(digits.shape)
 
 

@@ -1,10 +1,13 @@
 """Jacobson rank directories of stacked bit rows: CUDA kernel + plain version.
 
 Replaces ``repro/kernels/rank_build.py:rank_build_levels_pallas`` (and, at
-one row, ``rank_build_pallas``). The kernel (``csrc/rank_build.cu``) gives
-one block to one row and loops over it with the popcount carry in a
-register, in place of the TPU's sequential grid. Bound on the H100 by
-bytes: each word is read once and 0.625 B of directory is written per word.
+one row, ``rank_build_pallas``). The kernel (``csrc/rank_build.cu``) is a
+single-pass scan in place of the TPU's sequential grid: every row is cut
+into tiles of ``TILE`` words, one block each, and the popcount carried into
+a tile comes from a decoupled look-back over the row's earlier tiles
+(``csrc/look_back.cuh``), so a few long rows spread over the whole card as
+well as many short ones. Bound on the H100 by bytes: each word is read once
+and 0.625 B of directory is written per word.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ import torch
 from repro_torch.core import rank_select
 
 from . import build
+
+TILE = 16384                  # words per tile of the scan
 
 
 def rank_build_levels_plain(words: torch.Tensor, W: int):
@@ -42,10 +47,13 @@ def rank_build_levels(words: torch.Tensor, W: int):
     superblock = torch.empty((rows, nsb), dtype=torch.int32,
                              device=words.device)
     block = torch.empty((rows, nblk), dtype=torch.int16, device=words.device)
+    # one status word per tile, then the tile counter
+    status = torch.zeros(rows * ((W + TILE - 1) // TILE) + 1,
+                         dtype=torch.int64, device=words.device)
     lib = build.library("rank_build")
     err = lib.rank_build_levels(
         words.data_ptr(), rows, W, words.stride(0), superblock.data_ptr(),
-        nsb, block.data_ptr(), nblk,
+        nsb, block.data_ptr(), nblk, status.data_ptr(),
         torch.cuda.current_stream(words.device).cuda_stream)
     build.launches["rank_build_levels"] += 1
     build.check(lib, err, "rank_build_levels")

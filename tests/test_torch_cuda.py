@@ -151,6 +151,70 @@ def _level_keys(rows: int, n: int, seed: int, dev, strided: bool):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, rank_build.TILE - 1, rank_build.TILE + 1,
+                               3 * rank_build.TILE + 100])
+@pytest.mark.parametrize("strided", [False, True])
+def test_rank_build_scan_walks_back_over_many_tiles(W, strided):
+    """18 rows of up to 3 tiles and 100 words more, on rows longer than W
+    (``strided``: starting off 16-byte alignment), run twice."""
+    dev = _card()
+    words = torch.from_numpy(np.random.default_rng(W).integers(
+        -(1 << 31), 1 << 31, (18, W + 3)).astype(np.int32)).to(dev)
+    words[0], words[1] = 0, -1
+    rows = words[:, 1:] if strided else words
+    got = _twice(lambda: rank_build.rank_build_levels(rows, W))
+    want = rank_build.rank_build_levels_plain(rows, W)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(
+        ops.rank_build(rows[5, :W], 32 * W),
+        ref.rank_build_ref(rows[5, :W], 32 * W)))
+
+
+def _zipf_digits(rows: int, n: int, nb: int, seed: int, dev, pad: int = 0):
+    """(rows, n) Zipf-like digits below nb (a few buckets hold most), a
+    third of row 0 in the last bucket; with ``pad``, a view of rows that
+    start ``pad`` digits into wider rows."""
+    rng = np.random.default_rng(seed)
+    d = np.minimum(rng.zipf(1.2, (rows, n + pad)) - 1, nb - 1).astype(
+        np.int32)
+    d[0, pad:pad + n // 3] = nb - 1
+    return torch.from_numpy(d).to(dev)[:, pad:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 8191, 8193, 3 * 8192 + 100, 70001])
+@pytest.mark.parametrize("nb", [2, 33, 256, 512])
+def test_radix_scan_matches_plain(n, nb):
+    dev = _card()
+    d = _zipf_digits(3, n, nb, n + nb, dev, pad=1)
+    totals = radix_rank.radix_totals(d, nb, n)
+    assert torch.equal(totals, radix_rank.radix_totals_plain(d, nb, n))
+    starts = radix_rank.exclusive_starts(totals)
+    got = _twice(lambda: (radix_rank.radix_scan(d, nb, n, starts),))[0]
+    assert torch.equal(got, radix_rank.radix_rank_plain(d, nb, n, starts))
+    assert torch.equal(radix_rank.radix_rank(d, nb, n), got)
+    for r in range(3):
+        assert torch.equal(got[r], ref.radix_rank_ref(d[r], nb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("nb", [2, 33, 256, 512])
+def test_radix_scan_walks_back_over_many_tiles(rows, nb):
+    """2^22 digits in 1 or 4 rows: the look-back of every bucket crosses
+    512 or 128 tiles of 8,192 digits; with and without the starts."""
+    dev = _card()
+    n = (1 << 22) // rows
+    d = _zipf_digits(rows, n, nb, rows * nb, dev)
+    starts = radix_rank.exclusive_starts(radix_rank.radix_totals_plain(
+        d, nb, n))
+    got = _twice(lambda: (ops.radix_rank(d, nb, starts),))[0]
+    assert torch.equal(got, radix_rank.radix_rank_plain(d, nb, n, starts))
+    assert torch.equal(_twice(lambda: (ops.radix_rank(d, nb),))[0], got)
+    assert torch.equal(got[rows - 1], ref.radix_rank_ref(d[rows - 1], nb))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 31, 8191, 8193, 3 * 8192 + 100,
                                5 * 8192 + 77])
 @pytest.mark.parametrize("rows", [1, 4])
@@ -255,7 +319,8 @@ def test_tree_on_the_card_matches_the_cpu(big_step):
     assert build.launches["wt_level_step"] == (9 if big_step == "compose"
                                                else 8)
     assert build.launches["bitpack"] > 0
-    assert (build.launches["radix_rank"] > 0) == (big_step == "radix")
+    # the radix big step of 256 buckets: one scan launch, given the starts
+    assert build.launches["radix_rank"] == (1 if big_step == "radix" else 0)
     cpu = build_wavelet_tree(seq, sigma, big_step=big_step, device="cpu")
     a, b = tree_named_leaves(wt), tree_named_leaves(cpu)
     assert all(torch.equal(a[name].cpu(), b[name]) for name in a)
@@ -275,7 +340,7 @@ def test_matrix_radix_build_on_the_card_matches_compose():
         0, 5000, (4, 4096)).astype(np.int32)).to(dev)
     build.reset_launches()
     radix = build_wavelet_matrix(rows, 5000, big_step="radix", device=dev)
-    assert build.launches["radix_rank"] == 2      # one hist + one apply
+    assert build.launches["radix_rank"] == 2      # one totals + one scan
     compose = build_wavelet_matrix(rows, 5000, device=dev)
     a, b = tree_named_leaves(radix), tree_named_leaves(compose)
     assert all(torch.equal(a[name], b[name]) for name in a)

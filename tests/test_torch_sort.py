@@ -70,7 +70,7 @@ def test_counting_rank_reaches_the_kernel_where_the_reference_does(
     calls = []
     real = ops.radix_rank
     monkeypatch.setattr(ops, "radix_rank",
-                        lambda d, b: calls.append(b) or real(d, b))
+                        lambda d, b, s=None: calls.append(b) or real(d, b, s))
     d = _digits(n, nb, nb * n)
     got = sort.counting_rank(torch.from_numpy(d), nb, use_kernel=True)
     assert calls == ([nb] if kernel else [])
