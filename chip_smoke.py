@@ -11,6 +11,9 @@
 3. Holds each kernel against its plain PyTorch version on the card at
    ragged shapes (exact equality: every output is an integer); each
    single-pass scan runs twice on the same inputs and must repeat itself.
+   The quantile kernel is held against the plain descent on the
+   directories and the dense reference at S = 1, S = 300 (past the first
+   kernel's cap of 256) and queries covering more than 32 shards.
 4. Runs the main path at full width: a 2^27-token Zipfian stream over
    Qwen2's vocabulary (σ = 151,936, 18 levels), 128 shards of 2^20,
    τ = 8, sample rate 512; the build through the kernels, checked leaf for
@@ -19,7 +22,9 @@
    32 against numpy, and the same batch of range counts, 32 checked
    against numpy. Launch counts are zeroed just before this run and read
    just after it; each kernel must have launched, ``wm_level_step`` once a
-   level plus once for every level's zero totals.
+   level plus once for every level's zero totals. Then 20 more quantile
+   batches of other queries, on the host clock: all their queries over
+   all their time, and the median batch.
 5. Runs the second path on the same stream: the whole 2^27 tokens built as
    one τ-chunked wavelet tree (Theorem 4.1) with the radix big step,
    through the tree's kernels (launch counts zeroed just before, each must
@@ -33,7 +38,13 @@
    against numpy.
 6. Times each kernel by CUDA events at its path's shapes beside its plain
    version, its bound and, where one torch call computes the same
-   function, that call; prints the ``phases`` JSON line (the single-row
+   function, that call. The quantile rows also carry ``device_ms``, the
+   bare C entry's time on the same batch (``device_ms_cold``: cycling
+   eight batches), and a bound whose bytes are the distinct 32-byte
+   sectors the batch's rank probes fall in (a sector holding a count and
+   224 bits: one sector a probe, the least any layout needs) and which
+   includes nbits dependent DRAM round trips, measured by a one-thread
+   pointer chase over a buffer the directories' size. Prints the ``phases`` JSON line (the single-row
    and single-shard forms, the totals count, the reference's two matrix
    phase kernels and the two-launch level they make, ``radix_rank``
    without the starts and its totals count, the reference's two radix
@@ -63,13 +74,16 @@ TAU = 8
 SAMPLE_RATE = 512
 NUM_QUERIES = 4096
 NUM_NUMPY_CHECKS = 32
+SERVE_BATCHES = 20
+COLD_BATCHES = 8              # query batches a cold kernel time cycles through
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 16.7e12     # H100 SXM simple int32 ops on the CUDA cores:
 #                               132 SMs x 64 INT32 lanes x 1.98 GHz boost
 #                               (NVIDIA H100 Tensor Core GPU Architecture
 #                               whitepaper, SM and clock tables)
-PROBE_BYTES = 4 + 2 + 16      # superblock entry, block entry, four words
+SECTOR_BYTES = 32             # one 32-byte sector a rank probe, the least
+#                               any layout of the directories needs
 MATRIX_KERNELS = ("rank_build_levels", "wm_level_step", "wm_quantile_sharded")
 TREE_KERNELS = ("wt_level_step", "bitpack", "radix_rank", "rank_build_levels")
 
@@ -92,6 +106,13 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: int, nops: int, latency_ms: float = 0.0) -> float:
+    """The least time for the work: its bytes at the HBM rate, its int32
+    operations at the peak rate, or its chain of dependent loads."""
+    return max(nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3,
+               latency_ms)
 
 
 def max_abs_err(got, want) -> int:
@@ -155,6 +176,7 @@ def main() -> None:
     from repro_torch.kernels import (bitpack, build, ops, radix_rank,
                                      rank_build, ref, wm_level, wt_level)
     from repro_torch.kernels import wm_quantile
+    from repro_torch.launch import sweep_quantile
     from repro_torch.launch.analytics import make_queries
     from repro_torch.tree import tree_map
 
@@ -171,6 +193,7 @@ def main() -> None:
 
     # ---- 2. build the kernels ------------------------------------------
     t0 = time.perf_counter()
+    chase_build = sweep_quantile.start_source("pointer_chase")
     for name in build.SOURCES:
         build.library(name)
     print(f"kernel build (nvcc, {len(build.SOURCES)} sources in parallel): "
@@ -299,10 +322,15 @@ def main() -> None:
             ragged_err["wt_level_step"] = max(ragged_err["wt_level_step"], e)
     del keys, syms, nid, starts, got
 
+    # the quantile kernel against the plain descent on the directories and
+    # the dense reference: S = 1, ragged n, S = 300 (past the
+    # first kernel's cap of 256), and besides 1,001 random queries some that
+    # cover 1, 2, 31, 32, 33, 64, 65 and more shards
     for num_shards, shard_bits, n, sigma in ((1, 12, 3000, 37),
                                              (3, 10, 2500, 2),
                                              (40, 9, 40 * 512 - 17, 1000),
-                                             (128, 7, 128 * 128, 151_936)):
+                                             (128, 7, 128 * 128, 151_936),
+                                             (300, 8, 300 * 256 - 5, 5000)):
         size = 1 << shard_bits
         toks = torch.randint(0, sigma, (num_shards * size,), generator=gen,
                              device=dev, dtype=torch.int32)
@@ -310,6 +338,7 @@ def main() -> None:
         shards = build_wavelet_matrix(toks.reshape(num_shards, size), sigma,
                                       tau=TAU, sample_rate=SAMPLE_RATE,
                                       device=dev)
+        op = ops.quantile_operands(shards, shard_bits, n)
         q = 1001                          # not a multiple of the 8-query block
         lo = torch.randint(-5, n + 5, (q,), generator=gen, device=dev)
         hi = lo + torch.randint(-3, n, (q,), generator=gen, device=dev)
@@ -317,11 +346,18 @@ def main() -> None:
         lo[:4] = torch.tensor([0, 5, n, n + 3], device=dev)  # full, empties
         hi[:4] = torch.tensor([n, 5, n, n + 9], device=dev)
         k[4:8] = n + 100                                     # k past the end
-        args, kw = ops.sharded_quantile_operands(shards, shard_bits, n,
-                                                 lo, hi, k)
-        got = wm_quantile.wm_quantile_sharded(*args, **kw)
+        spans = torch.tensor([1, 2, 31, 32, 33, 64, 65, 300, 1 << 20],
+                             device=dev)
+        wlo = torch.randint(0, n, (spans.numel(),), generator=gen, device=dev)
+        whi = (wlo + spans * size - torch.randint(
+            0, size, (spans.numel(),), generator=gen, device=dev)).clamp(
+                max=n + 7)
+        lo, hi = torch.cat([lo, wlo]), torch.cat([hi, whi])
+        k = torch.cat([k, torch.randint(0, n, (spans.numel(),),
+                                        generator=gen, device=dev)])
+        got = wm_quantile.wm_quantile_sharded(op, lo, hi, k)
         e = max(max_abs_err(got, wm_quantile.wm_quantile_sharded_plain(
-                    *args, **kw)),
+                    op, lo, hi, k)),
                 max_abs_err(got, ref.wm_quantile_sharded_ref(
                     shards.bitvectors.rank.words, shards.zeros, shard_bits,
                     n, lo, hi, k)))
@@ -333,6 +369,7 @@ def main() -> None:
                                        one.n, lo, hi, k)))
         ragged_err["wm_quantile_sharded"] = max(
             ragged_err["wm_quantile_sharded"], e)
+    del op
     for n in (1, 31, 1000, 1024, 1025, 70_001):
         for nb in (2, 33, 256, 512):
             d = torch.randint(0, nb, (3, n), generator=gen, device=dev,
@@ -421,15 +458,40 @@ def main() -> None:
              f"launches, want one a level and one totals count "
              f"({eng.shards.nbits + 1})")
     peak = torch.cuda.max_memory_allocated()
+    # more batches, each of other queries, on the host clock
+    serve_batches = [[torch.from_numpy(x).to(dev) for x in make_queries(
+        N_TOKENS, NUM_QUERIES, 100 + b)[:3]] for b in range(SERVE_BATCHES)]
+    t_batches = []
+    for b in serve_batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.range_quantile(*b)
+        torch.cuda.synchronize()
+        t_batches.append(time.perf_counter() - t0)
+    t_median = float(np.median(t_batches))
+    t_all = float(np.sum(t_batches))
     print(f"build: {N_TOKENS} tokens, {eng.num_shards} shards of "
           f"{eng.shard_size} in {t_build:.6f} s "
           f"({N_TOKENS / t_build:.1f} tok/s, "
           f"{eng.bits_per_token():.4f} bits/token)")
+    rank = eng.shards.bitvectors.rank
+    dir_bytes = sum(x.numel() * x.element_size()
+                    for x in (rank.words, rank.superblock, rank.block))
+    copied = eng.quantile.words.data_ptr() != rank.words.data_ptr()
+    print(f"quantile kernel operands (fixed once in the build above): the "
+          f"directories read in place ({dir_bytes} B, "
+          f"{'copied to pad' if copied else 'no copy'}); a launch allocates "
+          f"{eng.quantile.scratch_elems * 4} B of scratch")
     print(f"serve: {NUM_QUERIES} quantiles in {t_quant * 1e3:.6f} ms "
-          f"({NUM_QUERIES / t_quant:.1f} q/s), {NUM_QUERIES} counts in "
+          f"({NUM_QUERIES / t_quant:.1f} q/s) the first batch; "
+          f"{SERVE_BATCHES} more batches, {SERVE_BATCHES * NUM_QUERIES} "
+          f"quantiles in {t_all * 1e3:.6f} ms "
+          f"({SERVE_BATCHES * NUM_QUERIES / t_all:.1f} q/s), median batch "
+          f"{t_median * 1e3:.6f} ms; {NUM_QUERIES} counts in "
           f"{t_count * 1e3:.6f} ms ({NUM_QUERIES / t_count:.1f} q/s)")
-    print(f"peak device memory (build + serve): {peak} B "
-          f"({peak / 2**30:.3f} GiB)")
+    print(f"peak device memory (build + serve, the quantile scratch "
+          f"included): "
+          f"{peak} B ({peak / 2**30:.3f} GiB)")
 
     # build: leaf for leaf against the plain build on the card
     shards_in = torch.nn.functional.pad(
@@ -470,13 +532,77 @@ def main() -> None:
           f"{NUM_NUMPY_CHECKS} quantiles and counts equal numpy")
 
     # ---- 5. kernel times at the matrix path's shapes --------------------
+    lat = sweep_quantile.latencies(dev, dir_bytes, sweep_quantile.finish(
+        chase_build, {"pointer_chase": sweep_quantile.CHASE_ARGS}))
+    print(f"dependent-load latency (one-thread pointer chase): DRAM "
+          f"{lat['dram_ns']:.3f} ns over {dir_bytes} B, L2 "
+          f"{lat['l2_ns']:.3f} ns over 16 MiB")
     kernels = []
+
+    def quantile_probes(shards, shard_bits, n, lo_, hi_, k_):
+        """(probes, sectors) of a batch's descent: the rank probes of its
+        non-empty local ranges, and the distinct sectors of 224 bits and a
+        count that they fall in (probes that share a sector need it from
+        HBM once)."""
+        nbits_ = shards.nbits
+        S = shards.zeros.shape[0]
+        los_, his_ = local_ranges(shard_bits, S, n, lo_, hi_)
+        kk_ = torch.minimum(k_.long().clamp(min=0),
+                            ((his_ - los_).sum(0) - 1).clamp(min=0))
+        per_row = (1 << shard_bits) // sweep_quantile.LINE_BITS + 1
+        first_row = torch.arange(S, device=dev)[:, None] * nbits_
+        probes_, keys = 0, []
+        for l in range(nbits_):
+            live = his_ > los_
+            probes_ += 2 * int(live.sum())
+            row = (first_row + l).expand_as(los_)[live] * per_row
+            keys += [row + los_[live] // sweep_quantile.LINE_BITS,
+                     row + his_[live] // sweep_quantile.LINE_BITS]
+            lo0, hi0 = wm_interval_zeros(shards, l, los_, his_)
+            z = (hi0 - lo0).sum(0)
+            bit = (kk_ >= z).long()
+            kk_ = torch.where(bit == 1, kk_ - z, kk_)
+            los_, his_ = wm_child_interval(shards, l, los_, his_, bit, lo0,
+                                           hi0)
+        return probes_, int(torch.unique(torch.cat(keys)).numel())
+
+    def quantile_extra(op, batches, probes, sectors, nbits, latency_ns):
+        """The bare C entry's time on the first batch repeated (its probes'
+        sectors warm in L2) and cycling through ``batches``, the bound's
+        terms (``latency_ns`` a dependent load; bytes: the distinct
+        sectors) and the scratch a launch allocates."""
+        out = torch.empty(NUM_QUERIES, dtype=torch.int32, device=dev)
+        scratch = torch.empty(max(1, op.scratch_elems), dtype=torch.int32,
+                              device=dev)
+        call = sweep_quantile.bare_entry(
+            build.library("wm_quantile"),
+            (*op.launch_args, scratch.data_ptr(), op.over, op.max_blocks),
+            out, dev)
+        heads = [tuple(x.to(torch.int32).contiguous() for x in b)
+                 for b in batches]
+        ptrs = [(lo_.data_ptr(), hi_.data_ptr(), k_.data_ptr(), NUM_QUERIES)
+                for lo_, hi_, k_ in heads]
+        return {"device_ms": sweep_quantile.event_ms(
+                    [lambda: call(ptrs[0])]),
+                "device_ms_cold": sweep_quantile.event_ms(
+                    [lambda p=p: call(p) for p in ptrs]),
+                "bound_terms_ms": {
+                    "bytes": quantile_bytes(sectors) / HBM_BYTES_PER_S * 1e3,
+                    "operations": probes * 40 / INT32_OPS_PER_S * 1e3,
+                    "latency": nbits * latency_ns * 1e-6},
+                "load_latency_ns": latency_ns, "probes": probes,
+                "sectors": sectors, "scratch_bytes": op.scratch_elems * 4}
+
+    def quantile_bytes(sectors):
+        """The quantile bound's bytes: each distinct sector once, and each
+        query's lo, hi, k and answer."""
+        return NUM_QUERIES * 16 + sectors * SECTOR_BYTES
 
     def report(name, source, replaces, also, got, want, ms, plain_ms,
                nbytes, nops, path="matrix", path_launches=None,
-               library_ms=None):
+               library_ms=None, latency_ms=0.0, extra=None):
         path_launches = path_launches or launches
-        bound = max(nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S) * 1e3
+        bound = bound_ms(nbytes, nops, latency_ms)
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "also_replaces": also, "path": path,
                "launches": path_launches[name], "max_abs_err": max(
@@ -484,11 +610,16 @@ def main() -> None:
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                             >= nops / INT32_OPS_PER_S else "operations"),
-               "library_ms": library_ms, "bytes": nbytes, "ops": nops}
+               "library_ms": library_ms, "bytes": nbytes, "ops": nops,
+               **(extra or {})}
         row["check"] = "pass" if row["max_abs_err"] == 0 else "FAIL"
         lib = "" if library_ms is None else f", library {library_ms:.6f} ms"
-        print(f"{name} ({path} path): {ms:.6f} ms (plain {plain_ms:.6f} ms, "
-              f"bound {bound:.6f} ms by {row['bound_by']}{lib}), "
+        dev_ms = ("" if "device_ms" not in row else
+                  f", device {row['device_ms']:.6f} ms warm / "
+                  f"{row['device_ms_cold']:.6f} ms cold")
+        print(f"{name} ({path} path): {ms:.6f} ms{dev_ms} (plain "
+              f"{plain_ms:.6f} ms, bound {bound:.6f} ms by {row['bound_by']}"
+              f"{' and latency' if latency_ms else ''}{lib}), "
               f"{path_launches[name]} launches on the {path} path")
         kernels.append(row)
 
@@ -523,30 +654,28 @@ def main() -> None:
            library_ms=cuda_ms(lambda: torch.sort(level_bits, dim=1,
                                                  stable=True), 20))
     del level_bits
-    args, kw = ops.sharded_quantile_operands(eng.shards, SHARD_BITS,
-                                             N_TOKENS, lo_t, hi_t, k_t)
-    probes = 0                 # rank probes of non-empty local ranges
-    los, his = local_ranges(SHARD_BITS, eng.num_shards, N_TOKENS, lo_t, hi_t)
-    kk = torch.minimum(k_t.long().clamp(min=0),
-                       ((his - los).sum(0) - 1).clamp(min=0))
-    for l in range(nbits):
-        probes += 2 * int((his > los).sum())
-        lo0, hi0 = wm_interval_zeros(eng.shards, l, los, his)
-        z = (hi0 - lo0).sum(0)
-        bit = (kk >= z).long()
-        kk = torch.where(bit == 1, kk - z, kk)
-        los, his = wm_child_interval(eng.shards, l, los, his, bit, lo0, hi0)
+    probes, sectors = quantile_probes(eng.shards, SHARD_BITS, N_TOKENS, lo_t,
+                                      hi_t, k_t)
     print(f"wm_quantile_sharded: {probes} rank probes for {NUM_QUERIES} "
-          f"queries ({probes / NUM_QUERIES:.2f} per query)")
+          f"queries ({probes / NUM_QUERIES:.2f} per query) in {sectors} "
+          f"distinct 32-byte sectors")
+    cold_batches = [(lo_t, hi_t, k_t)] + serve_batches[:COLD_BATCHES - 1]
+    op = eng.quantile
+    got = wm_quantile.wm_quantile_sharded(op, lo_t, hi_t, k_t)
     report("wm_quantile_sharded",
            "src/repro_torch/kernels/csrc/wm_quantile.cu",
            "src/repro/kernels/wm_quantile.py:128",
            ["src/repro/kernels/wm_quantile.py:165"],
-           wm_quantile.wm_quantile_sharded(*args, **kw), want,
-           cuda_ms(lambda: wm_quantile.wm_quantile_sharded(*args, **kw), 20),
+           (got, got), (want, wm_quantile.wm_quantile_sharded_plain(
+               op, lo_t, hi_t, k_t)),
+           cuda_ms(lambda: wm_quantile.wm_quantile_sharded(
+               op, lo_t, hi_t, k_t), 20),
            cuda_ms(lambda: wm_quantile.wm_quantile_sharded_plain(
-               *args, **kw), 3),
-           NUM_QUERIES * 16 + probes * PROBE_BYTES, probes * 40)
+               op, lo_t, hi_t, k_t), 3),
+           quantile_bytes(sectors), probes * 40,
+           latency_ms=nbits * lat["dram_ns"] * 1e-6,
+           extra=quantile_extra(op, cold_batches, probes, sectors, nbits,
+                                lat["dram_ns"]))
 
     # the single-row and single-shard forms, and the two phases of each
     # two-launch kernel, each timed alone (they share the rows' launch
@@ -554,8 +683,8 @@ def main() -> None:
     phases = []
 
     def report_phase(name, replaces, got, want, ms, plain_ms, nbytes, nops,
-                     launches_on_path):
-        bound = max(nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S) * 1e3
+                     launches_on_path, latency_ms=0.0, extra=None):
+        bound = bound_ms(nbytes, nops, latency_ms)
         err = max_abs_err(got, want)
         phases.append({"name": name, "replaces": replaces, "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": bound,
@@ -563,8 +692,11 @@ def main() -> None:
                                     >= nops / INT32_OPS_PER_S
                                     else "operations"),
                        "launches": launches_on_path, "max_abs_err": err,
-                       "bytes": nbytes, "ops": nops})
-        print(f"{name}: {ms:.6f} ms (plain {plain_ms:.6f} ms, bound "
+                       "bytes": nbytes, "ops": nops, **(extra or {})})
+        dev_ms = ("" if not extra else
+                  f", device {extra['device_ms']:.6f} ms warm / "
+                  f"{extra['device_ms_cold']:.6f} ms cold")
+        print(f"{name}: {ms:.6f} ms{dev_ms} (plain {plain_ms:.6f} ms, bound "
               f"{bound:.6f} ms), max_abs_err {err}")
         if err:
             fail(f"{name} disagrees with its plain version")
@@ -626,24 +758,37 @@ def main() -> None:
                          5),
                  W * 4 + got[0].numel() * 4 + got[1].numel() * 2, W * 8, 0)
     one = tree_map(lambda x: x[0], eng.shards)
-    lo1 = lo_t % size
-    hi1 = torch.minimum(lo1 + (hi_t - lo_t).clamp(min=0), torch.tensor(
-        size, device=dev, dtype=lo1.dtype))
-    got = ops.wm_quantile_batch(one, lo1, hi1, k_t)
-    args1, kw1 = ops.sharded_quantile_operands(
-        tree_map(lambda x: x[None], one), max(0, (size - 1).bit_length()),
-        size, lo1, hi1, k_t)
-    probes1 = 2 * nbits * int((hi1 > lo1).sum())
+
+    def fold(lo_, hi_, k_):
+        """The same widths inside shard 0."""
+        lo1_ = lo_ % size
+        return lo1_, torch.minimum(lo1_ + (hi_ - lo_).clamp(min=0),
+                                   torch.tensor(size, device=dev,
+                                                dtype=lo1_.dtype)), k_
+    lo1, hi1, _ = fold(lo_t, hi_t, k_t)
+    op1 = ops.quantile_operands(tree_map(lambda x: x[None], one),
+                                SHARD_BITS, size)
+    got = wm_quantile.wm_quantile_sharded(op1, lo1, hi1, k_t)
+    want1 = ref.wm_quantile_ref(one.bitvectors.rank.words, one.zeros, one.n,
+                                lo1, hi1, k_t)
+    probes1, sectors1 = quantile_probes(
+        tree_map(lambda x: x[None], one), SHARD_BITS, size, lo1, hi1, k_t)
     report_phase("wm_quantile (S = 1, one shard)",
-                 "src/repro/kernels/wm_quantile.py:165", got,
-                 ref.wm_quantile_ref(one.bitvectors.rank.words, one.zeros,
-                                     one.n, lo1, hi1, k_t),
-                 cuda_ms(lambda: ops.wm_quantile_batch(one, lo1, hi1, k_t),
-                         20),
+                 "src/repro/kernels/wm_quantile.py:165",
+                 (got, got, ops.wm_quantile_batch(one, lo1, hi1, k_t)),
+                 (want1, wm_quantile.wm_quantile_sharded_plain(
+                     op1, lo1, hi1, k_t), want1),
+                 cuda_ms(lambda: wm_quantile.wm_quantile_sharded(
+                     op1, lo1, hi1, k_t), 20),
                  cuda_ms(lambda: wm_quantile.wm_quantile_sharded_plain(
-                     *args1, **kw1), 3),
-                 NUM_QUERIES * 16 + probes1 * PROBE_BYTES, probes1 * 40, 0)
-    del keys, totals, counts, incl, zexcl, total, got, one, args1, kw1
+                     op1, lo1, hi1, k_t), 3),
+                 quantile_bytes(sectors1), probes1 * 40, 0,
+                 latency_ms=nbits * lat["l2_ns"] * 1e-6,  # 2.4 MB: in L2
+                 extra=quantile_extra(op1, [fold(*b) for b in cold_batches],
+                                      probes1, sectors1, nbits,
+                                      lat["l2_ns"]))
+    del op1
+    del keys, totals, counts, incl, zexcl, total, got, one
 
     # ---- 6. the tree path at full width: one wavelet tree of the stream --
     seq = shards_in.reshape(-1)[:N_TOKENS]

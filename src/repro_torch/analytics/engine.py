@@ -20,6 +20,8 @@ import torch
 
 from repro_torch.core.wavelet_matrix import (WaveletMatrix, wm_child_interval,
                                              wm_interval_zeros)
+from repro_torch.kernels.wm_quantile import (QuantileOperands,
+                                             wm_quantile_sharded)
 from repro_torch.tree import tree_leaves
 
 from . import range_ops
@@ -91,7 +93,9 @@ def sharded_range_quantile_fused(shards: WaveletMatrix, shard_bits: int,
                                  available=None) -> torch.Tensor:
     """Kernel form of :func:`sharded_range_quantile`: the whole descent,
     all shards × all levels, in one ``wm_quantile_sharded`` launch ((Q,)
-    batches). With an ``available`` mask it takes the plain descent."""
+    batches). With an ``available`` mask it takes the plain descent. A
+    one-off call: it fixes the kernel's operands for this call alone, where
+    :meth:`ShardedAnalytics.range_quantile` reuses its engine's."""
     if available is not None:
         return sharded_range_quantile(shards, shard_bits, n, lo, hi, k,
                                       available)
@@ -109,6 +113,16 @@ class ShardedAnalytics:
     sigma: int
     shard_bits: int
     available: torch.Tensor | None = None
+    # the quantile kernel's operands, fixed once per engine (filled in by
+    # the constructor when not given): ``shards``' directories, read in
+    # place where their rows hold whole blocks; no stored leaf
+    quantile: QuantileOperands | None = None
+
+    def __post_init__(self):
+        if self.quantile is None:
+            from repro_torch.kernels import ops
+            object.__setattr__(self, "quantile", ops.quantile_operands(
+                self.shards, self.shard_bits, self.n))
 
     @property
     def num_shards(self) -> int:
@@ -133,9 +147,10 @@ class ShardedAnalytics:
         """Global k-th smallest in [lo, hi) for (Q,) batches: the
         ``wm_quantile_sharded`` kernel on a CUDA engine, its plain version on
         a CPU engine, the plain descent under an availability mask."""
-        return sharded_range_quantile_fused(self.shards, self.shard_bits,
-                                            self.n, lo, hi, k,
-                                            available=self.available)
+        if self.available is not None:
+            return sharded_range_quantile(self.shards, self.shard_bits,
+                                          self.n, lo, hi, k, self.available)
+        return wm_quantile_sharded(self.quantile, lo, hi, k)
 
     def range_count(self, lo, hi, sym_lo, sym_hi) -> torch.Tensor:
         return sharded_range_count(self.shards, self.shard_bits, self.n, lo,

@@ -41,9 +41,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
                           _L, _P, _P],
         "wm_level_scan_info": [_P]},
     "wm_quantile": {
-        "wm_quantile_max_shards": [],
-        "wm_quantile_sharded": ([_P] * 3 + [_I] + [_P, _L] * 3 + [_P]
-                                + [_I] * 5 + [_P, _P])},
+        "wm_quantile_info": [_P],
+        "wm_quantile_sharded": ([_P] * 3 + [_I] + [_P, _L] * 3 + [_I, _P]
+                                + [_I] * 4 + [_P, _I, _I, _P, _P])},
     "radix_rank": {
         "radix_hist": [_P, _I, _I, _L, _I, _P, _I, _P],
         "radix_apply": [_P, _I, _I, _L, _I, _I, _P, _P, _L, _P],

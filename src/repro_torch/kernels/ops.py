@@ -140,26 +140,21 @@ def _pad_rank_rows(words: torch.Tensor, superblock: torch.Tensor,
     return words.contiguous(), superblock.contiguous(), block.contiguous()
 
 
-def _queries(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, device=device).to(torch.int32).reshape(-1)
-
-
-def sharded_quantile_operands(shards, shard_bits: int, n: int, lo, hi, k):
-    """(args, kwargs) of ``wm_quantile.wm_quantile_sharded`` for a stacked
-    (S,)-leaf ``WaveletMatrix``: (Q,) int32 queries and the directories
-    flattened to (S·nbits, ·) rows, row ``s*nbits + l``."""
+def quantile_operands(shards, shard_bits: int, n: int):
+    """The quantile kernel's operands (``wm_quantile.QuantileOperands``) of
+    a stacked (S,)-leaf ``WaveletMatrix``: its directories flattened to
+    (S·nbits, ·) rows, row ``s*nbits + l``, read in place (word rows are
+    padded only where they do not hold whole blocks). An engine builds them
+    once (``ShardedAnalytics.quantile``)."""
     rank = shards.bitvectors.rank
-    dev = rank.words.device
     num_shards, nbits = rank.words.shape[0], shards.nbits
-    nblocks = rank.block.shape[-1]
     rows = num_shards * nbits
     words, superblock, block = _pad_rank_rows(
         rank.words.reshape(rows, -1), rank.superblock.reshape(rows, -1),
-        rank.block.reshape(rows, -1), nblocks)
-    args = (_queries(lo, dev), _queries(hi, dev), _queries(k, dev), words,
-            superblock, block, shards.zeros.reshape(rows).contiguous())
-    return args, dict(num_shards=num_shards, nbits=nbits, n=n,
-                      shard_bits=shard_bits, nblocks=nblocks)
+        rank.block.reshape(rows, -1), rank.block.shape[-1])
+    return _wm_quantile.quantile_operands(
+        words, superblock, block, shards.zeros.reshape(rows),
+        num_shards=num_shards, nbits=nbits, n=n, shard_bits=shard_bits)
 
 
 def wm_quantile_sharded_batch(shards, shard_bits: int, n: int, lo, hi,
@@ -171,8 +166,8 @@ def wm_quantile_sharded_batch(shards, shard_bits: int, n: int, lo, hi,
     -1 for empty ranges — the contract of
     ``analytics.engine.sharded_range_quantile``.
     """
-    args, kwargs = sharded_quantile_operands(shards, shard_bits, n, lo, hi, k)
-    return _wm_quantile.wm_quantile_sharded(*args, **kwargs)
+    return _wm_quantile.wm_quantile_sharded(
+        quantile_operands(shards, shard_bits, n), lo, hi, k)
 
 
 def wm_quantile_batch(wm, lo, hi, k) -> torch.Tensor:

@@ -72,10 +72,28 @@ def test_wm_level_kernels_match_plain(n, shift):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def _wide_queries(n: int, shard_bits: int, seed: int, dev):
+    """Queries over every shard count: the whole stream, and ranges that
+    start and end inside shards and cover 1, 2, 31, 32, 33 and more."""
+    rng = np.random.default_rng(seed)
+    size = 1 << shard_bits
+    spans = [1, 2, 31, 32, 33, 64, 65, 300, 10_000]
+    lo = [0] + [int(rng.integers(0, n)) for _ in spans]
+    hi = [n] + [a + s * size - int(rng.integers(0, size))
+                for a, s in zip(lo[1:], spans)]
+    k = [int(rng.integers(0, max(1, b - a))) for a, b in zip(lo, hi)]
+    return (torch.tensor(x, dtype=torch.int32, device=dev)
+            for x in (lo, hi, k))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("num_shards,shard_bits,n,sigma", [
-    (1, 10, 1000, 37), (3, 8, 700, 2), (40, 6, 40 * 64 - 5, 1000)])
+    (1, 10, 1000, 37), (3, 8, 700, 2), (40, 6, 40 * 64 - 5, 1000),
+    (300, 6, 300 * 64 - 9, 1000), (48, 11, 48 * 2048, 151_936)])
 def test_wm_quantile_kernel_matches_plain(num_shards, shard_bits, n, sigma):
+    """The kernel against the plain descent on the directories and the
+    dense reference: S = 1, S = 300 (past the first kernel's cap of 256),
+    ragged rows, and queries covering more than 32 shards."""
     dev = _card()
     size = 1 << shard_bits
     toks = np.random.default_rng(sigma).integers(
@@ -83,16 +101,73 @@ def test_wm_quantile_kernel_matches_plain(num_shards, shard_bits, n, sigma):
     toks[n:] = 0
     shards = build_wavelet_matrix(toks.reshape(num_shards, size), sigma,
                                   sample_rate=64, device=dev)
-    lo, hi, k = _queries(n, 1001, num_shards, dev)
-    args, kw = ops.sharded_quantile_operands(shards, shard_bits, n, lo, hi, k)
-    got = wm_quantile.wm_quantile_sharded(*args, **kw)
-    assert torch.equal(got, wm_quantile.wm_quantile_sharded_plain(*args,
-                                                                  **kw))
+    op = ops.quantile_operands(shards, shard_bits, n)
+    for lo, hi, k in (_queries(n, 1001, num_shards, dev),
+                      _wide_queries(n, shard_bits, num_shards, dev)):
+        build.reset_launches()
+        got = wm_quantile.wm_quantile_sharded(op, lo, hi, k)
+        assert build.launches["wm_quantile_sharded"] == 1
+        assert torch.equal(got, wm_quantile.wm_quantile_sharded_plain(
+            op, lo, hi, k))
+        assert torch.equal(got, ref.wm_quantile_sharded_ref(
+            shards.bitvectors.rank.words, shards.zeros, shard_bits, n, lo, hi,
+            k))
+        assert torch.equal(got, ops.wm_quantile_sharded_batch(
+            shards, shard_bits, n, lo, hi, k))
     if num_shards == 1:
         one = tree_map(lambda x: x[0], shards)
         assert torch.equal(ops.wm_quantile_batch(one, lo, hi, k),
                            ref.wm_quantile_ref(one.bitvectors.rank.words,
                                                one.zeros, one.n, lo, hi, k))
+
+
+@pytest.mark.cuda
+def test_wm_quantile_kernel_info():
+    """The kernel spills nothing to local memory, and a grid that fills
+    the card has room for every probe of the widest query."""
+    dev = _card()
+    info = wm_quantile.kernel_info(build.library("wm_quantile"))
+    assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
+    max_blocks, over = wm_quantile.launch_shape(info, 300, dev)
+    assert max_blocks >= torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    assert over + info["register_probes"] >= 600
+
+
+@pytest.mark.cuda
+def test_wm_quantile_kernel_on_two_streams():
+    """One engine's operands serve launches on two streams at once: every
+    launch takes its own scratch, so queries wide enough to use it (up to
+    all 300 shards) still equal the plain descent on both."""
+    dev = _card()
+    num_shards, shard_bits, sigma = 300, 6, 1000
+    size = 1 << shard_bits
+    n = num_shards * size - 9
+    toks = np.random.default_rng(3).integers(
+        0, sigma, num_shards * size).astype(np.int32)
+    toks[n:] = 0
+    shards = build_wavelet_matrix(toks.reshape(num_shards, size), sigma,
+                                  sample_rate=64, device=dev)
+    op = ops.quantile_operands(shards, shard_bits, n)
+    assert op.over > 0
+    batches = []
+    for seed in range(8):
+        rng = np.random.default_rng(seed)
+        lo = rng.integers(0, n // 4, 4096)
+        hi = lo + rng.integers(n // 2, n, 4096)
+        k = rng.integers(0, n, 4096)
+        batches.append([torch.tensor(x, dtype=torch.int32, device=dev)
+                        for x in (lo, hi, k)])
+    want = [wm_quantile.wm_quantile_sharded_plain(op, *b) for b in batches]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    torch.cuda.synchronize(dev)
+    got = []
+    for i, b in enumerate(batches):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(wm_quantile.wm_quantile_sharded(op, *b))
+    torch.cuda.synchronize(dev)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
@@ -107,6 +182,8 @@ def test_main_path_on_the_card_matches_the_cpu():
         "rank_build_levels", "wm_level_step", "wm_quantile_sharded"))
     assert build.launches["wm_level_step"] == 13 + 1   # levels + totals
     cpu = build_sharded_analytics(toks, 5000, shard_bits=12, device="cpu")
+    assert eng.quantile.launch_args and not cpu.quantile.launch_args
+    assert eng.bits_per_token() == cpu.bits_per_token()
     a, b = tree_named_leaves(eng.shards), tree_named_leaves(cpu.shards)
     assert all(torch.equal(a[name].cpu(), b[name]) for name in a)
     assert torch.equal(got, sharded_range_quantile(eng.shards, 12, len(toks),

@@ -276,14 +276,13 @@ def test_wrappers_reject_bad_inputs():
         wm_level.wm_apply(torch.zeros((1, 10), dtype=torch.int32),
                           torch.zeros((1, 2), dtype=torch.int32),
                           torch.zeros((1,), dtype=torch.int32), 0, 10)
-    z = torch.zeros(3, dtype=torch.int32)
-    with pytest.raises(ValueError):
-        wm_quantile.wm_quantile_sharded(
-            z, z, z, torch.zeros((2, 4), dtype=torch.int32),
+    with pytest.raises(ValueError):            # an int32 block directory
+        wm_quantile.quantile_operands(
+            torch.zeros((2, 4), dtype=torch.int32),
             torch.zeros((2, 1), dtype=torch.int32),
             torch.zeros((2, 1), dtype=torch.int32),
             torch.zeros(2, dtype=torch.int32),
-            num_shards=1, nbits=2, n=8, shard_bits=3, nblocks=1)
+            num_shards=1, nbits=2, n=8, shard_bits=3)
 
 
 def test_cpu_tensors_never_launch_or_build():
