@@ -49,6 +49,23 @@
    phase kernels and the two-launch level they make, ``radix_rank``
    without the starts and its totals count, the reference's two radix
    phase kernels, the tree level at l = 0) and the ``kernels`` JSON line.
+7. Builds every other construction of the paper from the same 2^27
+   tokens on the same stream, each on the host clock ending in a
+   synchronize, with its peak device memory and launch counts (zeroed just
+   before each build): the τ-chunked tree with ``fused=False`` (compose;
+   radix, exactly 2 ``radix_rank`` launches: a totals count and a scan for
+   its 256-bucket big step, the 65,536-bucket one takes the argsort
+   route), the levelwise tree and the domain decomposition (128 chunks of
+   2^20) in both forms, each equal leaf for leaf to the fused tree of step
+   5; the matrix with ``fused=False`` (radix, exactly 4 ``radix_rank``
+   launches) and the levelwise matrix, each equal to an unsharded fused
+   matrix built here; the multiary trees of widths 2 and 4 in both forms,
+   equal to each other, whose 4,096 access, rank and select answers equal
+   the binary tree's of step 5; the Huffman-shaped tree of the stream's
+   codebook (``bincount + 1``) in both forms, equal to each other, its
+   first 2^20 tokens' levels equal to the numpy oracle. Prints the
+   ``construction`` JSON line; each kernel row gains the launches of this
+   phase.
 
 Exits non-zero on any failure; prints no result without a CUDA device or
 outside a checkout. The last line is the ``{"ok": true, ...}`` object.
@@ -86,6 +103,9 @@ SECTOR_BYTES = 32             # one 32-byte sector a rank probe, the least
 #                               any layout of the directories needs
 MATRIX_KERNELS = ("rank_build_levels", "wm_level_step", "wm_quantile_sharded")
 TREE_KERNELS = ("wt_level_step", "bitpack", "radix_rank", "rank_build_levels")
+DD_CHUNKS = 128               # the domain decomposition's P: chunks of 2^20
+HUFFMAN_CHECK_TOKENS = 1 << 20  # Huffman levels held against numpy
+MULTIARY_WIDTHS = (2, 4)      # 9 and 5 levels at sigma = 151,936
 
 
 def fail(msg: str) -> None:
@@ -155,6 +175,195 @@ def read_launches(path: str, kernels) -> dict:
     if missing:
         fail(f"kernels not launched on the {path}: {missing}")
     return launches
+
+
+def construction_phase(dev, toks: np.ndarray, seq: torch.Tensor, wt,
+                       queries, answers) -> tuple[list, dict]:
+    """Step 7: every other construction of the full stream ``seq`` (the
+    card copy of ``toks``), each held against its fused counterpart (``wt``,
+    the fused tree of step 5, or an unsharded fused matrix built here); the
+    multiary queries against ``answers``, the binary tree's answers to
+    ``queries``. Returns the rows of the ``construction`` line and each
+    kernel's launches over the phase."""
+    from repro_torch.core import bitops, huffman, multiary
+    from repro_torch.core import wavelet_tree as wtree
+    from repro_torch.core.wavelet_matrix import (
+        build_wavelet_matrix, build_wavelet_matrix_levelwise)
+    from repro_torch.kernels import build
+    n = seq.shape[0]
+    rows, totals = [], {k: 0 for k in build.launches}
+
+    def form(name, fn, want=None, need=()):
+        """Build one form: host seconds ending in a synchronize, peak
+        device memory (and its rise over what was allocated before) and
+        launch counts; fails if a kernel of ``need`` never launched or a
+        count of ``want`` differs."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: v for k, v in build.launches.items() if v}
+        for k, v in build.launches.items():
+            totals[k] += v
+        row = {"form": name, "s": dt, "peak_bytes": peak,
+               "rise_bytes": peak - before,
+               "bits_per_token": bits_per_token(out, n),
+               "launches": launches}
+        rows.append(row)
+        print(f"construction {name}: {dt:.6f} s ({n / dt:.1f} tok/s), peak "
+              f"device memory {peak} B ({peak / 2**30:.3f} GiB, "
+              f"{(peak - before) / 2**30:.3f} GiB above the "
+              f"{before / 2**30:.3f} GiB held before), "
+              f"{row['bits_per_token']:.4f} stored bits/token, launches "
+              f"{json.dumps(launches)}")
+        missing = [k for k in need if build.launches[k] <= 0]
+        if missing:
+            fail(f"construction {name}: kernels not launched: {missing}")
+        for k, v in (want or {}).items():
+            if build.launches[k] != v:
+                fail(f"construction {name}: {build.launches[k]} {k} "
+                     f"launches, want {v}")
+        return out
+
+    # the tree's other forms, each against the fused tree of step 5
+    tree_forms = (
+        ("tree fused=False, compose big step",
+         lambda: wtree.build_wavelet_tree(
+             seq, SIGMA, tau=TAU, sample_rate=SAMPLE_RATE, fused=False,
+             device=dev), {"radix_rank": 0}),
+        # 256 buckets after chunk 0: a totals count and a scan; 65,536 after
+        # chunk 1: past the kernel's bucket bound, the argsort route
+        ("tree fused=False, radix big step",
+         lambda: wtree.build_wavelet_tree(
+             seq, SIGMA, tau=TAU, big_step="radix", sample_rate=SAMPLE_RATE,
+             fused=False, device=dev), {"radix_rank": 2}),
+        ("tree levelwise", lambda: wtree.build_wavelet_tree_levelwise(
+            seq, SIGMA, sample_rate=SAMPLE_RATE, device=dev), None),
+        ("tree levelwise fused=False",
+         lambda: wtree.build_wavelet_tree_levelwise(
+             seq, SIGMA, sample_rate=SAMPLE_RATE, fused=False, device=dev),
+         None),
+        (f"tree domain decomposition, P = {DD_CHUNKS}",
+         lambda: wtree.build_wavelet_tree_dd(
+             seq, SIGMA, DD_CHUNKS, sample_rate=SAMPLE_RATE, device=dev),
+         None),
+        (f"tree domain decomposition fused=False, P = {DD_CHUNKS}",
+         lambda: wtree.build_wavelet_tree_dd(
+             seq, SIGMA, DD_CHUNKS, sample_rate=SAMPLE_RATE, fused=False,
+             device=dev), None))
+    for name, fn, want in tree_forms:
+        out = form(name, fn, want, need=("bitpack",))
+        same_leaves(out, wt, f"{name} against the fused tree")
+        del out
+    print("construction: every tree form equals the fused tree leaf for leaf")
+
+    # the matrix baselines, against one unsharded fused matrix
+    wm = form("matrix fused, unsharded (compose big step)",
+              lambda: build_wavelet_matrix(seq, SIGMA, tau=TAU,
+                                           sample_rate=SAMPLE_RATE,
+                                           device=dev),
+              need=("wm_level_step", "rank_build_levels"))
+    for name, fn, want in (
+            ("matrix fused=False, radix big step",
+             lambda: build_wavelet_matrix(
+                 seq, SIGMA, tau=TAU, big_step="radix",
+                 sample_rate=SAMPLE_RATE, fused=False, device=dev),
+             {"radix_rank": 4}),
+            ("matrix levelwise", lambda: build_wavelet_matrix_levelwise(
+                seq, SIGMA, sample_rate=SAMPLE_RATE, device=dev), None)):
+        out = form(name, fn, want, need=("bitpack",))
+        same_leaves(out, wm, f"{name} against the fused matrix")
+        del out
+    del wm
+    print("construction: both matrix baselines equal the unsharded fused "
+          "matrix leaf for leaf")
+
+    # multiary trees: both forms equal, queries equal the binary tree's
+    for width in MULTIARY_WIDTHS:
+        fused = form(f"multiary width {width}",
+                     lambda: multiary.build_multiary_wavelet_tree(
+                         seq, SIGMA, width=width, device=dev))
+        scatter = form(f"multiary width {width} fused=False",
+                       lambda: multiary.build_multiary_wavelet_tree(
+                           seq, SIGMA, width=width, fused=False, device=dev))
+        same_leaves(scatter, fused, f"multiary width {width}: the two forms")
+        del scatter
+        pos_t, sym_t, end_t, kk_t = queries
+        rates, got = [], []
+        for op, args in (("access", (pos_t,)), ("rank", (sym_t, end_t)),
+                         ("select", (sym_t, kk_t))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = getattr(multiary, f"mwt_{op}")(fused, *args)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got.append(out.cpu().numpy())
+            rates.append(f"{op} {dt * 1e3:.6f} ms")
+        for op, g, want in zip(("access", "rank", "select"), got, answers):
+            if not np.array_equal(g, want):
+                fail(f"multiary width {width}: {int((g != want).sum())} of "
+                     f"{NUM_QUERIES} {op} answers differ from the binary "
+                     f"tree's")
+        print(f"multiary width {width} ({fused.nlevels} levels): both forms "
+              f"equal leaf for leaf; {NUM_QUERIES} each of access, rank and "
+              f"select equal the binary tree's ({', '.join(rates)})")
+        del fused
+
+    # the Huffman-shaped tree of the stream's codebook
+    t0 = time.perf_counter()
+    codes, lengths, max_len = huffman.huffman_codebook(
+        np.bincount(toks, minlength=SIGMA) + 1)
+    t_book = time.perf_counter() - t0
+    print(f"huffman codebook (host, numpy): sigma {SIGMA}, max_len {max_len}"
+          f" in {t_book:.6f} s")
+    if max_len > 32:
+        fail(f"huffman max_len {max_len} > 32: the reference left-justifies "
+             f"codewords in 32 bits")
+    t0 = time.perf_counter()
+    huffman._huffman_level_plans(codes, lengths, max_len)
+    print(f"huffman level plans (host, a loop over sigma a level): "
+          f"{time.perf_counter() - t0:.6f} s, inside the fused build's time "
+          f"below")
+    hf = form("huffman", lambda: huffman.build_huffman_wavelet_tree(
+        seq, codes, lengths, max_len, device=dev), need=("bitpack",))
+    hs = form("huffman fused=False",
+              lambda: huffman.build_huffman_wavelet_tree(
+                  seq, codes, lengths, max_len, fused=False, device=dev),
+              need=("bitpack",))
+    same_leaves(hs, hf, "huffman: the two forms")
+    del hs
+    total_bits = int(hf.total_bits)
+    if total_bits != int(lengths.astype(np.int64)[toks].sum()):
+        fail(f"huffman: {total_bits} bits, not the sum of the code lengths")
+    rows[-2]["code_bits_per_token"] = rows[-1]["code_bits_per_token"] = (
+        total_bits / n)
+    print(f"huffman: both forms equal leaf for leaf (level bitmaps, rank "
+          f"directories, active); max_len {max_len}, total_bits / n = "
+          f"{total_bits / n:.6f} code bits a token (the balanced tree: "
+          f"{wt.nbits} levels)")
+    del hf
+    m = HUFFMAN_CHECK_TOKENS
+    head = huffman.build_huffman_wavelet_tree(seq[:m], codes, lengths,
+                                              max_len, device=dev)
+    t0 = time.perf_counter()
+    levels = huffman.reference_huffman_levels(toks[:m].astype(np.int64),
+                                              codes, lengths, max_len)
+    t_oracle = time.perf_counter() - t0
+    for l, want in enumerate(levels):
+        got = bitops.unpack_bits(head.level(l).words, len(want))
+        if (int(head.active[l]) != len(want)
+                or not np.array_equal(got.cpu().numpy(), want)):
+            fail(f"huffman: level {l} of the first {m} tokens differs from "
+                 f"reference_huffman_levels")
+    print(f"huffman: the first {m} tokens' {len(levels)} levels equal "
+          f"reference_huffman_levels on the host ({t_oracle:.6f} s)")
+    return rows, totals
 
 
 def main() -> None:
@@ -1007,6 +1216,14 @@ def main() -> None:
            TL * TW * 4 + got[0].numel() * 4 + got[1].numel() * 2,
            TL * TW * 8, path="tree", path_launches=tree_launches)
 
+    # ---- 7. every other construction at full width ---------------------
+    del eng, shards_in
+    construction, phase_launches = construction_phase(
+        dev, toks, seq, wt, (pos_t, sym_t, end_t, kk_t), (acc, rnk, sel))
+    for row in kernels:
+        row["construction_launches"] = phase_launches[row["name"]]
+
+    print(json.dumps({"construction": construction}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": kernels}))
     if any(row["check"] != "pass" for row in kernels):

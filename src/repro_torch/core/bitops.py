@@ -104,6 +104,24 @@ def select_in_word(word: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return pos
 
 
+def pack_fields(values: torch.Tensor, width: int) -> torch.Tensor:
+    """Pack ``width``-bit fields into ``int32`` words, 32 // width a word,
+    LSB-first along the last axis (the paper's packed lists); ``width``
+    divides 32 and the tail is padded with zero fields."""
+    if 32 % width:
+        raise ValueError(f"width {width} does not divide 32")
+    per = WORD_BITS // width
+    v = u32(values)
+    pad = (-v.shape[-1]) % per
+    if pad:
+        v = torch.nn.functional.pad(v, (0, pad))
+    v = v.reshape(v.shape[:-1] + (-1, per))
+    out = torch.zeros(v.shape[:-1], dtype=torch.long, device=v.device)
+    for j in range(per):                 # OR, as the reference reduces
+        out |= v[..., j] << (j * width)
+    return to_i32(out)
+
+
 def extract_field(values: torch.Tensor, lo_bit: int,
                   width: int) -> torch.Tensor:
     """``width`` bits starting at ``lo_bit`` of each value, ``int64``."""

@@ -3,7 +3,10 @@
 are batch axes (the reference's ``vmap`` written out)."""
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+import torch.nn.functional as F
 
 
 def exclusive_sum(x: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -15,6 +18,87 @@ def exclusive_sum(x: torch.Tensor, dtype=None) -> torch.Tensor:
 def inclusive_sum(x: torch.Tensor, dtype=None) -> torch.Tensor:
     """out[..., i] = sum(x[..., :i+1]) along the last axis."""
     return torch.cumsum(x, -1, dtype=dtype or x.dtype)
+
+
+def prefix_scan(op: Callable, x, reverse: bool = False, axis: int = 0):
+    """Inclusive scan of ``x`` along ``axis`` with an associative ``op``.
+
+    ``x`` is a tensor or a tuple of tensors of one length along ``axis``
+    (``op`` then takes and returns tuples), as the reference's
+    ``jax.lax.associative_scan``; ``op(a, b)`` combines an earlier ``a``
+    with a later ``b``. torch has no public associative scan, so this is
+    Hillis–Steele doubling: ceil(log2 n) rounds, round d combining every
+    element with the one 2^d before it through shifted views. ``reverse``
+    scans from the end, as the reference does (flip, scan, flip).
+    """
+    single = isinstance(x, torch.Tensor)
+    xs = (x,) if single else tuple(x)
+    n = xs[0].shape[axis]
+    if reverse:
+        xs = tuple(t.flip(axis) for t in xs)
+    d = 1
+    while d < n:
+        a = tuple(t.narrow(axis, 0, n - d) for t in xs)
+        b = tuple(t.narrow(axis, d, n - d) for t in xs)
+        c = (op(a[0], b[0]),) if single else tuple(op(a, b))
+        xs = tuple(torch.cat([t.narrow(axis, 0, d), ct], axis)
+                   for t, ct in zip(xs, c))
+        d *= 2
+    if reverse:
+        xs = tuple(t.flip(axis) for t in xs)
+    return xs[0] if single else xs
+
+
+def segment_offsets(segment_sizes: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """Exclusive offsets of variable-length segments, ``int32``.
+    ``num_segments`` is kept for the reference's signature."""
+    del num_segments
+    return exclusive_sum(segment_sizes.to(torch.int32))
+
+
+def running_max(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running max along the last axis (``torch.cummax``).
+
+    torch's CUDA cummax walks each row in sequence, so one long row is cut
+    into about sqrt(n) rows of C: a cummax within the rows (run in
+    parallel over rows), a cummax over the rows' last values (one row of
+    n / C), and each row raised to the running max of the rows before it.
+    """
+    n = x.shape[-1]
+    cols = 1 << max(5, (n.bit_length() + 1) // 2)
+    if n <= cols:
+        return torch.cummax(x, -1).values
+    lead = x.shape[:-1]
+    rows = -(-n // cols)
+    local = torch.cummax(F.pad(x, (0, rows * cols - n)).reshape(
+        lead + (rows, cols)), -1).values
+    carry = torch.cummax(local[..., -1], -1).values
+    # row 0 has no carry: its own first value leaves it as it is
+    before = torch.cat([local[..., :1, 0], carry[..., :-1]], -1)
+    out = torch.maximum(local, before[..., None])
+    return out.reshape(lead + (rows * cols,))[..., :n]
+
+
+def segmented_exclusive_sum(x: torch.Tensor,
+                            segment_starts: torch.Tensor) -> torch.Tensor:
+    """Segmented exclusive prefix sum along the last axis, ``int32``.
+
+    ``segment_starts`` marks (nonzero) the first element of each segment.
+    The reference scans (value, flag) pairs with a custom associative
+    operator; here it is one cumsum less the cumsum at each element's
+    segment start, the start being the running max of the marked positions
+    (a position before the first mark counts from 0, as the reference's
+    scan does). Both are int32 arithmetic modulo 2^32: the sums run in
+    int64 and wrap to int32 once, which gives the reference's values even
+    where its int32 running total overflows.
+    """
+    xi = x.to(torch.int32).long()
+    excl = torch.cumsum(xi, -1) - xi
+    pos = torch.arange(x.shape[-1], device=x.device)
+    start = running_max(torch.where(segment_starts != 0, pos, 0))
+    return (excl - torch.gather(excl, -1, start.expand_as(excl))).to(
+        torch.int32)
 
 
 def segment_ids_from_starts(starts: torch.Tensor, n: int) -> torch.Tensor:

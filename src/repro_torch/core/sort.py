@@ -49,7 +49,11 @@ def counting_rank(digits: torch.Tensor, num_buckets: int,
     """Stable sort destinations (a permutation of each row), ``int32``.
 
     ``use_kernel`` (default: the digits lie on a CUDA device) routes bucket
-    counts up to ``radix_rank.MAX_BUCKETS`` through ``ops.radix_rank``.
+    counts up to ``radix_rank.MAX_BUCKETS`` through ``ops.radix_rank``,
+    for rows shorter than ``radix_rank.MAX_ROW`` digits (the one-sweep
+    scan's status words count in 30 bits). Longer rows take the argsort
+    route, as the reference's bucket counts past its kernel's bound take
+    its XLA route.
     ``bucket_starts`` (*B, num_buckets) int32, the exclusive scan of each
     row's digit histogram when the caller knows it, spares the kernel its
     count; the result is the same with or without it.
@@ -60,8 +64,8 @@ def counting_rank(digits: torch.Tensor, num_buckets: int,
     if (use_kernel and num_buckets > _VECTORIZED_BUCKET_LIMIT
             and n > 4 * _BLOCK):
         from repro_torch.kernels import ops
-        from repro_torch.kernels.radix_rank import MAX_BUCKETS
-        if num_buckets <= MAX_BUCKETS:
+        from repro_torch.kernels import radix_rank
+        if num_buckets <= radix_rank.MAX_BUCKETS and n < radix_rank.MAX_ROW:
             return ops.radix_rank(digits, num_buckets, bucket_starts)
     return _sorted_rank(digits)
 

@@ -14,6 +14,14 @@ the rank tables through ``rank_build_levels`` on CUDA tensors; the plain
 path gathers with the select-based ``stable_partition_gather``. Both give
 bit-identical matrices.
 
+``fused=False`` (``_build_wavelet_matrix_steps``) and
+``build_wavelet_matrix_levelwise`` are the reference's baselines: stable
+0/1 partitions by two prefix sums, applied through inverse-permutation
+scatters, and per-level directories. On CUDA tensors their level bitmaps
+pack through the ``bitpack`` kernel and the radix big step ranks through
+``radix_rank`` (a totals count and a scan, no bucket starts), as
+``core.sort.counting_rank`` routes it; the same bits either way.
+
 Sequences may carry one leading batch axis (S, n): each row is built into
 its own matrix and every leaf gains that leading axis — the stacked shard
 layout, with one level of all shards per kernel launch.
@@ -26,11 +34,12 @@ from dataclasses import dataclass
 import torch
 
 from . import bitops
-from .rank_select import (BitVector, access_bit, build_bitvector_levels,
-                          rank0, rank1, select0, select1,
-                          stable_partition_gather)
-from .scan import apply_permutation_dest, lift, take
-from .sort import sort_pass
+from .rank_select import (BitVector, access_bit, build_bitvector,
+                          build_bitvector_levels, rank0, rank1, select0,
+                          select1, stable_partition_gather)
+from .scan import (apply_permutation_dest, lift, stable_partition_indices,
+                   take)
+from .sort import _invert_permutation, sort_pass
 from ..device import resolve_device
 from ..tree import tree_map
 
@@ -64,6 +73,36 @@ class WaveletMatrix:
         return self.zeros[..., l].long()
 
 
+def _pack_level(bit: torch.Tensor, use_kernels: bool) -> torch.Tensor:
+    """LSB-first words of a level's bits along the last axis: the
+    ``bitpack`` kernel when ``use_kernels`` (its plain version for a CPU
+    tensor), else ``bitops.pack_bits``. The same words either way."""
+    if use_kernels:
+        from repro_torch.kernels import ops
+        return ops.bitpack(bit)
+    return bitops.pack_bits(bitops.pad_bits(bit))
+
+
+def _input_rows(seq, device):
+    """(device, (rows, n) int32 symbols, whether ``seq`` had a batch
+    axis) of a build's input moved to ``device``."""
+    dev = resolve_device(device)
+    seq = torch.as_tensor(seq, device=dev)
+    batched = seq.dim() == 2
+    return dev, (seq if batched else seq[None]).to(torch.int32), batched
+
+
+def _finalize(level_words, zeros, n: int, nbits: int, sample_rate: int,
+              batched: bool) -> WaveletMatrix:
+    """The baselines' directories: one ``build_bitvector`` a level,
+    stacked on the level axis (the same leaves as the fused build's)."""
+    bvs = [build_bitvector(w, n, sample_rate) for w in level_words]
+    wm = WaveletMatrix(
+        bitvectors=tree_map(lambda *xs: torch.stack(xs, -2), *bvs),
+        zeros=torch.stack(zeros, -1), n=n, nbits=nbits)
+    return wm if batched else tree_map(lambda x: x[0], wm)
+
+
 def build_wavelet_matrix(seq, sigma: int, tau: int = 8,
                          big_step: str = "compose", sample_rate: int = 512,
                          fused: bool = True, use_kernels: bool | None = None,
@@ -74,18 +113,18 @@ def build_wavelet_matrix(seq, sigma: int, tau: int = 8,
     ``seq``: (n,) or (S, n) symbols in [0, sigma), moved to ``device``.
     ``use_kernels`` routes the level steps, the radix big step and the rank
     tables through the CUDA kernels; ``None`` enables them on a CUDA
-    device. Only the fused build is ported.
+    device. ``fused=False`` is the reference's step-by-step baseline
+    (:func:`_build_wavelet_matrix_steps`); both give the same matrix.
     """
     if big_step not in ("compose", "radix", "xla"):
         raise ValueError(f"unknown big_step {big_step!r}")
-    if not fused:
-        raise NotImplementedError("the fused=False baseline is not ported")
-    dev = resolve_device(device)
-    seq = torch.as_tensor(seq, device=dev)
-    batched = seq.dim() == 2
-    order = (seq if batched else seq[None]).to(torch.int32)
+    dev, order, batched = _input_rows(seq, device)
     if use_kernels is None:
         use_kernels = dev.type == "cuda"
+    if not fused:
+        return _build_wavelet_matrix_steps(order, sigma, tau, big_step,
+                                           sample_rate, use_kernels,
+                                           batched)
     rows, n = order.shape
     nbits = num_levels(sigma)
     level_words, zeros = [], []
@@ -146,6 +185,63 @@ def build_wavelet_matrix(seq, sigma: int, tau: int = 8,
     wm = WaveletMatrix(bitvectors=bvs, zeros=torch.stack(zeros, 1), n=n,
                        nbits=nbits)
     return wm if batched else tree_map(lambda x: x[0], wm)
+
+
+def _build_wavelet_matrix_steps(order: torch.Tensor, sigma: int, tau: int,
+                                big_step: str, sample_rate: int,
+                                use_kernels: bool,
+                                batched: bool) -> WaveletMatrix:
+    """The reference's step-by-step baseline of Theorem 4.5 on (rows, n)
+    int32 symbols: every level's stable partition applied as the inverse
+    of its scatter destinations, the composed permutation always carried,
+    one directory build a level. ``use_kernels`` packs the levels through
+    ``bitpack`` and ranks the radix big step through ``radix_rank``."""
+    n = order.shape[-1]
+    nbits = num_levels(sigma)
+    level_words, zeros = [], []
+    for alpha0 in range(0, nbits, tau):
+        width = min(tau, nbits - alpha0)
+        fld = bitops.extract_field(order, nbits - alpha0 - width, width)
+        sub = fld
+        perm = None                    # composed gather permutation
+        for t in range(width):
+            bit = (sub >> (width - 1 - t)) & 1
+            level_words.append(_pack_level(bit, use_kernels))
+            zeros.append((n - bit.sum(-1)).to(torch.int32))
+            if alpha0 + t < nbits - 1:
+                g = _invert_permutation(stable_partition_indices(bit))
+                sub = take(sub, g)
+                perm = g if perm is None else take(perm, g)
+        if alpha0 + width < nbits:
+            if big_step == "compose":
+                order = take(order, perm)
+            else:
+                order, _ = sort_pass(
+                    order, reverse_bits(fld, width), 1 << width,
+                    backend="counting" if big_step == "radix" else "xla",
+                    use_kernel=use_kernels)
+    return _finalize(level_words, zeros, n, nbits, sample_rate, batched)
+
+
+def build_wavelet_matrix_levelwise(seq, sigma: int, sample_rate: int = 512,
+                                   device: str | torch.device = "cuda"
+                                   ) -> WaveletMatrix:
+    """Prior-work baseline [Shun'15]: O(n·logσ) work, the full-width
+    symbols moved by a stable 0/1 partition at every level. ``seq``: (n,)
+    or (S, n), moved to ``device``; on a CUDA device the level bitmaps pack
+    through the ``bitpack`` kernel."""
+    dev, order, batched = _input_rows(seq, device)
+    n = order.shape[-1]
+    nbits = num_levels(sigma)
+    level_words, zeros = [], []
+    for l in range(nbits):
+        bit = (order >> (nbits - 1 - l)) & 1
+        level_words.append(_pack_level(bit, dev.type == "cuda"))
+        zeros.append((n - bit.sum(-1)).to(torch.int32))
+        if l < nbits - 1:
+            order = take(order, _invert_permutation(
+                stable_partition_indices(bit)))
+    return _finalize(level_words, zeros, n, nbits, sample_rate, batched)
 
 
 # --------------------------------------------------------------------------

@@ -14,10 +14,13 @@ import torch
 
 from repro_torch.analytics import build_sharded_analytics
 from repro_torch.analytics.engine import sharded_range_quantile
-from repro_torch.core import bitops
-from repro_torch.core.wavelet_matrix import build_wavelet_matrix
-from repro_torch.core.wavelet_tree import (build_wavelet_tree, wt_access,
-                                           wt_rank, wt_select)
+from repro_torch.core import bitops, huffman, multiary, rank_select, sort
+from repro_torch.core.wavelet_matrix import (build_wavelet_matrix,
+                                             build_wavelet_matrix_levelwise)
+from repro_torch.core.wavelet_tree import (build_wavelet_tree,
+                                           build_wavelet_tree_dd,
+                                           build_wavelet_tree_levelwise,
+                                           wt_access, wt_rank, wt_select)
 from repro_torch.kernels import (bitpack, build, ops, radix_rank, rank_build,
                                  ref, wm_level, wt_level)
 from repro_torch.kernels import wm_quantile
@@ -421,3 +424,153 @@ def test_matrix_radix_build_on_the_card_matches_compose():
     compose = build_wavelet_matrix(rows, 5000, device=dev)
     a, b = tree_named_leaves(radix), tree_named_leaves(compose)
     assert all(torch.equal(a[name], b[name]) for name in a)
+
+
+def _same_on_both(card, cpu) -> None:
+    a, b = tree_named_leaves(card), tree_named_leaves(cpu)
+    assert a.keys() == b.keys()
+    assert all(torch.equal(a[name].cpu(), b[name]) for name in b)
+
+
+_TREE_FORMS = {
+    "steps-compose": lambda s, sigma, dev: build_wavelet_tree(
+        s, sigma, fused=False, device=dev),
+    "steps-radix": lambda s, sigma, dev: build_wavelet_tree(
+        s, sigma, big_step="radix", fused=False, device=dev),
+    "steps-xla": lambda s, sigma, dev: build_wavelet_tree(
+        s, sigma, big_step="xla", fused=False, device=dev),
+    "levelwise": lambda s, sigma, dev: build_wavelet_tree_levelwise(
+        s, sigma, device=dev),
+    "levelwise-scatter": lambda s, sigma, dev: build_wavelet_tree_levelwise(
+        s, sigma, fused=False, device=dev),
+    "dd": lambda s, sigma, dev: build_wavelet_tree_dd(s, sigma, 8,
+                                                      device=dev),
+    "dd-scatter": lambda s, sigma, dev: build_wavelet_tree_dd(
+        s, sigma, 8, fused=False, device=dev),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(_TREE_FORMS))
+def test_tree_forms_on_the_card_match_the_cpu(form):
+    """Each other tree form at a ragged n (8 chunks of 1,125 for the
+    domain decomposition) equals the same form on the CPU and the fused
+    build; its bitmaps pack through ``bitpack``, and the unfused radix big
+    step of 256 buckets ranks by a totals count and a scan."""
+    dev = _card()
+    sigma, n = 151_936, 9000
+    seq = np.random.default_rng(3).integers(0, sigma, n).astype(np.int32)
+    build.reset_launches()
+    card = _TREE_FORMS[form](seq, sigma, dev)
+    assert build.launches["bitpack"] > 0
+    assert build.launches["radix_rank"] == (2 if form == "steps-radix"
+                                            else 0)
+    _same_on_both(card, _TREE_FORMS[form](seq, sigma, "cpu"))
+    _same_on_both(card, build_wavelet_tree(seq, sigma, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("big_step", ["compose", "radix", "xla", None])
+def test_matrix_baselines_on_the_card_match_the_cpu(big_step):
+    """``fused=False`` with each big step (``None``: the levelwise
+    baseline), on one ragged row and on stacked shards."""
+    dev = _card()
+    rng = np.random.default_rng(4)
+    for seq in (rng.integers(0, 5000, 9001).astype(np.int32),
+                rng.integers(0, 5000, (3, 4096)).astype(np.int32)):
+        build.reset_launches()
+        if big_step is None:
+            card = build_wavelet_matrix_levelwise(seq, 5000, device=dev)
+            cpu = build_wavelet_matrix_levelwise(seq, 5000, device="cpu")
+        else:
+            card = build_wavelet_matrix(seq, 5000, big_step=big_step,
+                                        fused=False, device=dev)
+            cpu = build_wavelet_matrix(seq, 5000, big_step=big_step,
+                                       fused=False, device="cpu")
+        assert build.launches["bitpack"] > 0
+        # one big step of 256 buckets: a totals count and a scan
+        assert build.launches["radix_rank"] == (2 if big_step == "radix"
+                                                else 0)
+        _same_on_both(card, cpu)
+        _same_on_both(card, build_wavelet_matrix(seq, 5000, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_multiary_on_the_card_matches_the_cpu(width):
+    dev = _card()
+    sigma, n = 5000, 9001
+    seq = np.random.default_rng(width).integers(0, sigma, n).astype(np.int32)
+    card = multiary.build_multiary_wavelet_tree(seq, sigma, width=width,
+                                                device=dev)
+    cpu = multiary.build_multiary_wavelet_tree(seq, sigma, width=width,
+                                               device="cpu")
+    _same_on_both(card, cpu)
+    _same_on_both(multiary.build_multiary_wavelet_tree(
+        seq, sigma, width=width, fused=False, device=dev), cpu)
+    i = np.arange(0, n, 37)
+    c = seq[i]
+    k = np.zeros_like(c)
+    for fn, args in ((multiary.mwt_access, (i,)), (multiary.mwt_rank, (c, i)),
+                     (multiary.mwt_select, (c, k))):
+        got = fn(card, *(torch.from_numpy(a).to(dev) for a in args))
+        assert torch.equal(got.cpu(), fn(cpu, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_huffman_on_the_card_matches_the_cpu(fused):
+    dev = _card()
+    sigma, n = 3000, 9001
+    rng = np.random.default_rng(5)
+    p = np.arange(1, sigma + 1) ** -1.1
+    seq = rng.choice(sigma, size=n, p=p / p.sum()).astype(np.int32)
+    codes, lengths, max_len = huffman.huffman_codebook(
+        np.bincount(seq, minlength=sigma) + 1)
+    build.reset_launches()
+    card = huffman.build_huffman_wavelet_tree(seq, codes, lengths, max_len,
+                                              fused=fused, device=dev)
+    assert build.launches["bitpack"] == max_len
+    _same_on_both(card, huffman.build_huffman_wavelet_tree(
+        seq, codes, lengths, max_len, fused=fused, device="cpu"))
+    levels = huffman.reference_huffman_levels(seq.astype(np.int64), codes,
+                                              lengths, max_len)
+    for l, want in enumerate(levels):
+        got = bitops.unpack_bits(card.level(l).words, len(want))
+        assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_generalized_queries_on_the_card_match_the_cpu(width):
+    dev = _card()
+    n = 9001
+    rng = np.random.default_rng(width + 10)
+    seq = rng.integers(0, 1 << width, n).astype(np.int32)
+    cpu = rank_select.build_generalized(torch.from_numpy(seq), width, n)
+    card = rank_select.build_generalized(torch.from_numpy(seq).to(dev),
+                                         width, n)
+    _same_on_both(card, cpu)
+    c = rng.integers(0, 1 << width, 500)
+    i = rng.integers(0, n + 1, 500)
+    k = rng.integers(0, n + 2, 500)
+    for fn, args in ((rank_select.generalized_rank, (c, i)),
+                     (rank_select.generalized_select, (c, k)),
+                     (rank_select.generalized_access, (i.clip(max=n - 1),))):
+        got = fn(card, *(torch.from_numpy(a).to(dev) for a in args))
+        assert torch.equal(got.cpu(), fn(cpu, *args))
+
+
+@pytest.mark.cuda
+def test_counting_rank_takes_long_rows_off_the_kernel(monkeypatch):
+    """A row of ``radix_rank.MAX_ROW`` digits or more (here the bound is
+    lowered to 4,096) is ranked by the argsort route on the card, with no
+    kernel launch, instead of raising."""
+    dev = _card()
+    digits = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, 5000).astype(np.int32))
+    monkeypatch.setattr(radix_rank, "MAX_ROW", 4096)
+    build.reset_launches()
+    got = sort.counting_rank(digits.to(dev), 256)
+    assert build.launches["radix_rank"] == 0
+    assert torch.equal(got.cpu(), sort.counting_rank(digits, 256))

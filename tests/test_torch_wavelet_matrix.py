@@ -149,9 +149,12 @@ def test_converter_round_trip(stacked):
 
 
 def test_unported_routes_raise():
-    seq = np.zeros(64, np.int32)
-    with pytest.raises(NotImplementedError):
-        twm.build_wavelet_matrix(seq, 16, fused=False, device="cpu")
+    # fused=False is ported now (tests/test_torch_construction_variants.py)
+    seq = np.arange(64, dtype=np.int32) % 16
+    a = tree_named_leaves(twm.build_wavelet_matrix(seq, 16, fused=False,
+                                                   device="cpu"))
+    b = tree_named_leaves(twm.build_wavelet_matrix(seq, 16, device="cpu"))
+    assert all(torch.equal(a[k], b[k]) for k in b)
     with pytest.raises(ValueError):
         twm.build_wavelet_matrix(seq, 16, big_step="bogus", device="cpu")
     assert twm.num_levels(151936) == jwm.num_levels(151936) == 18

@@ -144,9 +144,12 @@ def test_node_starts_and_level_nid_match_reference():
 
 
 def test_unported_tree_routes_raise():
-    seq = np.zeros(64, np.int32)
-    with pytest.raises(NotImplementedError):
-        twt.build_wavelet_tree(seq, 16, fused=False, device="cpu")
+    # fused=False is ported now (tests/test_torch_construction_variants.py)
+    seq = np.arange(64, dtype=np.int32) % 16
+    _assert_same_tree(twt.build_wavelet_tree(seq, 16, fused=False,
+                                             device="cpu"),
+                      convert.tree_to_reference(twt.build_wavelet_tree(
+                          seq, 16, device="cpu")))
     with pytest.raises(ValueError):
         twt.build_wavelet_tree(seq, 16, big_step="bogus", device="cpu")
     with pytest.raises(ValueError):
