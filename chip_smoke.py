@@ -66,6 +66,31 @@
    first 2^20 tokens' levels equal to the numpy oracle. Prints the
    ``construction`` JSON line; each kernel row gains the launches of this
    phase.
+8. Builds the full-text index of the same stream through
+   ``build_sharded_index`` (128 shards of 2^20, m = 2^20 + 1 a shard,
+   SA sample rate 32, rank sample rate 512, τ = 8, compose, seam overlap
+   15), on the host clock from the numpy tokens, with its peak device
+   memory; launch counts zeroed just before and read just after:
+   ``radix_rank`` exactly a totals count and a scan for each of the
+   2 + 4·R kernel passes of R doubling rounds, ``wm_level_step`` 19,
+   ``rank_build_levels`` and ``bitpack`` at least once. Runs the same
+   build step by step (round 0, each doubling round, BWT, C, the matrix,
+   marks and samples; R comes from here), each on the host clock, equal
+   leaf for leaf to the entry point's, and times each of the four kernels
+   at the shapes the index gives it (kernel rows with path ``index``,
+   each against its plain version); then the plain build on the card
+   (``use_kernels=False``), equal leaf for leaf; decodes the BWT of shards
+   0 and 127 (read back by ``wm_access``) to their tokens with the numpy
+   ``bwt_decode``. Counts 4,096 patterns (``sample_patterns``, lengths
+   1–8, one in four random): all equal to a sliding compare on the card
+   that shares no code with the index, 16 to numpy's ``naive_count``,
+   and ``count_by_shard`` summed plus the seam count to ``count``. Locates
+   up to 4 hits a shard: every hit a match, min(4, its count) hits a
+   (pattern, shard). Drops shards 1 and 3: ``count_bounds``' lower bound
+   equals ``naive_count_degraded`` for 16 patterns, both bounds bracket
+   the full count of all 4,096, coverage is 126/128. Prints the ``index``
+   JSON line (build seconds and parts, peak, rounds, bits a token by
+   leaf, query times, launches); each kernel row gains ``index_launches``.
 
 Exits non-zero on any failure; prints no result without a CUDA device or
 outside a checkout. The last line is the ``{"ok": true, ...}`` object.
@@ -106,6 +131,15 @@ TREE_KERNELS = ("wt_level_step", "bitpack", "radix_rank", "rank_build_levels")
 DD_CHUNKS = 128               # the domain decomposition's P: chunks of 2^20
 HUFFMAN_CHECK_TOKENS = 1 << 20  # Huffman levels held against numpy
 MULTIARY_WIDTHS = (2, 4)      # 9 and 5 levels at sigma = 151,936
+INDEX_SAMPLE_RATE = 32        # the reference's SA sample rate
+SEAM_OVERLAP = 15             # the reference's seam half-width
+NUM_PATTERNS = 4096
+PATTERN_LEN = 8
+INDEX_DROP = (1, 3)           # shards dropped for degraded mode
+INDEX_NUMPY_CHECKS = 16
+LOCATE_HITS = 4               # locate hits a shard
+INDEX_KERNELS = ("radix_rank", "wm_level_step", "rank_build_levels",
+                 "bitpack")
 
 
 def fail(msg: str) -> None:
@@ -364,6 +398,322 @@ def construction_phase(dev, toks: np.ndarray, seq: torch.Tensor, wt,
     print(f"huffman: the first {m} tokens' {len(levels)} levels equal "
           f"reference_huffman_levels on the host ({t_oracle:.6f} s)")
     return rows, totals
+
+
+def sliding_counts(seq: torch.Tensor, pats: torch.Tensor,
+                   lens: torch.Tensor) -> torch.Tensor:
+    """Occurrences of each pattern in ``seq`` by a plain sliding compare,
+    sharing no code with the index: every window of length j + 1 is named
+    by the dense rank of (its length-j prefix's name, its last token),
+    from one ``torch.unique`` over the windows and the patterns together,
+    and a pattern of length j counts the windows of its name. (B,)
+    int64."""
+    n = seq.numel()
+    base = SIGMA + 1                    # above every token and the pad
+    toks = seq.long()
+    wid, pid = toks, pats[:, 0].long()  # names of length 1: the tokens
+    out = torch.zeros(pats.shape[0], dtype=torch.long, device=seq.device)
+    for j in range(1, pats.shape[1] + 1):
+        names = base
+        if j > 1:
+            keys = torch.cat([wid[:n - j + 1] * base + toks[j - 1:],
+                              pid * base + pats[:, j - 1].long()])
+            _, inv = torch.unique(keys, return_inverse=True)
+            wid, pid = inv[:n - j + 1], inv[n - j + 1:]
+            names = int(inv.max()) + 1
+        hist = torch.bincount(wid, minlength=names)
+        out = torch.where(lens == j, hist[pid], out)
+    return out
+
+
+def index_kernel_rows(report, launches: dict, sa: torch.Tensor,
+                      bwt: torch.Tensor, wm) -> None:
+    """The kernel rows of the index path, each kernel at the shapes the
+    index build gives it (128 rows of m = 2^20 + 1): ``radix_rank``
+    without bucket starts on a byte of the suffix arrays, one
+    ``wm_level_step`` of the matrix over the BWT, ``rank_build_levels``
+    over its levels and ``bitpack`` of the marks; each against its plain
+    version, timed, and reported with the index path's launches."""
+    from repro_torch.core import bitops
+    from repro_torch.kernels import bitpack, ops, radix_rank, rank_build
+    from repro_torch.kernels import wm_level
+    rows, m = sa.shape
+    digits = (sa & 255).contiguous()
+    got = ops.radix_rank(digits, 256)
+    report("radix_rank", "src/repro_torch/kernels/csrc/radix_rank.cu",
+           "src/repro/kernels/radix_rank.py:52",
+           ["src/repro/kernels/radix_rank.py:79"], got,
+           radix_rank.radix_rank_plain(digits, 256, m),
+           cuda_ms(lambda: ops.radix_rank(digits, 256), 20),
+           cuda_ms(lambda: radix_rank.radix_rank_plain(digits, 256, m), 3),
+           digits.numel() * 8, digits.numel() * 8, path="index",
+           path_launches=launches,
+           library_ms=cuda_ms(lambda: torch.sort(digits, dim=-1,
+                                                 stable=True), 20))
+    nbits = wm.nbits
+    keys = bitops.extract_field(bwt, nbits - TAU, TAU).to(torch.int32)
+    totals = ops.wm_level_zeros(bwt, nbits)[:, 0]
+    level_bits = (keys >> (TAU - 1)) & 1
+    got = ops.wm_level_step(keys, TAU - 1, m, totals)
+    report("wm_level_step", "src/repro_torch/kernels/csrc/wm_level.cu",
+           "src/repro/kernels/wm_level.py:132",
+           ["src/repro/kernels/wm_level.py:52",
+            "src/repro/kernels/wm_level.py:166"], got,
+           wm_level.wm_level_plain(keys, totals, TAU - 1, m),
+           cuda_ms(lambda: ops.wm_level_step(keys, TAU - 1, m, totals), 20),
+           cuda_ms(lambda: wm_level.wm_level_plain(keys, totals, TAU - 1,
+                                                   m), 3),
+           keys.numel() * 8 + got[1].numel() * 4 + got[2].numel() * 4,
+           keys.numel() * 24, path="index", path_launches=launches,
+           library_ms=cuda_ms(lambda: torch.sort(level_bits, dim=1,
+                                                 stable=True), 20))
+    del keys, level_bits
+    words = wm.bitvectors.rank.words.reshape(-1, wm.bitvectors.rank.words
+                                             .shape[-1])
+    W = words.shape[1]
+    got = ops.rank_build_levels(words, m)
+    report("rank_build_levels", "src/repro_torch/kernels/csrc/rank_build.cu",
+           "src/repro/kernels/rank_build.py:98",
+           ["src/repro/kernels/rank_build.py:53"], got,
+           rank_build.rank_build_levels_plain(words, W),
+           cuda_ms(lambda: ops.rank_build_levels(words, m), 20),
+           cuda_ms(lambda: rank_build.rank_build_levels_plain(words, W), 5),
+           words.numel() * 4 + got[0].numel() * 4 + got[1].numel() * 2,
+           words.numel() * 8, path="index", path_launches=launches)
+    marks = (sa % INDEX_SAMPLE_RATE == 0).to(torch.int32)
+    got = ops.bitpack(marks)
+    report("bitpack", "src/repro_torch/kernels/csrc/bitpack.cu",
+           "src/repro/kernels/bitpack.py:26", [], got,
+           bitpack.bitpack_plain(marks, m),
+           cuda_ms(lambda: ops.bitpack(marks), 20),
+           cuda_ms(lambda: bitpack.bitpack_plain(marks, m), 3),
+           marks.numel() * 4 + got.numel() * 4, marks.numel() * 2,
+           path="index", path_launches=launches)
+
+
+def index_phase(dev, toks: np.ndarray, seq: torch.Tensor, report):
+    """Step 8: the full-text index of the stream ``toks`` (``seq`` its card
+    copy) built through ``build_sharded_index``, checked against the plain
+    build, the BWT decode of two shards, an on-card sliding compare and
+    numpy, then counts, locates and degraded-mode bounds; ``report`` takes
+    the index path's kernel rows (:func:`index_kernel_rows`). Returns the
+    ``index`` line and each kernel's launches in the build."""
+    from repro_torch.core import wavelet_matrix as wmat
+    from repro_torch.index import (bwt_decode, build_sharded_index,
+                                   sample_patterns)
+    from repro_torch.index import fm_index as fm_mod
+    from repro_torch.index.bwt import (append_sentinel, bwt_from_sa,
+                                       symbol_boundaries)
+    from repro_torch.index.suffix_array import (_rank_bits, all_distinct,
+                                                doubling_round,
+                                                initial_ranks)
+    from repro_torch.kernels import build
+    from repro_torch.launch.index import naive_count, naive_count_degraded
+    from repro_torch.tree import tree_named_leaves
+    t_phase = time.perf_counter()
+    n = seq.numel()
+    size = 1 << SHARD_BITS
+    args = dict(shard_bits=SHARD_BITS, sample_rate=INDEX_SAMPLE_RATE,
+                tau=TAU, big_step="compose", bv_sample_rate=SAMPLE_RATE,
+                seam_overlap=SEAM_OVERLAP, device=dev)
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # ---- 8.1 the build through the entry point -------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    build.reset_launches()
+    idx, t_build = sync_time(lambda: build_sharded_index(toks, SIGMA,
+                                                         **args))
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches("index path", INDEX_KERNELS)
+    S, m = idx.num_shards, idx.shards.m
+    print(f"index build: {n} tokens, {S} shards of {size} (m = {m}) in "
+          f"{t_build:.6f} s ({n / t_build:.1f} tok/s, host tokens to "
+          f"index), {idx.bits_per_token():.4f} bits/token; peak device "
+          f"memory {peak} B ({peak / 2**30:.3f} GiB, "
+          f"{(peak - before) / 2**30:.3f} GiB above the "
+          f"{before / 2**30:.3f} GiB held before)")
+
+    # ---- 8.2 where the build's time goes, the same work step by step ---
+    sigma_work = SIGMA + 2             # shards over sigma + 1, then $
+    parts = {}
+    build.reset_launches()
+    shards, parts["upload and pad"] = sync_time(
+        lambda: torch.nn.functional.pad(
+            torch.from_numpy(toks.astype(np.int32)).to(dev),
+            (0, S * size - n), value=SIGMA).reshape(S, size))
+    text = append_sentinel(shards)
+    (sa, rank), parts["suffix array round 0 (symbols)"] = sync_time(
+        lambda: initial_ranks(text, sigma_work))
+    rounds, offset = 0, 1
+    while offset < m:             # the loop of ``suffix_array``, timed
+        (sa, rank), dt = sync_time(lambda: doubling_round(
+            rank, offset, _rank_bits(m)))
+        done, dt_sync = sync_time(lambda: all_distinct(sa, rank))
+        rounds += 1
+        parts[f"suffix array round {rounds} (offset {offset})"] = dt + dt_sync
+        offset *= 2
+        if done:
+            break
+    del rank
+    sa_launches = build.launches["radix_rank"]
+    bwt, parts["bwt gather"] = sync_time(lambda: bwt_from_sa(text,
+                                                                     sa))
+    C, parts["C table"] = sync_time(
+        lambda: symbol_boundaries(text, sigma_work))
+    wm, parts["wavelet matrix"] = sync_time(lambda: wmat.build_wavelet_matrix(
+        bwt, SIGMA + 2, tau=TAU, sample_rate=SAMPLE_RATE, device=dev))
+    (mark, samples), parts["marks and samples"] = sync_time(
+        lambda: fm_mod.sample_directories(sa, INDEX_SAMPLE_RATE, True))
+    steps = fm_mod.FMIndex(wm=wm, C=C, mark=mark, sa_sample=samples,
+                           n=size, sigma=SIGMA + 1,
+                           sample_rate=INDEX_SAMPLE_RATE)
+    same_leaves(steps, idx.shards, "index: the build step by step against "
+                "the entry point's")
+    print(f"index build step by step (equal to the entry point's, leaf for "
+          f"leaf): {json.dumps(parts)}; {rounds} doubling rounds, "
+          f"{sa_launches} radix_rank launches in the suffix array")
+    index_kernel_rows(report, launches, sa, bwt, wm)
+    del text, sa, bwt, C, wm, mark, samples, steps, shards
+    # 8-bit passes take the kernels, passes of at most 32 buckets the
+    # vectorized route: 2 for the symbols, 4 a doubling round
+    passes = 2 + 4 * rounds
+    if launches["radix_rank"] != 2 * passes or sa_launches != 2 * passes:
+        fail(f"index: {launches['radix_rank']} radix_rank launches in the "
+             f"build, {sa_launches} step by step; want a totals count and "
+             f"a scan for each of the 2 + 4 x {rounds} kernel passes "
+             f"({2 * passes})")
+    want = wmat.num_levels(SIGMA + 2) + 1
+    if launches["wm_level_step"] != want:
+        fail(f"index: {launches['wm_level_step']} wm_level_step launches, "
+             f"want one a level and one totals count ({want})")
+
+    # ---- 8.3 against the plain build on the card -----------------------
+    plain, t_plain = sync_time(lambda: build_sharded_index(
+        toks, SIGMA, use_kernels=False, **args))
+    same_leaves(idx, plain, "index: kernel build against the plain build")
+    del plain
+    print(f"index build: bit-identical to the plain build on the card "
+          f"(plain route {t_plain:.6f} s), leaf for leaf")
+
+    # ---- 8.4 the BWT of two shards decodes to their tokens --------------
+    for s in (0, S - 1):
+        fm = idx.shard(s)
+        bwt_s = wmat.wm_access(fm.wm, torch.arange(m, device=dev))
+        t0 = time.perf_counter()
+        dec = bwt_decode(bwt_s, fm.C)
+        want_s = np.full(size, SIGMA, np.int64)
+        chunk = toks[s * size:(s + 1) * size]
+        want_s[:len(chunk)] = chunk
+        if not np.array_equal(dec, want_s):
+            fail(f"index: the BWT of shard {s} does not decode to its "
+                 f"tokens")
+        print(f"index: shard {s}'s BWT (read back by wm_access) decodes "
+              f"to its {size} tokens ({time.perf_counter() - t0:.3f} s on "
+              f"the host)")
+
+    # ---- 8.5 count ------------------------------------------------------
+    pats, lens = sample_patterns(toks, NUM_PATTERNS, PATTERN_LEN, pad=SIGMA,
+                                 seed=3)
+    pt, lt = torch.from_numpy(pats).to(dev), torch.from_numpy(lens).to(dev)
+    counts, t_count = sync_time(lambda: idx.count(pt, lt))
+    by_shard, t_by_shard = sync_time(lambda: idx.count_by_shard(pt, lt))
+    seams, t_seams = sync_time(lambda: idx._seam_count(
+        *idx._sanitize(pt, lt)))
+    sliding, t_sliding = sync_time(lambda: sliding_counts(seq, pt, lt))
+    if not torch.equal(counts.long(), sliding):
+        bad = int((counts.long() != sliding).sum())
+        fail(f"index: {bad} of {NUM_PATTERNS} counts differ from the "
+             f"sliding compare")
+    if not torch.equal(by_shard.sum(0) + seams, counts.long()):
+        fail("index: count_by_shard summed plus the seam count is not count")
+    toks64 = toks.astype(np.int64)
+    stitch = min(SEAM_OVERLAP + 1, size)
+    cnt_np = counts.cpu().numpy()
+    for i in range(INDEX_NUMPY_CHECKS):
+        want_c = naive_count(toks64, pats[i], int(lens[i]), size, stitch)
+        if cnt_np[i] != want_c:
+            fail(f"index: pattern {i} counts {cnt_np[i]}, numpy {want_c}")
+    print(f"index count: {NUM_PATTERNS} patterns (lengths 1-{PATTERN_LEN}, "
+          f"one in four random) in {t_count * 1e3:.6f} ms "
+          f"({NUM_PATTERNS / t_count:.1f} patterns/s; count_by_shard "
+          f"{t_by_shard * 1e3:.6f} ms, seams {t_seams * 1e3:.6f} ms); all "
+          f"equal the sliding compare on the card ({t_sliding:.3f} s), "
+          f"{INDEX_NUMPY_CHECKS} equal numpy; total hits "
+          f"{int(counts.long().sum())}, {int((counts == 0).sum())} misses")
+
+    # ---- 8.6 locate -----------------------------------------------------
+    pos, t_locate = sync_time(lambda: idx.locate(pt, lt, LOCATE_HITS))
+    p64 = pos.long()
+    valid = p64 >= 0
+    for j in range(PATTERN_LEN):
+        used = valid & (j < lt.long())[:, None]
+        at = seq[(p64 + j).clamp(0, n - 1)]
+        if bool((used & ((p64 + j >= n) | (at != pt[:, j:j + 1]))).any()):
+            fail(f"index locate: a hit does not match its pattern at "
+                 f"offset {j}")
+    per = torch.zeros((NUM_PATTERNS, S), dtype=torch.long, device=dev)
+    per.scatter_add_(1, torch.where(valid, p64 >> SHARD_BITS, 0),
+                     valid.long())
+    if not torch.equal(per, by_shard.T.long().clamp(max=LOCATE_HITS)):
+        fail(f"index locate: hits a (pattern, shard) are not min("
+             f"{LOCATE_HITS}, its count)")
+    print(f"index locate: {NUM_PATTERNS} patterns x <= {LOCATE_HITS} hits "
+          f"a shard in {t_locate * 1e3:.6f} ms; {int(valid.sum())} hits, "
+          f"every one a match, min({LOCATE_HITS}, count) a shard")
+
+    # ---- 8.7 degraded mode ---------------------------------------------
+    deg = idx.drop_shards(list(INDEX_DROP))
+    (lower, upper, cov), t_bounds = sync_time(
+        lambda: deg.count_bounds(pt, lt))
+    avail = np.ones(S, bool)
+    avail[list(INDEX_DROP)] = False
+    lo_np = lower.cpu().numpy()
+    for i in range(INDEX_NUMPY_CHECKS):
+        want_d = naive_count_degraded(toks64, pats[i], int(lens[i]), size,
+                                      stitch, avail)
+        if lo_np[i] != want_d:
+            fail(f"index degraded: pattern {i} lower bound {lo_np[i]}, "
+                 f"numpy {want_d}")
+    if not bool(((lower <= counts) & (counts <= upper)).all()):
+        fail("index degraded: the bounds do not bracket the full count")
+    if float(cov) != (S - len(INDEX_DROP)) / S:
+        fail(f"index degraded: coverage {float(cov)}, want "
+             f"{S - len(INDEX_DROP)}/{S}")
+    print(f"index degraded mode: shards {list(INDEX_DROP)} dropped, "
+          f"coverage {float(cov)}; count_bounds in {t_bounds * 1e3:.6f} ms; "
+          f"{INDEX_NUMPY_CHECKS} lower bounds equal numpy, all {NUM_PATTERNS}"
+          f" bracket the full count")
+
+    leaf_bits = {name: x.numel() * x.element_size() * 8 / n
+                 for name, x in tree_named_leaves(idx.shards).items()}
+    report = {
+        "tokens": n, "sigma": SIGMA, "shards": S, "shard_size": size,
+        "m": m, "sample_rate": INDEX_SAMPLE_RATE,
+        "bv_sample_rate": SAMPLE_RATE, "seam_overlap": SEAM_OVERLAP,
+        "build_s": t_build, "plain_build_s": t_plain, "peak_bytes": peak,
+        "rise_bytes": peak - before, "rounds": rounds,
+        "bits_per_token": idx.bits_per_token(),
+        "bits_per_token_by_leaf": leaf_bits,
+        "build_parts_s": parts,
+        "launches": {k: v for k, v in launches.items() if v},
+        "patterns": NUM_PATTERNS, "pattern_len": PATTERN_LEN,
+        "count_ms": t_count * 1e3, "count_by_shard_ms": t_by_shard * 1e3,
+        "seam_count_ms": t_seams * 1e3, "locate_ms": t_locate * 1e3,
+        "locate_hits": int(valid.sum()), "count_bounds_ms": t_bounds * 1e3,
+        "sliding_compare_s": t_sliding, "coverage": float(cov),
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"index: step 8 took {report['phase_s']:.3f} s on the host clock")
+    del idx, deg
+    return report, launches
 
 
 def main() -> None:
@@ -1220,10 +1570,15 @@ def main() -> None:
     del eng, shards_in
     construction, phase_launches = construction_phase(
         dev, toks, seq, wt, (pos_t, sym_t, end_t, kk_t), (acc, rnk, sel))
+
+    # ---- 8. the full-text index at full width --------------------------
+    index, index_launches = index_phase(dev, toks, seq, report)
     for row in kernels:
         row["construction_launches"] = phase_launches[row["name"]]
+        row["index_launches"] = index_launches[row["name"]]
 
     print(json.dumps({"construction": construction}))
+    print(json.dumps({"index": index}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": kernels}))
     if any(row["check"] != "pass" for row in kernels):

@@ -13,6 +13,12 @@ has ``ranks.words``, ``ranks.superblock``, ``ranks.block`` and ``active``
 (uint32) and ``chunk_cum`` (int32), plus ``n``, ``width`` and
 ``chunk_syms``; a multiary tree the same under ``levels.``, with
 ``node_starts``, plus ``n``, ``width``, ``nlevels`` and ``chunk_syms``.
+An FM index has its matrix under ``wm.``, ``C`` and ``sa_sample``
+(int32) and its mark directory under ``mark.`` (``words``, ``superblock``,
+``block``), plus ``n``, ``sigma`` and ``sample_rate``; a sharded text index
+the same under ``shards.`` with ``seam_windows`` (int32) and, when degraded,
+``available`` (bool), plus ``n``, ``sigma``, ``shard_bits`` and
+``seam_overlap``.
 The port keeps the same bytes in ``int32``/``int16``. No JAX is imported
 here: callers flatten the reference pytree to numpy themselves.
 """
@@ -25,9 +31,11 @@ from repro_torch.core.huffman import HuffmanWaveletTree
 from repro_torch.core.multiary import MultiaryWaveletTree
 from repro_torch.core.rank_select import (BinaryRank, BinarySelect, BitVector,
                                           GeneralizedRankSelect)
-from repro_torch.core.wavelet_matrix import WaveletMatrix
+from repro_torch.core.wavelet_matrix import WaveletMatrix, num_levels
 from repro_torch.core.wavelet_tree import WaveletTree
 from repro_torch.device import resolve_device
+from repro_torch.index.fm_index import FMIndex
+from repro_torch.index.sharded import ShardedTextIndex
 from repro_torch.tree import tree_named_leaves
 
 # reference dtype, port dtype of every leaf
@@ -46,6 +54,16 @@ HUFFMAN_LEAF_DTYPES = {"ranks.words": (np.uint32, np.int32),
                        "active": (np.int32, np.int32)}
 GENERALIZED_LEAF_DTYPES = {"packed": (np.uint32, np.int32),
                            "chunk_cum": (np.int32, np.int32)}
+_RANK_DTYPES = {"words": (np.uint32, np.int32),
+                 "superblock": (np.uint32, np.int32),
+                 "block": (np.uint16, np.int16)}
+FM_LEAF_DTYPES = {**{f"wm.{k}": v for k, v in LEAF_DTYPES.items()},
+                  "C": (np.int32, np.int32),
+                  **{f"mark.{k}": v for k, v in _RANK_DTYPES.items()},
+                  "sa_sample": (np.int32, np.int32)}
+SHARDED_LEAF_DTYPES = {**{f"shards.{k}": v
+                          for k, v in FM_LEAF_DTYPES.items()},
+                       "seam_windows": (np.int32, np.int32)}
 MULTIARY_LEAF_DTYPES = {"levels.packed": (np.uint32, np.int32),
                         "levels.chunk_cum": (np.int32, np.int32),
                         "node_starts": (np.int32, np.int32)}
@@ -61,18 +79,27 @@ def _tensors(leaves: dict, dtypes: dict, device) -> dict:
     return t
 
 
+def _bitvector(t: dict, prefix: str, n: int, sample_rate: int) -> BitVector:
+    """The ``BitVector`` of the port tensors ``t`` named under
+    ``prefix + "bitvectors."``."""
+    def leaf(name):
+        return t[f"{prefix}bitvectors.{name}"]
+
+    rank = BinaryRank(words=leaf("rank.words"),
+                      superblock=leaf("rank.superblock"),
+                      block=leaf("rank.block"), n=n)
+    sel1 = BinarySelect(sample=leaf("sel1.sample"), n=n,
+                        sample_rate=sample_rate, zeros=False)
+    sel0 = BinarySelect(sample=leaf("sel0.sample"), n=n,
+                        sample_rate=sample_rate, zeros=True)
+    return BitVector(rank=rank, sel1=sel1, sel0=sel0)
+
+
 def _port_leaves(leaves: dict, dtypes: dict, n: int, sample_rate: int,
                  device):
     """(BitVector, dict of port tensors) holding the bytes of ``leaves``."""
     t = _tensors(leaves, dtypes, device)
-    rank = BinaryRank(words=t["bitvectors.rank.words"],
-                      superblock=t["bitvectors.rank.superblock"],
-                      block=t["bitvectors.rank.block"], n=n)
-    sel1 = BinarySelect(sample=t["bitvectors.sel1.sample"], n=n,
-                        sample_rate=sample_rate, zeros=False)
-    sel0 = BinarySelect(sample=t["bitvectors.sel0.sample"], n=n,
-                        sample_rate=sample_rate, zeros=True)
-    return BitVector(rank=rank, sel1=sel1, sel0=sel0), t
+    return _bitvector(t, "", n, sample_rate), t
 
 
 def _reference_leaves(struct, dtypes: dict,
@@ -175,4 +202,70 @@ def multiary_to_reference(t: MultiaryWaveletTree) -> dict:
     out = _reference_leaves(t, MULTIARY_LEAF_DTYPES, ("n", "width",
                                                       "nlevels"))
     out["chunk_syms"] = t.levels.chunk_syms
+    return out
+
+
+def _fm_index(t: dict, prefix: str, n: int, sigma: int, sample_rate: int,
+              bv_sample_rate: int) -> FMIndex:
+    """An ``FMIndex`` of the port tensors ``t`` named under ``prefix``."""
+    def leaf(name):
+        return t[prefix + name]
+
+    m = n + 1
+    wm = WaveletMatrix(bitvectors=_bitvector(t, prefix + "wm.", m,
+                                             bv_sample_rate),
+                       zeros=leaf("wm.zeros"), n=m,
+                       nbits=num_levels(sigma + 1))
+    mark = BinaryRank(words=leaf("mark.words"),
+                      superblock=leaf("mark.superblock"),
+                      block=leaf("mark.block"), n=m)
+    return FMIndex(wm=wm, C=leaf("C"), mark=mark,
+                   sa_sample=leaf("sa_sample"), n=n, sigma=sigma,
+                   sample_rate=sample_rate)
+
+
+def fm_index_from_reference(leaves: dict, n: int, sigma: int,
+                            sample_rate: int = 32, bv_sample_rate: int = 512,
+                            device: str | torch.device = "cuda") -> FMIndex:
+    """The port's ``FMIndex`` holding the bytes of reference leaves (an
+    index of ``n`` symbols in [0, σ), its matrix over σ+1)."""
+    t = _tensors(leaves, FM_LEAF_DTYPES, device)
+    return _fm_index(t, "", n, sigma, sample_rate, bv_sample_rate)
+
+
+def fm_index_to_reference(fm: FMIndex) -> dict:
+    """Reference-layout numpy leaves of a port FM index, plus ``n``,
+    ``sigma`` and ``sample_rate``."""
+    return _reference_leaves(fm, FM_LEAF_DTYPES, ("n", "sigma",
+                                                  "sample_rate"))
+
+
+def sharded_index_from_reference(leaves: dict, n: int, sigma: int,
+                                 shard_bits: int, seam_overlap: int,
+                                 sample_rate: int = 32,
+                                 bv_sample_rate: int = 512,
+                                 device: str | torch.device = "cuda"
+                                 ) -> ShardedTextIndex:
+    """The port's ``ShardedTextIndex`` holding the bytes of reference
+    leaves (``available`` among them when the index is degraded)."""
+    t = _tensors(leaves, SHARDED_LEAF_DTYPES, device)
+    shards = _fm_index(t, "shards.", 1 << shard_bits, sigma + 1, sample_rate,
+                       bv_sample_rate)
+    available = leaves.get("available")
+    if available is not None:
+        available = torch.from_numpy(np.asarray(available, bool)).to(
+            t["seam_windows"].device)
+    return ShardedTextIndex(shards=shards, seam_windows=t["seam_windows"],
+                            n=n, sigma=sigma, shard_bits=shard_bits,
+                            seam_overlap=seam_overlap, available=available)
+
+
+def sharded_index_to_reference(idx: ShardedTextIndex) -> dict:
+    """Reference-layout numpy leaves of a port sharded index (with
+    ``available`` when degraded), plus ``n``, ``sigma``, ``shard_bits`` and
+    ``seam_overlap``."""
+    out = _reference_leaves(idx, SHARDED_LEAF_DTYPES,
+                            ("n", "sigma", "shard_bits", "seam_overlap"))
+    if idx.available is not None:
+        out["available"] = idx.available.cpu().numpy()
     return out

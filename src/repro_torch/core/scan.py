@@ -20,6 +20,19 @@ def inclusive_sum(x: torch.Tensor, dtype=None) -> torch.Tensor:
     return torch.cumsum(x, -1, dtype=dtype or x.dtype)
 
 
+def flat_inclusive_sum(x: torch.Tensor) -> torch.Tensor:
+    """:func:`inclusive_sum` of each row of 0/1 flags ``x`` (*B, n),
+    ``int32``, computed as one 1-D scan of the rows laid end to end less
+    each row's carry-in: torch runs a device-wide scan only for a 1-D
+    tensor, and walks an axis of a 2-D one row by row."""
+    if x.numel() == 0:
+        return torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    x = x.to(torch.int32)
+    dt = torch.int32 if x.numel() < 2**31 else torch.int64
+    c = torch.cumsum(x.reshape(-1), 0, dtype=dt).reshape(x.shape)
+    return (c - (c[..., :1] - x[..., :1])).to(torch.int32)
+
+
 def prefix_scan(op: Callable, x, reverse: bool = False, axis: int = 0):
     """Inclusive scan of ``x`` along ``axis`` with an associative ``op``.
 

@@ -120,14 +120,16 @@ def sort_permutation(digits: torch.Tensor, num_buckets: int,
 
 def radix_sort_stable(keys: torch.Tensor, key_bits: int,
                       values: Optional[Tuple[torch.Tensor, ...]] = None,
-                      bits_per_pass: int = 8, backend: str = "counting"):
+                      bits_per_pass: int = 8, backend: str = "counting",
+                      use_kernel: bool | None = None):
     """LSD stable radix sort of integer ``keys`` with ``key_bits`` bits;
-    ``bits_per_pass`` plays the paper's τ. Returns (keys, values)."""
+    ``bits_per_pass`` plays the paper's τ. Returns (keys, values).
+    ``use_kernel``: as in :func:`counting_rank`, for every pass."""
     shift = 0
     while shift < key_bits:
         width = min(bits_per_pass, key_bits - shift)
         digits = bitops.extract_field(keys, shift, width)
         keys, values = sort_pass(keys, digits, 1 << width, values,
-                                 backend=backend)
+                                 backend=backend, use_kernel=use_kernel)
         shift += width
     return keys, values

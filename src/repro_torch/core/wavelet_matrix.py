@@ -268,13 +268,19 @@ def wm_child_interval(wm: WaveletMatrix, l: int, lo: torch.Tensor,
             torch.where(bit == 0, hi0, zl + (hi - hi0)))
 
 
+def wm_follow(wm: WaveletMatrix, l: int, p: torch.Tensor,
+              bit: torch.Tensor) -> torch.Tensor:
+    """Position p of level l followed into the child under ``bit`` (0 →
+    zero block, 1 → one block): one rank probe."""
+    ones = rank1(wm.level(l).rank, p)
+    return torch.where(bit == 0, p.long() - ones,
+                       lift(wm.level_zeros(l), p) + ones)
+
+
 def wm_position_step(wm: WaveletMatrix, l: int, p: torch.Tensor):
     """Follow one position down a level: (bit at p, position in child)."""
-    rs = wm.level(l).rank
-    bit = access_bit(rs, p)
-    child = torch.where(bit == 0, rank0(rs, p),
-                        lift(wm.level_zeros(l), p) + rank1(rs, p))
-    return bit, child
+    bit = access_bit(wm.level(l).rank, p)
+    return bit, wm_follow(wm, l, p, bit)
 
 
 # --------------------------------------------------------------------------

@@ -8,6 +8,8 @@ runs where only the port is installed:
 
 All outputs are exact integers: every comparison is equality.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,8 @@ from repro_torch.analytics.engine import sharded_range_quantile
 from repro_torch.core import bitops, huffman, multiary, rank_select, sort
 from repro_torch.core.wavelet_matrix import (build_wavelet_matrix,
                                              build_wavelet_matrix_levelwise)
+from repro_torch.index import (build_sharded_index, sample_patterns,
+                               suffix_array, suffix_array_naive)
 from repro_torch.core.wavelet_tree import (build_wavelet_tree,
                                            build_wavelet_tree_dd,
                                            build_wavelet_tree_levelwise,
@@ -574,3 +578,81 @@ def test_counting_rank_takes_long_rows_off_the_kernel(monkeypatch):
     got = sort.counting_rank(digits.to(dev), 256)
     assert build.launches["radix_rank"] == 0
     assert torch.equal(got.cpu(), sort.counting_rank(digits, 256))
+
+
+# ragged corpora: (tokens, sigma, shard_bits); rows of m = 2^sb + 1 > 2,048
+# symbols rank through the kernels, a tail shard is padded
+_INDEX_CORPORA = {
+    "tail": (3 * 4096 + 77, 151_936, 12),
+    "one-shard": (3000, 5000, 12),
+    "small-sigma": (5 * 2048 - 1, 3, 11),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _index_pair(name: str):
+    n, sigma, sb = _INDEX_CORPORA[name]
+    dev = _card()
+    toks = np.random.default_rng(n).zipf(1.2, n) % sigma
+    build.reset_launches()
+    card = build_sharded_index(toks, sigma, shard_bits=sb, device=dev)
+    launches = dict(build.launches)
+    cpu = build_sharded_index(toks, sigma, shard_bits=sb, device="cpu")
+    return toks, card, cpu, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_INDEX_CORPORA))
+def test_index_on_the_card_matches_the_cpu(name):
+    """The sharded index built on the card equals the CPU build leaf for
+    leaf; its suffix array sorts rank through ``radix_rank`` (a totals
+    count and a scan a pass), its matrix through ``wm_level_step`` (one a
+    level and one totals count) and its marks through ``bitpack`` and
+    ``rank_build_levels``."""
+    _, card, cpu, launches = _index_pair(name)
+    _same_on_both(card, cpu)
+    assert launches["radix_rank"] > 0 and launches["radix_rank"] % 2 == 0
+    nbits = card.shards.wm.nbits
+    assert launches["wm_level_step"] == nbits + 1
+    assert launches["bitpack"] == 1 and launches["rank_build_levels"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_INDEX_CORPORA))
+def test_index_queries_on_the_card_match_the_cpu(name):
+    toks, card, cpu, _ = _index_pair(name)
+    pats, lens = sample_patterns(toks, 200, 8, pad=card.sigma, seed=4)
+    lens[:2] = [0, 3]                        # the empty pattern, a pad run
+    pats[1, :3] = card.sigma
+    dev = card.device
+    pt, lt = torch.from_numpy(pats).to(dev), torch.from_numpy(lens).to(dev)
+    assert torch.equal(card.count(pt, lt).cpu(), cpu.count(pats, lens))
+    assert torch.equal(card.count_by_shard(pt, lt).cpu(),
+                       cpu.count_by_shard(pats, lens))
+    assert torch.equal(card.locate(pt, lt, 4).cpu(),
+                       cpu.locate(pats, lens, 4))
+    drop = [0, card.num_shards - 1]
+    got = card.drop_shards(drop).count_bounds(pt, lt)
+    want = cpu.drop_shards(drop).count_bounds(pats, lens)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2049, 3 * 8192 + 5])
+def test_suffix_array_on_the_card_matches_plain(n):
+    """Batched rows of runs and random symbols: the kernel route (radix
+    passes of 8 bits through ``radix_rank``) equals the argsort route and
+    the numpy oracle."""
+    dev = _card()
+    rng = np.random.default_rng(n)
+    rows = rng.integers(0, 300, (3, n)).astype(np.int32)
+    rows[1] = 7
+    rows[2, ::3] = 0
+    t = torch.from_numpy(rows).to(dev)
+    build.reset_launches()
+    got = suffix_array(t, 300, device=dev)
+    assert build.launches["radix_rank"] > 0
+    assert torch.equal(got, suffix_array(t, 300, use_kernel=False,
+                                         device=dev))
+    assert np.array_equal(got[0].cpu().numpy(), suffix_array_naive(rows[0]))
