@@ -91,6 +91,33 @@
    the full count of all 4,096, coverage is 126/128. Prints the ``index``
    JSON line (build seconds and parts, peak, rounds, bits a token by
    leaf, query times, launches); each kernel row gains ``index_launches``.
+9. Serves the rest of the analytics engine from step 4's engine (kept on
+   the card through steps 7 and 8) and queries, and verifies and repairs
+   it and step 8's index; every op on the host clock ending in a
+   synchronize, with its q/s. Quantile brackets at 0, 9 and 18 levels
+   hold every kernel quantile ([q, q + 1) at 18). Histogram, exact top-k
+   (k = 8), distinct and histogram bounds of the first 512 queries, 32
+   against numpy's bincount. Greedy top-k of all 4,096 at the default
+   budget: on the 512, counts a prefix of the exact top-k's, each symbol
+   carrying its count; at budgets covering every node of weight at least
+   the k-th count, equal to the exact top-k. Shards 1 and 3 dropped:
+   coverage equals numpy's, 32 counts and masked quantiles equal the
+   survivors', the count and histogram bounds bracket the full answers.
+   The last 8 shards built alone and appended to the first 120 equal the
+   engine leaf for leaf, with step 4's kernel quantiles. The store:
+   ``decode_slice`` of 2^16 tokens at 4 starts (two across a shard
+   boundary), ``token_histogram``, 32 raw bits a token, and its top-k,
+   distinct and histogram equal the engine's. A snapshot saved and loaded
+   equals the engine; a superblock bit flipped in the file is repaired on
+   load with exactly 1 ``rank_build_levels`` launch, a bitmap bit raises
+   ``IntegrityError``. ``verify_analytics`` is clean; a block entry of
+   shard 5 changed on the card is named, ``repair_analytics`` restores it
+   (1 ``rank_build_levels`` launch) and its kernel quantiles equal the
+   plain descent. ``verify_sharded_index`` is clean and both index
+   repairs equal the index (the deep one launches ``bitpack``). Prints the
+   ``analytics`` JSON line; each kernel row gains ``analytics_launches``,
+   the step's launches, which must include ``rank_build_levels``,
+   ``wm_quantile_sharded``, ``bitpack`` and ``wm_level_step``.
 
 Exits non-zero on any failure; prints no result without a CUDA device or
 outside a checkout. The last line is the ``{"ok": true, ...}`` object.
@@ -140,6 +167,14 @@ INDEX_NUMPY_CHECKS = 16
 LOCATE_HITS = 4               # locate hits a shard
 INDEX_KERNELS = ("radix_rank", "wm_level_step", "rank_build_levels",
                  "bitpack")
+BRACKET_LEVELS = (0, 9, 18)   # quantile brackets: 2^18, 2^9 and 1 symbols
+HIST_QUERIES = 512            # queries of the histogram family
+TOPK = 8
+ADD_SHARDS = 8                # shards appended by add_shards
+DECODE_LEN = 1 << 16          # tokens of each decode_slice
+GREEDY_GROUP = 128            # queries of one exact-budget greedy call
+ANALYTICS_KERNELS = ("rank_build_levels", "wm_quantile_sharded", "bitpack",
+                     "wm_level_step")
 
 
 def fail(msg: str) -> None:
@@ -497,7 +532,8 @@ def index_phase(dev, toks: np.ndarray, seq: torch.Tensor, report):
     build, the BWT decode of two shards, an on-card sliding compare and
     numpy, then counts, locates and degraded-mode bounds; ``report`` takes
     the index path's kernel rows (:func:`index_kernel_rows`). Returns the
-    ``index`` line and each kernel's launches in the build."""
+    ``index`` line, each kernel's launches in the build and the index
+    (step 9 verifies and repairs it)."""
     from repro_torch.core import wavelet_matrix as wmat
     from repro_torch.index import (bwt_decode, build_sharded_index,
                                    sample_patterns)
@@ -712,8 +748,428 @@ def index_phase(dev, toks: np.ndarray, seq: torch.Tensor, report):
         "sliding_compare_s": t_sliding, "coverage": float(cov),
         "phase_s": time.perf_counter() - t_phase}
     print(f"index: step 8 took {report['phase_s']:.3f} s on the host clock")
-    del idx, deg
+    del deg
+    return report, launches, idx
+
+
+def analytics_phase(dev, toks: np.ndarray, eng, idx, queries, quant, cnt):
+    """Step 9: the rest of the analytics engine on step 4's engine ``eng``
+    and queries (``quant``/``cnt`` its kernel quantiles and counts), the
+    store, snapshots, verify and repair of the engine and of step 8's index
+    ``idx``. Every check fails the run. Returns the ``analytics`` line and
+    each kernel's launches in the step (the counts are read and set to 0
+    around the repair whose launches are checked, and summed)."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from repro_torch.analytics import (ShardedAnalytics,
+                                       build_sharded_analytics,
+                                       load_analytics, save_analytics)
+    from repro_torch.analytics.engine import sharded_range_quantile
+    from repro_torch.data import build_compressed_corpus, token_histogram
+    from repro_torch.kernels import build
+    from repro_torch.robust import (IntegrityError, repair_analytics,
+                                    repair_sharded_index, verify_analytics,
+                                    verify_sharded_index)
+    from repro_torch.tree import tree_map
+    t_phase = time.perf_counter()
+    n = len(toks)
+    size, S, nbits = eng.shard_size, eng.num_shards, eng.shards.nbits
+    lo, hi, k, sym_lo, sym_hi = queries
+    lo_t, hi_t, k_t, s0_t, s1_t = (torch.from_numpy(x).to(dev)
+                                   for x in queries)
+    Q, H = len(lo), HIST_QUERIES
+    hl_t, hh_t = lo_t[:H], hi_t[:H]
+    toks64 = toks.astype(np.int64)
+    step_launches = {name: 0 for name in build.launches}
+    build.reset_launches()
+
+    def take_launches() -> dict:
+        """This part's launches, added to the step's and set to 0."""
+        got = dict(build.launches)
+        for name, v in got.items():
+            step_launches[name] += v
+        build.reset_launches()
+        return got
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def peak_timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out, t = timed(fn)
+        return out, t, torch.cuda.max_memory_allocated() - before
+
+    ops, report = {}, {}
+
+    def op_line(name, t, q):
+        ops[name] = {"s": t, "queries": q, "q_per_s": q / t}
+        print(f"analytics {name}: {q} queries in {t * 1e3:.6f} ms "
+              f"({q / t:.1f} q/s)")
+
+    # ---- 9.1 brackets: each holds the kernel's exact quantile -----------
+    live = quant >= 0
+    for levels in BRACKET_LEVELS:
+        (blo, bhi), t = timed(lambda: eng.range_quantile_bracket(
+            lo_t, hi_t, k_t, levels))
+        op_line(f"quantile_bracket_{levels}", t, Q)
+        width = 1 << (nbits - min(levels, nbits))
+        if not (bool(((blo <= quant) & (quant < bhi) & (bhi - blo == width)
+                      )[live].all())
+                and bool(((blo == -1) & (bhi == -1))[~live].all())):
+            fail(f"analytics: brackets at {levels} levels do not hold the "
+                 f"kernel's quantiles")
+        if levels >= nbits and not (torch.equal(blo[live], quant[live])
+                                    and torch.equal(bhi[live],
+                                                    quant[live] + 1)):
+            fail("analytics: the full-depth bracket is not [q, q + 1)")
+    print(f"analytics: brackets at {list(BRACKET_LEVELS)} levels hold all "
+          f"{Q} kernel quantiles, [q, q + 1) at {nbits}")
+
+    # ---- 9.1 histogram family on the first HIST_QUERIES queries ---------
+    hist, t = timed(lambda: eng.range_histogram(hl_t, hh_t))
+    op_line("histogram", t, H)
+    (tsyms, tcnts), t = timed(lambda: eng.range_topk(hl_t, hh_t, TOPK))
+    op_line("topk", t, H)
+    distinct, t = timed(lambda: eng.range_distinct(hl_t, hh_t))
+    op_line("distinct", t, H)
+    (hlow, unc, hcov), t = timed(lambda: eng.range_histogram_bounds(hl_t,
+                                                                    hh_t))
+    op_line("histogram_bounds", t, H)
+    if hist.shape != (H, 1 << nbits) or not (torch.equal(hlow, hist)
+                                             and int(unc.abs().sum()) == 0
+                                             and bool((hcov == 1).all())):
+        fail("analytics: histogram bounds of the full engine are not the "
+             "histogram")
+    want_top = topk_of(hist, TOPK)
+    if not (torch.equal(tsyms, want_top[0]) and torch.equal(tcnts,
+                                                            want_top[1])):
+        fail("analytics: range_topk is not the histogram's top k")
+    if not torch.equal(distinct, (hist > 0).sum(1).to(torch.int32)):
+        fail("analytics: range_distinct is not the histogram's support")
+    h_np = hist[:NUM_NUMPY_CHECKS].cpu().numpy()
+    s_np, c_np = tsyms.cpu().numpy(), tcnts.cpu().numpy()
+    d_np = distinct.cpu().numpy()
+    for i in range(NUM_NUMPY_CHECKS):
+        bc = np.bincount(toks64[lo[i]:hi[i]], minlength=1 << nbits)
+        top = np.sort(bc[bc > 0])[::-1][:TOPK]
+        s_i = s_np[i][s_np[i] >= 0]
+        if not (np.array_equal(h_np[i], bc)
+                and np.array_equal(c_np[i][:len(s_i)], top)
+                and np.array_equal(bc[s_i], top)
+                and d_np[i] == int((bc > 0).sum())):
+            fail(f"analytics: query {i}: histogram, top-k or distinct "
+                 f"differs from numpy")
+    print(f"analytics: histogram, top-k and distinct of {H} queries agree; "
+          f"{NUM_NUMPY_CHECKS} equal numpy's bincount")
+
+    # ---- 9.1 greedy top-k on every query ---------------------------------
+    # exact when the budget covers every node heavier than the k-th answer
+    # (the reference's contract); at the default budget of k·(nbits+1)
+    # pops it returns the heaviest symbols it reached: a prefix of the exact
+    # answer, each symbol with its count
+    (gsyms, gcnts), t = timed(lambda: eng.range_topk_greedy(lo_t, hi_t,
+                                                            TOPK))
+    op_line("topk_greedy", t, Q)
+    found = (gsyms[:H] >= 0).sum(1)
+    prefix = torch.arange(TOPK, device=dev)[None, :] < found[:, None]
+    carried = torch.gather(hist, 1, gsyms[:H].long().clamp(min=0))
+    if not (bool(((gcnts[:H] == tcnts) | ~prefix).all())
+            and bool(((gcnts[:H] == 0) | prefix).all())
+            and bool(((carried == gcnts[:H]) | ~prefix).all())):
+        fail(f"analytics: greedy top-k at the default budget is not a "
+             f"prefix of the exact top-k on the first {H} queries")
+    short = int((gcnts[:H] != tcnts).any(1).sum())
+    # every node a greedy pops before its k-th answer weighs at least the
+    # k-th count: that many pops make it exact
+    kth = tcnts[:, -1].clamp(min=1).long()[:, None]
+    need = torch.zeros(H, dtype=torch.long, device=dev)
+    for level in range(nbits + 1):
+        weights = hist.reshape(H, 1 << level, -1).sum(-1)
+        need += (weights >= kth).sum(1)
+    order = torch.argsort(need)
+    t_exact, budgets = 0.0, []
+    for g in range(0, H, GREEDY_GROUP):
+        sel = order[g:g + GREEDY_GROUP]
+        budget = int(need[sel].max())
+        (esyms, ecnts), t = timed(lambda: eng.range_topk_greedy(
+            hl_t[sel], hh_t[sel], TOPK, budget=budget))
+        t_exact += t
+        budgets.append(budget)
+        got = torch.gather(hist[sel], 1, esyms.long().clamp(min=0))
+        if not (torch.equal(ecnts, tcnts[sel])
+                and bool(((got == ecnts) | (esyms < 0)).all())):
+            fail(f"analytics: greedy top-k at a budget of {budget} pops "
+                 f"differs from the exact top-k")
+    ops["topk_greedy_exact_budget"] = {"s": t_exact, "queries": H,
+                                       "q_per_s": H / t_exact,
+                                       "budgets": budgets}
+    print(f"analytics: greedy top-k (default budget, pruned) of {Q} "
+          f"queries; on the first {H} its counts are a prefix of the exact "
+          f"top-k's, each symbol carrying its count, and {short} stop short "
+          f"of k; with budgets covering every node of weight >= the k-th "
+          f"count ({budgets} pops for groups of {GREEDY_GROUP}) all {H} "
+          f"equal the exact top-k ({t_exact:.6f} s)")
+    report["greedy_short_at_default_budget"] = short
+    del carried, got
+
+    # ---- 9.1 degraded mode ----------------------------------------------
+    deg = eng.drop_shards(list(INDEX_DROP))
+    cov, t = timed(lambda: deg.coverage(lo_t, hi_t))
+    op_line("coverage", t, Q)
+    glo, ghi = np.clip(lo, 0, n), np.clip(hi, 0, n)
+    total = np.maximum(ghi - glo, 0)
+    covered = total.copy()
+    for s in INDEX_DROP:
+        covered -= np.maximum(np.minimum(ghi, (s + 1) * size)
+                              - np.maximum(glo, s * size), 0)
+    want_cov = np.where(total > 0, covered.astype(np.float32)
+                        / np.maximum(total, 1).astype(np.float32),
+                        np.float32(1))
+    if not np.array_equal(cov.cpu().numpy(), want_cov):
+        fail("analytics degraded: coverage differs from numpy's")
+    dcnt, t = timed(lambda: deg.range_count(lo_t, hi_t, s0_t, s1_t))
+    op_line("degraded_count", t, Q)
+    dq, t = timed(lambda: deg.range_quantile(lo_t, hi_t, k_t))
+    op_line("degraded_quantile", t, Q)
+    avail = np.ones(S, bool)
+    avail[list(INDEX_DROP)] = False
+    dc_np, dq_np = dcnt.cpu().numpy(), dq.cpu().numpy()
+    for i in range(NUM_NUMPY_CHECKS):
+        parts = [toks64[max(lo[i], s * size):min(hi[i], (s + 1) * size)]
+                 for s in range(S) if avail[s]]
+        sl = np.concatenate(parts)
+        want_q = (int(np.partition(sl, min(k[i], len(sl) - 1))[
+            min(k[i], len(sl) - 1)]) if len(sl) else -1)
+        want_c = int(((sl >= sym_lo[i]) & (sl < sym_hi[i])).sum())
+        if dq_np[i] != want_q or dc_np[i] != want_c:
+            fail(f"analytics degraded: query {i}: quantile {dq_np[i]} "
+                 f"(survivors {want_q}), count {dc_np[i]} ({want_c})")
+    (clow, cup, ccov), t = timed(lambda: deg.range_count_bounds(
+        lo_t, hi_t, s0_t, s1_t))
+    op_line("count_bounds", t, Q)
+    (dlow, dunc, _), t = timed(lambda: deg.range_histogram_bounds(hl_t,
+                                                                  hh_t))
+    op_line("degraded_histogram_bounds", t, H)
+    if not (torch.equal(clow, dcnt) and bool(((clow <= cnt)
+                                              & (cnt <= cup)).all())
+            and torch.equal(ccov, cov)
+            and bool(((dlow <= hist) & (hist <= dlow + dunc[:, None])
+                      ).all())):
+        fail("analytics degraded: the bounds do not bracket the full "
+             "answers")
+    print(f"analytics degraded mode: shards {list(INDEX_DROP)} dropped; "
+          f"coverage of {Q} queries equals numpy's; {NUM_NUMPY_CHECKS} "
+          f"counts and masked quantiles equal the survivors'; count bounds "
+          f"bracket all {Q} counts, histogram bounds all {H} histograms")
+    del deg, hist, hlow, dlow, dq, dcnt
+    torch.cuda.empty_cache()
+
+    # ---- 9.1 add_shards: the first S - K shards and K built alone -------
+    K = ADD_SHARDS
+    head = ShardedAnalytics(shards=tree_map(lambda x: x[:S - K], eng.shards),
+                            n=(S - K) * size, sigma=eng.sigma,
+                            shard_bits=eng.shard_bits)
+    tail, t_tail = timed(lambda: build_sharded_analytics(
+        toks[(S - K) * size:], eng.sigma, shard_bits=eng.shard_bits,
+        tau=TAU, sample_rate=SAMPLE_RATE, device=dev))
+    grown, t_add = timed(lambda: head.add_shards(tail.shards, n - (S - K)
+                                                 * size))
+    same_leaves(grown.shards, eng.shards, "add_shards against the engine")
+    if not torch.equal(grown.range_quantile(lo_t, hi_t, k_t), quant):
+        fail("add_shards: the grown engine's kernel quantiles differ from "
+             "step 4's")
+    print(f"analytics add_shards: {K} shards built alone in {t_tail:.6f} s, "
+          f"appended to {S - K} in {t_add:.6f} s; equal to the engine leaf "
+          f"for leaf, kernel quantiles equal step 4's")
+    del head, tail, grown
+    report["add_shards"] = {"shards": K, "build_s": t_tail, "append_s": t_add}
+    report["engine_launches"] = take_launches()
+
+    # ---- 9.2 the store ----------------------------------------------------
+    corpus, t_store = timed(lambda: build_compressed_corpus(
+        toks, eng.sigma, shard_bits=eng.shard_bits, tau=TAU,
+        sample_rate=SAMPLE_RATE, device=dev))
+    decode_t = 0.0
+    for start in (12_345, 5 * size - 1000, (S // 2) * size - 30_000,
+                  n - DECODE_LEN):
+        start = min(start, n - DECODE_LEN)
+        got, t = timed(lambda: corpus.decode_slice(start, DECODE_LEN))
+        decode_t += t
+        if not np.array_equal(got.cpu().numpy(),
+                              toks[start:start + DECODE_LEN]):
+            fail(f"store: decode_slice at {start} differs from the tokens")
+    if not np.array_equal(token_histogram(corpus).cpu().numpy(),
+                          np.bincount(toks64, minlength=eng.sigma)):
+        fail("store: token_histogram differs from numpy's bincount")
+    if corpus.raw_bits_per_token() != 32:
+        fail("store: raw_bits_per_token is not 32")
+    c_lo, c_hi = lo_t[:NUM_NUMPY_CHECKS], hi_t[:NUM_NUMPY_CHECKS]
+    if not (torch.equal(corpus.range_histogram(c_lo, c_hi),
+                        eng.range_histogram(c_lo, c_hi))
+            and all(torch.equal(a, b) for a, b in zip(
+                corpus.range_topk(c_lo, c_hi, TOPK),
+                (tsyms[:NUM_NUMPY_CHECKS], tcnts[:NUM_NUMPY_CHECKS])))
+            and torch.equal(corpus.range_distinct(c_lo, c_hi),
+                            distinct[:NUM_NUMPY_CHECKS])):
+        fail("store: range_topk, range_distinct or range_histogram differ "
+             "from the engine's")
+    print(f"store: built in {t_store:.6f} s; decode_slice of {DECODE_LEN} "
+          f"tokens at 4 starts (two across a shard boundary) in "
+          f"{decode_t * 1e3:.6f} ms equal the tokens; token_histogram "
+          f"equals numpy; 32 raw bits a token; top-k, distinct and "
+          f"histogram of {NUM_NUMPY_CHECKS} queries equal the engine's")
+    report["store"] = {"build_s": t_store, "decode_slice_s": decode_t,
+                       "decode_tokens": 4 * DECODE_LEN}
+    del corpus
+    torch.cuda.empty_cache()
+
+    # ---- 9.3 snapshots ----------------------------------------------------
+    rank_w = eng.shards.bitvectors.rank.words.shape[-1]
+    rank_sb = eng.shards.bitvectors.rank.superblock.shape[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        step_dir, t_save = timed(lambda: save_analytics(
+            eng, tmp, extra_meta={"corpus_seed": 0}))
+        npz = step_dir / "arrays.npz"
+        nbytes = npz.stat().st_size + (step_dir / "meta.json").stat().st_size
+        back, t_load = timed(lambda: load_analytics(tmp, device=dev))
+        same_leaves(back.shards, eng.shards, "snapshot round trip")
+        if not torch.equal(back.range_quantile(lo_t, hi_t, k_t), quant):
+            fail("snapshot: the restored engine's kernel quantiles differ "
+                 "from step 4's")
+        del back
+        take_launches()
+
+        def flip(key: str, index) -> None:
+            with np.load(npz) as z:
+                arrays = {name: z[name] for name in z.files}
+            arrays[key][index] ^= 1 << 5
+            np.savez(npz, **arrays)
+
+        sb_entry = (7, 4, rank_sb // 2)
+        flip(".bitvectors/.rank/.superblock", sb_entry)
+        healed, t_heal = timed(lambda: load_analytics(tmp, device=dev))
+        heal_launches = take_launches()
+        if heal_launches["rank_build_levels"] != 1:
+            fail(f"snapshot: the derived-leaf repair launched "
+                 f"rank_build_levels {heal_launches['rank_build_levels']} "
+                 f"times, want 1 (all {S * nbits} rows at once)")
+        same_leaves(healed.shards, eng.shards, "snapshot superblock repair")
+        if not torch.equal(healed.range_quantile(lo_t, hi_t, k_t), quant):
+            fail("snapshot: the repaired engine's kernel quantiles differ")
+        del healed
+        flip(".bitvectors/.rank/.superblock", sb_entry)
+        flip(".bitvectors/.rank/.words", (S - 3, 11, rank_w // 3))
+        try:
+            load_analytics(tmp, device=dev)
+        except IntegrityError as err:
+            if err.bad_keys != [".bitvectors/.rank/.words"]:
+                fail(f"snapshot: the primary flip names {err.bad_keys}")
+        else:
+            fail("snapshot: a flipped bitmap bit loaded without an "
+                 "IntegrityError")
+    print(f"snapshot: saved {nbytes} B in {t_save:.6f} s, loaded in "
+          f"{t_load:.6f} s, equal leaf for leaf, kernel quantiles equal "
+          f"step 4's; a superblock bit flipped in the file repaired in "
+          f"{t_heal:.6f} s with 1 rank_build_levels launch, bit-identical; "
+          f"a bitmap bit flipped raises IntegrityError naming "
+          f".bitvectors/.rank/.words")
+    report["snapshot"] = {"bytes": nbytes, "save_s": t_save,
+                          "load_s": t_load, "repair_load_s": t_heal,
+                          "repair_launches": heal_launches}
+
+    # ---- 9.4 verify and repair --------------------------------------------
+    rep, t_verify = timed(lambda: verify_analytics(eng))
+    if not rep.ok:
+        fail(f"verify: the engine is not clean: {rep.summary()}")
+    rank = eng.shards.bitvectors.rank
+    block = rank.block.clone()
+    block[5, 6, block.shape[-1] // 2] += 3
+    bad = dataclasses.replace(eng, quantile=None, shards=dataclasses.replace(
+        eng.shards, bitvectors=dataclasses.replace(
+            eng.shards.bitvectors, rank=dataclasses.replace(rank,
+                                                            block=block))))
+    rep = verify_analytics(bad)
+    if [v.structure for v in rep.violations] != [
+            "shard5/level6.rank.block"] or not rep.repairable:
+        fail(f"verify: the changed block is not named: {rep.summary()}")
+    take_launches()
+    fixed, t_repair, peak_repair = peak_timed(lambda: repair_analytics(bad))
+    repair_launches = take_launches()
+    if repair_launches["rank_build_levels"] != 1:
+        fail(f"repair_analytics launched rank_build_levels "
+             f"{repair_launches['rank_build_levels']} times, want 1")
+    same_leaves(fixed.shards, eng.shards, "repair_analytics")
+    got = fixed.range_quantile(lo_t, hi_t, k_t)
+    if build.launches["wm_quantile_sharded"] != 1 or not (
+            torch.equal(got, sharded_range_quantile(
+                fixed.shards, eng.shard_bits, n, lo_t, hi_t, k_t))
+            and torch.equal(got, quant)):
+        fail("repair_analytics: the repaired engine's kernel quantiles "
+             "differ from the plain descent")
+    del bad, fixed, block
+    print(f"verify: the engine is clean ({t_verify:.6f} s on the host); a "
+          f"block entry of shard 5 changed on the card is named, "
+          f"repaired in {t_repair:.6f} s (peak rise {peak_repair} B, 1 "
+          f"rank_build_levels launch) leaf for leaf; the repaired engine's "
+          f"kernel quantiles equal the plain descent")
+    rep, t_iverify = timed(lambda: verify_sharded_index(idx))
+    if not rep.ok:
+        fail(f"verify: the index is not clean: {rep.summary()}")
+    index_repairs = {}
+    for deep in (False, True):
+        take_launches()
+        fixed, t, peak = peak_timed(lambda: repair_sharded_index(idx,
+                                                                 deep=deep))
+        got = take_launches()
+        same_leaves(fixed.shards, idx.shards,
+                    f"repair_sharded_index(deep={deep})")
+        if got["rank_build_levels"] < 1 or (deep and got["bitpack"] < 1):
+            fail(f"repair_sharded_index(deep={deep}) launched {got}")
+        index_repairs["deep" if deep else "shallow"] = {
+            "s": t, "peak_rise_bytes": peak, "launches": got}
+        print(f"index repair (deep={deep}): {t:.6f} s, peak rise {peak} B, "
+              f"launches {json.dumps(got)}; equal to the index leaf for "
+              f"leaf")
+        del fixed
+    print(f"verify: the index is clean ({t_iverify:.6f} s)")
+    report.update({
+        "tokens": n, "shards": S, "queries": Q, "histogram_queries": H,
+        "topk": TOPK, "ops": ops, "verify_engine_s": t_verify,
+        "repair_engine_s": t_repair, "repair_engine_peak_rise_bytes":
+        peak_repair, "repair_engine_launches": repair_launches,
+        "verify_index_s": t_iverify, "index_repairs": index_repairs})
+    take_launches()
+    launches = step_launches
+    print(f"analytics step launches: {json.dumps(launches)}")
+    missing = [name for name in ANALYTICS_KERNELS if launches[name] <= 0]
+    if missing:
+        fail(f"kernels not launched in step 9: {missing}")
+    report["launches"] = {name: v for name, v in launches.items() if v}
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"analytics: step 9 took {report['phase_s']:.3f} s on the host "
+          f"clock")
     return report, launches
+
+
+def topk_of(hist: torch.Tensor, k: int):
+    """(syms, counts) of the k largest of each row, ties to the smaller
+    symbol: numpy's stable argsort on the host, sharing no code with the
+    port's top-k."""
+    h = hist.cpu().numpy()
+    order = np.argsort(-h.astype(np.int64), axis=1, kind="stable")[:, :k]
+    cnts = np.take_along_axis(h, order, 1)
+    syms = np.where(cnts > 0, order, -1)
+    return (torch.from_numpy(syms.astype(np.int32)).to(hist.device),
+            torch.from_numpy(cnts.astype(np.int32)).to(hist.device))
 
 
 def main() -> None:
@@ -1567,18 +2023,27 @@ def main() -> None:
            TL * TW * 8, path="tree", path_launches=tree_launches)
 
     # ---- 7. every other construction at full width ---------------------
-    del eng, shards_in
+    # (the engine of step 4 stays on the card for step 9)
+    del shards_in
     construction, phase_launches = construction_phase(
         dev, toks, seq, wt, (pos_t, sym_t, end_t, kk_t), (acc, rnk, sel))
 
     # ---- 8. the full-text index at full width --------------------------
-    index, index_launches = index_phase(dev, toks, seq, report)
+    index, index_launches, idx = index_phase(dev, toks, seq, report)
+
+    # ---- 9. the rest of the analytics engine, the store, snapshots,
+    #         verify and repair at full width -------------------------------
+    analytics, analytics_launches = analytics_phase(
+        dev, toks, eng, idx, (lo, hi, k, sym_lo, sym_hi), quant, cnt)
+    del eng, idx
     for row in kernels:
         row["construction_launches"] = phase_launches[row["name"]]
         row["index_launches"] = index_launches[row["name"]]
+        row["analytics_launches"] = analytics_launches[row["name"]]
 
     print(json.dumps({"construction": construction}))
     print(json.dumps({"index": index}))
+    print(json.dumps({"analytics": analytics}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": kernels}))
     if any(row["check"] != "pass" for row in kernels):

@@ -1,19 +1,29 @@
 """Sharded batched analytics over stacked wavelet-matrix shards (port of
-the quantile and count half of ``repro.analytics.engine``).
+``repro.analytics.engine``).
 
 Per-shard matrices with one geometry stack leaf-wise into one
 ``WaveletMatrix`` with a leading (S,) axis; a query batch fans across all
 shards as per-shard query rows (S, Q). Cross-shard reductions stay exact:
-counts sum, and the range quantile is the count-then-refine descent — the
-zero counts of every shard's interval are summed before each branch, so
-all shards descend in lockstep on the global k.
 
-``available`` (an (S,) bool mask, or None) empties the local ranges of
-unavailable shards; the quantile then takes the plain descent, as the
-reference sends degraded mode to XLA.
+* ``count``     — per-shard counts sum;
+* ``quantile``  — count-then-refine: the zero counts of every shard's
+                  interval are summed before each branch, so all shards
+                  descend in lockstep on the global k (the
+                  ``wm_quantile_sharded`` kernel, or its plain descent);
+* ``top-k``     — exact from the summed histograms, or one greedy frontier
+                  whose nodes carry a per-shard interval vector;
+* ``histogram``/``distinct`` — the per-shard histograms sum (a symbol in
+                  several shards is counted once by ``distinct``).
+
+Degraded mode: ``available`` (an (S,) bool mask, or None) empties the
+local ranges of unavailable shards, so every op serves the surviving data;
+the quantile then takes the plain descent, as the reference sends degraded
+mode to XLA. ``coverage`` reports the covered fraction of each query and
+the ``*_bounds`` forms bracket the full-corpus answer.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -22,7 +32,7 @@ from repro_torch.core.wavelet_matrix import (WaveletMatrix, wm_child_interval,
                                              wm_interval_zeros)
 from repro_torch.kernels.wm_quantile import (QuantileOperands,
                                              wm_quantile_sharded)
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 from . import range_ops
 
@@ -55,37 +65,63 @@ def _num_shards(shards: WaveletMatrix) -> int:
     return shards.zeros.shape[0]
 
 
+def _ranges(shards: WaveletMatrix, shard_bits: int, n: int, lo, hi,
+            available):
+    """Masked per-shard local ranges (S, *Q) of global [lo, hi)."""
+    return mask_ranges(*local_ranges(shard_bits, _num_shards(shards), n, lo,
+                                     hi, shards.zeros.device), available)
+
+
+def _covered(shard_bits: int, num_shards: int, n: int, lo, hi, available,
+             device):
+    """(total, covered, coverage) of each query: its positions, those on
+    available shards, and their float32 ratio (1.0 for an empty range)."""
+    los, his = local_ranges(shard_bits, num_shards, n, lo, hi, device)
+    total = (his - los).sum(0)
+    covered = (mask_ranges(los, his, available)[1] - los).sum(0)
+    cov = torch.where(total > 0, covered.to(torch.float32)
+                      / total.clamp(min=1).to(torch.float32), 1.0)
+    return total, covered, cov
+
+
 def sharded_range_count(shards: WaveletMatrix, shard_bits: int, n: int, lo,
                         hi, sym_lo, sym_hi, available=None) -> torch.Tensor:
     """Orthogonal range count over the whole corpus: per-shard counts sum.
     int32."""
-    los, his = mask_ranges(*local_ranges(shard_bits, _num_shards(shards), n,
-                                         lo, hi, shards.zeros.device),
-                           available)
+    los, his = _ranges(shards, shard_bits, n, lo, hi, available)
     per = range_ops.range_count(shards, los, his, sym_lo, sym_hi)
     return per.long().sum(0).to(torch.int32)
+
+
+def sharded_coverage(shard_bits: int, num_shards: int, n: int, lo, hi,
+                     available, device=None) -> torch.Tensor:
+    """Fraction of [lo, hi) positions living on available shards, float32
+    (1.0 for fully covered or empty queries)."""
+    return _covered(shard_bits, num_shards, n, lo, hi, available,
+                    device)[2]
+
+
+def sharded_range_count_bounds(shards: WaveletMatrix, shard_bits: int,
+                               n: int, lo, hi, sym_lo, sym_hi,
+                               available=None):
+    """(lower, upper, coverage) bracketing the full-corpus count: ``lower``
+    counts the surviving shards, and every uncovered position could match,
+    so ``upper = lower + uncovered``. Exact (lower == upper) with every
+    shard available."""
+    lower = sharded_range_count(shards, shard_bits, n, lo, hi, sym_lo,
+                                sym_hi, available)
+    total, covered, cov = _covered(shard_bits, _num_shards(shards), n, lo,
+                                   hi, available, shards.zeros.device)
+    return lower, (lower + (total - covered)).to(torch.int32), cov
 
 
 def sharded_range_quantile(shards: WaveletMatrix, shard_bits: int, n: int,
                            lo, hi, k, available=None) -> torch.Tensor:
     """Global k-th smallest symbol in [lo, hi) by the count-then-refine
-    descent in plain torch: O(S·logσ) rank probes per query. int32, -1 if
-    the (covered) range is empty."""
-    los, his = mask_ranges(*local_ranges(shard_bits, _num_shards(shards), n,
-                                         lo, hi, shards.zeros.device),
-                           available)
-    total = (his - los).sum(0)
-    k = torch.as_tensor(k, device=los.device).long()
-    k = torch.minimum(k.clamp(min=0), (total - 1).clamp(min=0))
-    sym = torch.zeros_like(k)
-    for l in range(shards.nbits):
-        lo0, hi0 = wm_interval_zeros(shards, l, los, his)
-        z = (hi0 - lo0).sum(0)
-        bit = (k >= z).long()
-        k = torch.where(bit == 1, k - z, k)
-        sym = (sym << 1) | bit
-        los, his = wm_child_interval(shards, l, los, his, bit, lo0, hi0)
-    return torch.where(total <= 0, -1, sym).to(torch.int32)
+    descent in plain torch (the bracket at full depth): O(S·logσ) rank
+    probes per query. int32, -1 if the (covered) range is empty."""
+    return sharded_range_quantile_bracket(shards, shard_bits, n, lo, hi, k,
+                                          shards.nbits, available)[0]
 
 
 def sharded_range_quantile_fused(shards: WaveletMatrix, shard_bits: int,
@@ -103,11 +139,110 @@ def sharded_range_quantile_fused(shards: WaveletMatrix, shard_bits: int,
     return ops.wm_quantile_sharded_batch(shards, shard_bits, n, lo, hi, k)
 
 
+def sharded_range_quantile_bracket(shards: WaveletMatrix, shard_bits: int,
+                                   n: int, lo, hi, k, levels: int,
+                                   available=None):
+    """The count-then-refine descent stopped after the top ``levels`` bit
+    levels: (sym_lo, sym_hi), the half-open symbol bracket of width
+    2^(nbits - levels) that holds the exact k-th smallest (``levels =
+    nbits`` gives [q, q + 1)). (-1, -1) for an empty or uncovered range.
+    int32."""
+    nbits = shards.nbits
+    levels = max(0, min(int(levels), nbits))
+    los, his = _ranges(shards, shard_bits, n, lo, hi, available)
+    total = (his - los).sum(0)
+    k = torch.as_tensor(k, device=los.device).long()
+    k = torch.minimum(k.clamp(min=0), (total - 1).clamp(min=0))
+    sym = torch.zeros_like(k)
+    for l in range(levels):
+        lo0, hi0 = wm_interval_zeros(shards, l, los, his)
+        z = (hi0 - lo0).sum(0)
+        bit = (k >= z).long()
+        k = torch.where(bit == 1, k - z, k)
+        sym = (sym << 1) | bit
+        los, his = wm_child_interval(shards, l, los, his, bit, lo0, hi0)
+    width = nbits - levels
+    empty = total <= 0
+    return (torch.where(empty, -1, sym << width).to(torch.int32),
+            torch.where(empty, -1, (sym + 1) << width).to(torch.int32))
+
+
+def _per_query(fn, lo, hi):
+    """``fn`` over (Q,) queries of a scalar or batched ``lo``/``hi``, its
+    outputs reshaped back to the queries' shape (plus fn's own axes)."""
+    lo = torch.as_tensor(lo)
+    lo, hi = torch.broadcast_tensors(lo, torch.as_tensor(hi,
+                                                         device=lo.device))
+    out = fn(lo.reshape(-1), hi.reshape(-1))
+    if isinstance(out, tuple):
+        return tuple(x.reshape(lo.shape + x.shape[1:]) for x in out)
+    return out.reshape(lo.shape + out.shape[1:])
+
+
+def sharded_range_histogram(shards: WaveletMatrix, shard_bits: int, n: int,
+                            lo, hi, available=None) -> torch.Tensor:
+    """Global per-symbol counts of [lo, hi): the per-shard histograms
+    summed, (*Q, 2^nbits) int32 (the sparse breadth-first descent of
+    ``range_ops.histogram_descent``, over every shard at once)."""
+    def hist(lo_q, hi_q):
+        los, his = _ranges(shards, shard_bits, n, lo_q, hi_q, available)
+        return range_ops.histogram_descent(range_ops.level_rows(shards),
+                                           shards.nbits, los, his)
+    return _per_query(hist, lo, hi)
+
+
+def sharded_range_histogram_bounds(shards: WaveletMatrix, shard_bits: int,
+                                   n: int, lo, hi, available=None):
+    """(hist_lower, uncovered, coverage): every symbol's true count lies in
+    [hist_lower[c], hist_lower[c] + uncovered]."""
+    hist = sharded_range_histogram(shards, shard_bits, n, lo, hi, available)
+    total, covered, cov = _covered(shard_bits, _num_shards(shards), n, lo,
+                                   hi, available, shards.zeros.device)
+    return hist, (total - covered).to(torch.int32), cov
+
+
+def sharded_range_topk(shards: WaveletMatrix, shard_bits: int, n: int, lo,
+                       hi, k: int, available=None):
+    """Exact global top-k: the summed histogram's k largest, (*Q, k) syms
+    and counts by descending count, (-1, 0) padded."""
+    hist = sharded_range_histogram(shards, shard_bits, n, lo, hi, available)
+    return range_ops.topk_from_histogram(hist, k)
+
+
+def sharded_range_topk_greedy(shards: WaveletMatrix, shard_bits: int,
+                              n: int, lo, hi, k: int,
+                              budget: int | None = None, prune: bool = True,
+                              available=None):
+    """Greedy global top-k: one frontier a query whose nodes carry a
+    per-shard interval vector (weight = summed width), not a merge of
+    per-shard lists; the budget and ``prune`` of
+    ``range_ops.range_topk_greedy``. (*Q, k) syms and counts."""
+    def greedy(lo_q, hi_q):
+        los, his = _ranges(shards, shard_bits, n, lo_q, hi_q, available)
+        return range_ops.topk_frontier(
+            range_ops.level_rows(shards), shards.nbits, los.T, his.T, k,
+            budget, prune)[:2]
+    return _per_query(greedy, lo, hi)
+
+
+def sharded_range_distinct(shards: WaveletMatrix, shard_bits: int, n: int,
+                           lo, hi, available=None) -> torch.Tensor:
+    """# of distinct symbols in global [lo, hi) (the union over the
+    shards). int32."""
+    hist = sharded_range_histogram(shards, shard_bits, n, lo, hi, available)
+    return (hist > 0).sum(-1).to(torch.int32)
+
+
 @dataclass(frozen=True)
 class ShardedAnalytics:
     """Stacked per-shard wavelet matrices + corpus geometry: the serving
     handle. Build once (or adopt a ``CompressedCorpus``'s shards), then
-    serve batched range queries."""
+    serve batched range queries.
+
+    Every new engine whose ``shards`` differ from its source's (``add_shards``,
+    a repair, a restore) is made with ``quantile=None``, so the kernel's
+    operands are taken from the new directories; availability changes keep
+    the shards and the operands."""
     shards: WaveletMatrix            # every leaf has a leading (S,) axis
     n: int
     sigma: int
@@ -132,6 +267,45 @@ class ShardedAnalytics:
     def shard_size(self) -> int:
         return 1 << self.shard_bits
 
+    @property
+    def degraded(self) -> bool:
+        return self.available is not None
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards.zeros.device
+
+    # ---- availability management ---------------------------------------
+    def with_availability(self, available) -> "ShardedAnalytics":
+        """Engine serving only the shards where ``available`` is True
+        (``None`` restores full availability)."""
+        if available is not None:
+            available = torch.as_tensor(available, dtype=torch.bool,
+                                        device=self.device)
+            if available.shape != (self.num_shards,):
+                raise ValueError(
+                    f"availability mask shape {tuple(available.shape)} != "
+                    f"({self.num_shards},)")
+        return dataclasses.replace(self, available=available)
+
+    def drop_shards(self, shard_ids) -> "ShardedAnalytics":
+        """Mark the given shard indices unavailable, on top of the current
+        mask: the degraded-serving entry point for lost shards."""
+        mask = (torch.ones(self.num_shards, dtype=torch.bool,
+                           device=self.device)
+                if self.available is None else self.available.clone())
+        mask[torch.as_tensor(shard_ids, device=self.device).long()] = False
+        return dataclasses.replace(self, available=mask)
+
+    def coverage(self, lo, hi) -> torch.Tensor:
+        """Fraction of [lo, hi) positions on available shards (1.0 when the
+        engine is fully available). float32."""
+        return sharded_coverage(self.shard_bits, self.num_shards, self.n, lo,
+                                hi, self.available, self.device)
+
+    def shard(self, s: int) -> WaveletMatrix:
+        return tree_map(lambda x: x[s], self.shards)
+
     def bits_per_token(self) -> float:
         total = sum(x.numel() * x.element_size() * 8
                     for x in tree_leaves(self.shards))
@@ -143,6 +317,48 @@ class ShardedAnalytics:
         return cls(shards=corpus.shards, n=corpus.n, sigma=corpus.sigma,
                    shard_bits=corpus.shard_bits)
 
+    # ---- incremental ingest ---------------------------------------------
+    def add_shards(self, new_shards: WaveletMatrix, added_tokens: int,
+                   new_available=None) -> "ShardedAnalytics":
+        """Next-generation engine with ``new_shards`` (a stacked (K,)-leaf
+        ``WaveletMatrix`` of this geometry) appended. ``added_tokens`` is
+        their true token count (only the last new shard may be partial;
+        this corpus must end on a shard boundary), ``new_available`` masks
+        freshly quarantined shards; the combined mask collapses to None
+        when every shard is available. The kernel's operands are taken
+        anew from the merged directories."""
+        if self.n != self.num_shards << self.shard_bits:
+            raise ValueError(
+                f"cannot append to a corpus with a partial tail shard "
+                f"(n={self.n}, {self.num_shards} shards of "
+                f"{self.shard_size})")
+        K = _num_shards(new_shards)
+        added_tokens = int(added_tokens)
+        if not ((K - 1) << self.shard_bits) < added_tokens \
+                <= (K << self.shard_bits):
+            raise ValueError(
+                f"added_tokens={added_tokens} does not fill {K} shard(s) "
+                f"of {self.shard_size}")
+        merged = tree_map(lambda a, b: torch.cat([a, b], 0), self.shards,
+                          new_shards)
+        if self.available is None and new_available is None:
+            mask = None
+        else:
+            old = (torch.ones(self.num_shards, dtype=torch.bool,
+                              device=self.device)
+                   if self.available is None else self.available)
+            new = (torch.ones(K, dtype=torch.bool, device=self.device)
+                   if new_available is None
+                   else torch.as_tensor(new_available, dtype=torch.bool,
+                                        device=self.device).reshape(K))
+            mask = torch.cat([old, new])
+            if bool(mask.all()):
+                mask = None
+        return dataclasses.replace(self, shards=merged,
+                                   n=self.n + added_tokens, available=mask,
+                                   quantile=None)
+
+    # ---- batched queries ------------------------------------------------
     def range_quantile(self, lo, hi, k) -> torch.Tensor:
         """Global k-th smallest in [lo, hi) for (Q,) batches: the
         ``wm_quantile_sharded`` kernel on a CUDA engine, its plain version on
@@ -152,9 +368,46 @@ class ShardedAnalytics:
                                           self.n, lo, hi, k, self.available)
         return wm_quantile_sharded(self.quantile, lo, hi, k)
 
+    def range_quantile_bracket(self, lo, hi, k, levels: int):
+        """(sym_lo, sym_hi) bracketing the exact k-th smallest after a
+        descent cut to ``levels`` bit levels."""
+        return sharded_range_quantile_bracket(self.shards, self.shard_bits,
+                                              self.n, lo, hi, k, levels,
+                                              self.available)
+
     def range_count(self, lo, hi, sym_lo, sym_hi) -> torch.Tensor:
         return sharded_range_count(self.shards, self.shard_bits, self.n, lo,
                                    hi, sym_lo, sym_hi, self.available)
+
+    def range_count_bounds(self, lo, hi, sym_lo, sym_hi):
+        """(lower, upper, coverage) bracketing the full-corpus count."""
+        return sharded_range_count_bounds(self.shards, self.shard_bits,
+                                          self.n, lo, hi, sym_lo, sym_hi,
+                                          self.available)
+
+    def range_topk(self, lo, hi, k: int):
+        return sharded_range_topk(self.shards, self.shard_bits, self.n, lo,
+                                  hi, k, self.available)
+
+    def range_topk_greedy(self, lo, hi, k: int, budget: int | None = None,
+                          prune: bool = True):
+        return sharded_range_topk_greedy(self.shards, self.shard_bits,
+                                         self.n, lo, hi, k, budget, prune,
+                                         self.available)
+
+    def range_distinct(self, lo, hi) -> torch.Tensor:
+        return sharded_range_distinct(self.shards, self.shard_bits, self.n,
+                                      lo, hi, self.available)
+
+    def range_histogram(self, lo, hi) -> torch.Tensor:
+        return sharded_range_histogram(self.shards, self.shard_bits, self.n,
+                                       lo, hi, self.available)
+
+    def range_histogram_bounds(self, lo, hi):
+        """(hist_lower, uncovered, coverage): true per-symbol counts lie in
+        [hist_lower[c], hist_lower[c] + uncovered]."""
+        return sharded_range_histogram_bounds(self.shards, self.shard_bits,
+                                              self.n, lo, hi, self.available)
 
 
 def build_sharded_analytics(tokens, sigma: int, *, shard_bits: int = 16,

@@ -110,6 +110,33 @@ def rank1(rs: BinaryRank, i: torch.Tensor) -> torch.Tensor:
     return base + cnt.sum(-1)
 
 
+def rank1_rows(rs: BinaryRank, row: torch.Tensor,
+               i: torch.Tensor) -> torch.Tensor:
+    """:func:`rank1` of lanes that each name their own row: ``rs`` holds
+    (R, X) leaves, lane j probes row ``row[j]`` at position ``i[j]`` (any
+    shapes that broadcast). The gathers read the flat leaves, so ragged
+    lanes over many rows (a shard and a level each) cost no copy.
+    ``int64``."""
+    row, i = torch.broadcast_tensors(row.long(), i.long())
+    W, nsb, nblk = (rs.words.shape[-1], rs.superblock.shape[-1],
+                    rs.block.shape[-1])
+    w = i // bitops.WORD_BITS
+    bc = (w // BLOCK_WORDS).clamp(max=nblk - 1)
+    base = (rs.superblock.reshape(-1)[row * nsb + bc // _BLOCKS_PER_SB].long()
+            + rs.block.reshape(-1)[row * nblk + bc].long())
+    wpos = bc[..., None] * BLOCK_WORDS + torch.arange(BLOCK_WORDS,
+                                                      device=i.device)
+    words4 = bitops.u32(rs.words.reshape(-1)[
+        row[..., None] * W + wpos.clamp(max=W - 1)])
+    words4 = torch.where(wpos < W, words4, 0)
+    off = (i - w * bitops.WORD_BITS)[..., None]
+    w = w[..., None]
+    cnt = torch.where(wpos < w, bitops.popcount(words4),
+                      torch.where(wpos == w,
+                                  bitops.rank1_word(words4, off), 0))
+    return base + cnt.sum(-1)
+
+
 def rank_at_block(rs: BinaryRank, b) -> torch.Tensor:
     """# of 1 bits strictly before block b, b ≤ num_blocks (one past the
     end adds the last block's popcount). ``int64``."""

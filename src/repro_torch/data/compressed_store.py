@@ -16,10 +16,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.analytics.engine import (sharded_range_count,
-                                          sharded_range_quantile)
+                                          sharded_range_distinct,
+                                          sharded_range_histogram,
+                                          sharded_range_quantile,
+                                          sharded_range_topk)
 from repro_torch.core.wavelet_matrix import (WaveletMatrix,
                                              build_wavelet_matrix,
-                                             wm_access, wm_rank, wm_select)
+                                             num_levels, wm_access, wm_rank,
+                                             wm_select)
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -41,6 +45,10 @@ class CompressedCorpus:
     def num_shards(self) -> int:
         return self.shard_counts.shape[0] - 1
 
+    @property
+    def nbits(self) -> int:
+        return num_levels(self.sigma)
+
     def shard(self, s: int) -> WaveletMatrix:
         return tree_map(lambda x: x[s], self.shards)
 
@@ -48,6 +56,9 @@ class CompressedCorpus:
         total = sum(x.numel() * x.element_size() * 8
                     for x in tree_leaves(self.shards))
         return total / self.n
+
+    def raw_bits_per_token(self) -> int:
+        return 32
 
     def _arg(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.shard_counts.device).long()
@@ -71,6 +82,12 @@ class CompressedCorpus:
         out = self._per_shard(flat >> self.shard_bits,
                               lambda s, m: wm_access(self.shard(s), off[m]))
         return out.reshape(pos.shape).to(torch.int32)
+
+    def decode_slice(self, start, length: int) -> torch.Tensor:
+        """Decode the contiguous span [start, start + length) (a scalar
+        start, a static length), across shard boundaries."""
+        return self.access(self._arg(start) + torch.arange(
+            length, device=self.shard_counts.device))
 
     def count(self, token, upto=None) -> torch.Tensor:
         """# occurrences of ``token`` in [0, upto) (whole corpus if None)."""
@@ -109,6 +126,21 @@ class CompressedCorpus:
         return sharded_range_count(self.shards, self.shard_bits, self.n,
                                    lo, hi, sym_lo, sym_hi)
 
+    def range_topk(self, lo, hi, k: int):
+        """(tokens, counts) of the k most frequent tokens in [lo, hi)."""
+        return sharded_range_topk(self.shards, self.shard_bits, self.n, lo,
+                                  hi, k)
+
+    def range_distinct(self, lo, hi) -> torch.Tensor:
+        """# of distinct tokens in [lo, hi)."""
+        return sharded_range_distinct(self.shards, self.shard_bits, self.n,
+                                      lo, hi)
+
+    def range_histogram(self, lo, hi) -> torch.Tensor:
+        """Per-token counts over [lo, hi): (…, 2^nbits) int32."""
+        return sharded_range_histogram(self.shards, self.shard_bits, self.n,
+                                       lo, hi)
+
 
 def build_compressed_corpus(tokens, sigma: int, shard_bits: int = 16,
                             tau: int = 8, big_step: str = "compose",
@@ -145,3 +177,8 @@ def build_compressed_corpus(tokens, sigma: int, shard_bits: int = 16,
     cum = F.pad(torch.cumsum(hist, 0), (0, 0, 1, 0)).to(torch.int32)
     return CompressedCorpus(shards=stacked, shard_counts=cum, n=n,
                             sigma=sigma, shard_bits=shard_bits)
+
+
+def token_histogram(corpus: CompressedCorpus) -> torch.Tensor:
+    """Global symbol frequencies (σ,) int32."""
+    return corpus.shard_counts[-1]

@@ -1,14 +1,20 @@
-"""Range-analytics CLI of the port: build a sharded analytics store over the
-synthetic corpus, serve a batch of range quantiles (through the
-``wm_quantile_sharded`` kernel on a CUDA device) and range counts, and
-verify a sample of both against numpy on the raw stream.
+"""Range-analytics CLI of the port: build (or restore) a sharded analytics
+store over the synthetic corpus, serve a batch of range quantiles (through
+the ``wm_quantile_sharded`` kernel on a CUDA device), range counts, exact
+top-k and distinct counts, and verify a sample of each against numpy on the
+raw stream.
 
 PYTHONPATH=src python -m repro_torch.launch.analytics --smoke --device cpu
+PYTHONPATH=src python -m repro_torch.launch.analytics --smoke --device cpu \
+    --snapshot-dir /tmp/snap      # twice: build + save, then restore
 PYTHONPATH=src python -m repro_torch.launch.analytics --n 134217728 \
     --vocab 151936 --shard-bits 20 --queries 4096
 
-Snapshots, metrics and device traces (the reference's ``--snapshot-dir``,
-``--metrics-dir``, ``--profile-dir``) are not ported yet.
+``--snapshot-dir`` restores the engine when the snapshot's geometry and
+corpus seed match the run (derived-leaf corruption is repaired on the way),
+ignores a directory holding something else, warns and rebuilds when the
+restore fails, and saves after a build. Metrics and device traces (the
+reference's ``--metrics-dir`` and ``--profile-dir``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,7 +24,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.analytics import build_sharded_analytics
+from repro_torch.analytics import (build_sharded_analytics, load_analytics,
+                                   save_analytics, snapshot_meta)
 from repro_torch.data import make_corpus
 from repro_torch.device import resolve_device
 
@@ -49,10 +56,15 @@ def main(argv=None) -> None:
     ap.add_argument("--vocab", type=int, default=4096)
     ap.add_argument("--shard-bits", type=int, default=14)
     ap.add_argument("--queries", type=int, default=1024)
+    ap.add_argument("--topk", type=int, default=8)
     ap.add_argument("--verify", type=int, default=16,
                     help="# of queries per op to check against numpy")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--snapshot-dir", type=str, default=None,
+                    help="persisted analytics snapshot: restore from here "
+                         "when present (skipping the build), else build "
+                         "and save here")
     args = ap.parse_args(argv)
     if args.smoke:
         args.n = min(args.n, 1 << 14)
@@ -63,14 +75,48 @@ def main(argv=None) -> None:
     toks = make_corpus(args.n, args.vocab, seed=args.seed)
 
     t0 = time.perf_counter()
-    eng = build_sharded_analytics(toks, args.vocab,
-                                  shard_bits=args.shard_bits, device=dev)
+    eng, restored, save_snapshot = None, False, bool(args.snapshot_dir)
+    if args.snapshot_dir:
+        # geometry AND corpus identity must match what this run verifies
+        # against, else a stale snapshot would serve the wrong corpus
+        try:
+            meta = snapshot_meta(args.snapshot_dir)
+            got = (meta["n"], meta["sigma"], meta["shard_bits"],
+                   meta.get("corpus_seed"))
+            want = (args.n, args.vocab, args.shard_bits, args.seed)
+            if got == want:
+                # derived-leaf corruption is repaired on the way; primary
+                # corruption raises and the engine is rebuilt below
+                eng = load_analytics(args.snapshot_dir, device=dev)
+                restored = True
+            else:
+                print(f"snapshot (n, vocab, shard_bits, seed)={got} does "
+                      f"not match requested {want} — rebuilding")
+        except FileNotFoundError:
+            pass
+        except ValueError as e:
+            # someone else's checkpoint: rebuild, and never overwrite it
+            print(f"ignoring --snapshot-dir: {e}")
+            save_snapshot = False
+        except Exception as e:                      # noqa: BLE001
+            # an unusable snapshot (unrepairable corruption, torn write,
+            # missing leaves) must not take serving down: rebuild
+            print(f"WARNING: snapshot restore failed ({type(e).__name__}: "
+                  f"{e}) — rebuilding from source")
+    if not restored:
+        eng = build_sharded_analytics(toks, args.vocab,
+                                      shard_bits=args.shard_bits, device=dev)
     _sync(dev)
     t_build = time.perf_counter() - t0
-    print(f"build: {args.n} tokens, vocab {args.vocab}, {eng.num_shards} "
+    verb = "restore" if restored else "build"
+    print(f"{verb}: {args.n} tokens, vocab {args.vocab}, {eng.num_shards} "
           f"shards of {eng.shard_size} in {t_build:.3f}s "
           f"({args.n / t_build:.0f} tok/s, {eng.bits_per_token():.2f} "
           f"bits/token, device {dev})")
+    if save_snapshot and not restored:
+        path = save_analytics(eng, args.snapshot_dir,
+                              extra_meta={"corpus_seed": args.seed})
+        print(f"snapshot saved → {path}")
 
     lo, hi, k = make_queries(args.n, args.queries, args.seed + 1)
     sym_lo = (lo % args.vocab).astype(np.int32)
@@ -80,10 +126,15 @@ def main(argv=None) -> None:
     results = {}
     for name, fn in (("quantile", lambda: eng.range_quantile(lo_t, hi_t, k_t)),
                      ("count", lambda: eng.range_count(lo_t, hi_t, s0_t,
-                                                       s1_t))):
+                                                       s1_t)),
+                     ("topk", lambda: eng.range_topk(lo_t, hi_t, args.topk)),
+                     ("distinct", lambda: eng.range_distinct(lo_t, hi_t))):
         t0 = time.perf_counter()
-        results[name] = fn().cpu().numpy()
+        out = fn()
+        _sync(dev)
         t = time.perf_counter() - t0
+        results[name] = (tuple(x.cpu().numpy() for x in out)
+                         if isinstance(out, tuple) else out.cpu().numpy())
         print(f"{name}: {args.queries} queries in {t * 1e3:.3f} ms "
               f"({args.queries / t:.0f} q/s)")
 
@@ -99,9 +150,20 @@ def main(argv=None) -> None:
         if results["count"][i] != want_c:
             bad += 1
             print(f"  COUNT MISMATCH query {i}")
+        if results["distinct"][i] != len(np.unique(sl)):
+            bad += 1
+            print(f"  DISTINCT MISMATCH query {i}")
+        bc = np.bincount(sl, minlength=args.vocab)
+        want_top = np.sort(bc[bc > 0])[::-1][:args.topk]
+        syms_i, cnts_i = results["topk"][0][i], results["topk"][1][i]
+        if not (np.array_equal(cnts_i[syms_i >= 0], want_top)
+                and np.array_equal(bc[syms_i[syms_i >= 0]],
+                                   cnts_i[syms_i >= 0])):
+            bad += 1
+            print(f"  TOPK MISMATCH query {i}")
     if bad:
         raise SystemExit(f"{bad} verification failures")
-    print(f"verified {nv} samples of each op against numpy")
+    print(f"verified {nv} samples of each op against numpy ✓")
 
 
 if __name__ == "__main__":

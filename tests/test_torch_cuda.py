@@ -656,3 +656,178 @@ def test_suffix_array_on_the_card_matches_plain(n):
     assert torch.equal(got, suffix_array(t, 300, use_kernel=False,
                                          device=dev))
     assert np.array_equal(got[0].cpu().numpy(), suffix_array_naive(rows[0]))
+
+
+# --------------------------------------------------------------------------
+# the rest of the analytics engine, the store, snapshots, verify and repair
+# --------------------------------------------------------------------------
+
+_ENGINE_N, _ENGINE_SIGMA, _ENGINE_SB = 6 * 512, 300, 9     # 6 whole shards
+
+
+@functools.lru_cache(maxsize=None)
+def _engine_pair():
+    dev = _card()
+    toks = (np.random.default_rng(8).zipf(1.3, _ENGINE_N)
+            % _ENGINE_SIGMA).astype(np.int64)
+    args = dict(shard_bits=_ENGINE_SB, sample_rate=128)
+    return (toks, build_sharded_analytics(toks, _ENGINE_SIGMA, device=dev,
+                                          **args),
+            build_sharded_analytics(toks, _ENGINE_SIGMA, device="cpu",
+                                    **args))
+
+
+def _engine_queries(dev):
+    rng = np.random.default_rng(12)
+    lo = rng.integers(-3, _ENGINE_N + 3, 40)
+    hi = lo + rng.integers(-2, _ENGINE_N, 40)
+    lo[:3], hi[:3] = [0, 9, _ENGINE_N], [_ENGINE_N, 9, _ENGINE_N]
+    k = rng.integers(-2, _ENGINE_N, 40)
+    return [torch.from_numpy(x.astype(np.int32)).to(dev) for x in (lo, hi, k)]
+
+
+def _equal_on_both(got, want):
+    if isinstance(got, tuple):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _equal_on_both(g, w)
+    else:
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        assert torch.equal(got.cpu(), want)
+
+
+_ENGINE_OPS = {
+    "histogram": lambda e, lo, hi, k: e.range_histogram(lo, hi),
+    "topk": lambda e, lo, hi, k: e.range_topk(lo, hi, 8),
+    "distinct": lambda e, lo, hi, k: e.range_distinct(lo, hi),
+    "topk_greedy": lambda e, lo, hi, k: e.range_topk_greedy(lo, hi, 8),
+    "topk_greedy_budget": lambda e, lo, hi, k: e.range_topk_greedy(
+        lo, hi, 4, budget=40, prune=False),
+    "bracket": lambda e, lo, hi, k: e.range_quantile_bracket(lo, hi, k, 5),
+    "count_bounds": lambda e, lo, hi, k: e.range_count_bounds(lo, hi, 7,
+                                                              200),
+    "histogram_bounds": lambda e, lo, hi, k: e.range_histogram_bounds(lo,
+                                                                      hi),
+    "coverage": lambda e, lo, hi, k: e.coverage(lo, hi),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degraded", [False, True])
+@pytest.mark.parametrize("op", sorted(_ENGINE_OPS))
+def test_engine_ops_on_the_card_match_the_cpu(op, degraded):
+    _, card, cpu = _engine_pair()
+    if degraded:
+        card, cpu = card.drop_shards([1, 4]), cpu.drop_shards([1, 4])
+    lo, hi, k = _engine_queries(card.device)
+    _equal_on_both(_ENGINE_OPS[op](card, lo, hi, k),
+                   _ENGINE_OPS[op](cpu, lo.cpu(), hi.cpu(), k.cpu()))
+
+
+@pytest.mark.cuda
+def test_add_shards_on_the_card_takes_new_operands():
+    """Four shards plus two built on their own equal the six-shard engine,
+    and the grown engine's kernel quantiles equal its plain descent."""
+    toks, card, _ = _engine_pair()
+    dev = card.device
+    cut = 4 * 512
+    first = build_sharded_analytics(toks[:cut], _ENGINE_SIGMA,
+                                    shard_bits=_ENGINE_SB, sample_rate=128,
+                                    device=dev)
+    new = build_sharded_analytics(toks[cut:], _ENGINE_SIGMA,
+                                  shard_bits=_ENGINE_SB, sample_rate=128,
+                                  device=dev)
+    grown = first.add_shards(new.shards, _ENGINE_N - cut)
+    _same_on_both(grown.shards, tree_map(lambda x: x.cpu(), card.shards))
+    lo, hi, k = _engine_queries(dev)
+    build.reset_launches()
+    got = grown.range_quantile(lo, hi, k)
+    assert build.launches["wm_quantile_sharded"] == 1
+    assert torch.equal(got, sharded_range_quantile(
+        grown.shards, _ENGINE_SB, _ENGINE_N, lo, hi, k))
+
+
+@pytest.mark.cuda
+def test_store_additions_on_the_card_match_the_cpu():
+    toks, _, _ = _engine_pair()
+    from repro_torch.data import build_compressed_corpus, token_histogram
+    card = build_compressed_corpus(toks, _ENGINE_SIGMA,
+                                   shard_bits=_ENGINE_SB, device=_card())
+    cpu = build_compressed_corpus(toks, _ENGINE_SIGMA,
+                                  shard_bits=_ENGINE_SB, device="cpu")
+    got = card.decode_slice(500, 1000)
+    assert np.array_equal(got.cpu().numpy(), toks[500:1500])
+    _equal_on_both(token_histogram(card), token_histogram(cpu))
+    lo, hi, _ = _engine_queries(card.shard_counts.device)
+    _equal_on_both(card.range_topk(lo, hi, 5),
+                   cpu.range_topk(lo.cpu(), hi.cpu(), 5))
+    _equal_on_both(card.range_distinct(lo, hi),
+                   cpu.range_distinct(lo.cpu(), hi.cpu()))
+
+
+@pytest.mark.cuda
+def test_repair_on_the_card_serves_kernel_quantiles_of_the_new_directories():
+    """A superblock entry changed on the card: verify names it, the repair
+    launches ``rank_build_levels`` once for every level of every shard, and
+    the repaired engine's kernel quantiles (operands taken anew) equal the
+    plain descent and the engine before the fault."""
+    import dataclasses
+    from repro_torch.robust import repair_analytics, verify_analytics
+    _, card, cpu = _engine_pair()
+    sb = card.shards.bitvectors.rank.superblock.clone()
+    sb[2, 3, 0] += 1000
+    shards = card.shards
+    bad_rank = dataclasses.replace(shards.bitvectors.rank, superblock=sb)
+    bad = dataclasses.replace(card, quantile=None, shards=dataclasses.replace(
+        shards, bitvectors=dataclasses.replace(shards.bitvectors,
+                                               rank=bad_rank)))
+    report = verify_analytics(bad)
+    assert [v.structure for v in report.violations] == \
+        ["shard2/level3.rank.superblock"] and report.repairable
+    lo, hi, k = _engine_queries(card.device)
+    build.reset_launches()
+    fixed = repair_analytics(bad)
+    assert build.launches["rank_build_levels"] == 1
+    _same_on_both(fixed.shards, cpu.shards)
+    build.reset_launches()
+    got = fixed.range_quantile(lo, hi, k)
+    assert build.launches["wm_quantile_sharded"] == 1
+    assert torch.equal(got, sharded_range_quantile(
+        fixed.shards, _ENGINE_SB, _ENGINE_N, lo, hi, k))
+    assert torch.equal(got, card.range_quantile(lo, hi, k))
+    assert verify_analytics(fixed).ok
+
+
+@pytest.mark.cuda
+def test_snapshot_from_the_card_loads_on_the_cpu_and_back(tmp_path):
+    from repro_torch.analytics import load_analytics, save_analytics
+    from repro_torch.robust import tree_checksums
+    _, card, cpu = _engine_pair()
+    save_analytics(card, tmp_path / "card")
+    on_cpu = load_analytics(tmp_path / "card", device="cpu")
+    _same_on_both(card.shards, on_cpu.shards)
+    assert tree_checksums(on_cpu.shards) == tree_checksums(cpu.shards)
+    save_analytics(on_cpu, tmp_path / "cpu")
+    back = load_analytics(tmp_path / "cpu", device=card.device)
+    _same_on_both(back.shards, cpu.shards)
+    lo, hi, k = _engine_queries(card.device)
+    build.reset_launches()
+    assert torch.equal(back.range_quantile(lo, hi, k),
+                       card.range_quantile(lo, hi, k))
+    assert build.launches["wm_quantile_sharded"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deep", [False, True])
+def test_index_repair_on_the_card_matches_the_cpu(deep):
+    """Both repairs on the card give the index back leaf for leaf, equal to
+    the CPU repair; the deep one packs its marks through ``bitpack``."""
+    from repro_torch.robust import repair_sharded_index, verify_sharded_index
+    _, card, cpu, _ = _index_pair("tail")
+    assert verify_sharded_index(card).ok
+    build.reset_launches()
+    fixed = repair_sharded_index(card, deep=deep)
+    assert build.launches["rank_build_levels"] >= 1
+    assert build.launches["bitpack"] == (1 if deep else 0)
+    _same_on_both(fixed.shards, cpu.shards)
+    _same_on_both(fixed.shards, repair_sharded_index(cpu, deep=deep).shards)
