@@ -118,6 +118,42 @@
    ``analytics`` JSON line; each kernel row gains ``analytics_launches``,
    the step's launches, which must include ``rank_build_levels``,
    ``wm_quantile_sharded``, ``bitpack`` and ``wm_level_step``.
+10. Ingests and serves the same stream, in a temporary directory.
+   ``analytics_ingester`` (shards of 2^20, τ = 8, sample rate 512, on the
+   card) takes the first 120 shards' tokens in ragged batches (no inner
+   batch edge on a shard edge); a crash is armed after the rename of the
+   first commit from generation 60 on; a new ingester's ``recover()``
+   must give one ABORT and resume at that generation's start, and the
+   stream is fed again from there. A ``GenerationServer`` over the 120
+   generations serves four reader threads kernel quantile batches (step
+   4's queries) in sessions while the last 8 shards are committed,
+   appended by ``add_shards`` and swapped in (``wait_drain=True``): every
+   batch must equal one generation's oracle in whole. The ingested engine
+   must equal step 4's leaf for leaf, its kernel quantiles step 4's, and
+   ``verify_manifest`` must be clean; the commit's host seconds are split
+   by protocol part (build, write, checksum, fsync, journal, rename).
+   ``index_ingester`` (sample rate 32, seam overlap 15) takes the first 16
+   shards (2^24 tokens) and must equal ``build_sharded_index`` of them
+   leaf for leaf, seam windows included. The ``QueryFrontend`` (buckets 8,
+   32 and 128, capacity 256, a 250 ms deadline, top-k 8, the CLI's breaker
+   timings) is warmed up and driven on the system clock by
+   ``launch.frontend.make_trace`` (2,000 requests, seed 0, 200 q/s base,
+   2,000 q/s bursts of 0.5 s every 2 s) at overload 1 and 5: per op and
+   overall, offered, served, shed by reason, degraded, deadline misses,
+   q/s, p50 and p99; the accounting identity must hold, up to 64 exact
+   answers of each op must equal plain torch on the stream on the card,
+   every degraded answer must bracket the exact one, and the exact
+   quantiles must have launched ``wm_quantile_sharded``. On a
+   ``FakeClock``, shard 2 stalled 9 s must open its breaker after the
+   failure threshold, the answers must equal the ``drop_shards([2])``
+   oracle with coverage < 1, and the breaker must close past the reset
+   window. Prints the ``ingest`` and ``serving`` JSON lines; each kernel
+   row gains ``ingest_launches`` and ``serving_launches``, which leave out
+   the launches of the checks (oracles, identity quantiles, the reference
+   index build; counted apart as ``check_launches``). The ingest must have
+   launched ``wm_level_step``, ``rank_build_levels``, ``radix_rank`` and
+   ``bitpack``, serving ``wm_level_step``, ``rank_build_levels`` and
+   ``wm_quantile_sharded``.
 
 Exits non-zero on any failure; prints no result without a CUDA device or
 outside a checkout. The last line is the ``{"ok": true, ...}`` object.
@@ -175,6 +211,26 @@ DECODE_LEN = 1 << 16          # tokens of each decode_slice
 GREEDY_GROUP = 128            # queries of one exact-budget greedy call
 ANALYTICS_KERNELS = ("rank_build_levels", "wm_quantile_sharded", "bitpack",
                      "wm_level_step")
+CRASH_GEN = 60                # the ingest crashes at the first commit from
+#                               this generation on
+SWAP_SHARDS = 8               # generations committed under the hot swap
+READERS = 4                   # hot-swap reader threads
+INDEX_INGEST_SHARDS = 16      # the index ingest: 2^24 tokens, widths kept
+FE_BUCKETS = (8, 32, 128)
+FE_CAPACITY = 256
+FE_DEADLINE_S = 0.25
+FE_TOPK = 8
+FE_REQUESTS = 2000
+FE_OVERLOADS = (1.0, 5.0)
+FE_SAMPLE = 64                # exact front-end answers checked, per op
+BREAKER_SHARD = 2
+#: kernels each part of step 10 must launch (the checks' launches are
+#: counted apart): the ingest builds matrices and indexes; serving builds
+#: the hot swap's generations and answers exact quantiles
+PART_KERNELS = {"ingest": ("wm_level_step", "rank_build_levels",
+                           "radix_rank", "bitpack"),
+                "serving": ("wm_level_step", "rank_build_levels",
+                            "wm_quantile_sharded")}
 
 
 def fail(msg: str) -> None:
@@ -1160,6 +1216,477 @@ def analytics_phase(dev, toks: np.ndarray, eng, idx, queries, quant, cnt):
     return report, launches
 
 
+def ingest_serving_phase(dev, toks: np.ndarray, seq: torch.Tensor, eng,
+                         queries, quant):
+    """Step 10: crash-safe ingest and the query front-end at full width,
+    on step 4's stream, engine ``eng``, queries and kernel quantiles
+    ``quant``, and ``seq`` (the stream on the card, the front-end's
+    oracle). Every check fails the run. Returns the ``ingest`` and
+    ``serving`` lines and each kernel's launches in the ingest and in the
+    serving parts (the counts are read and set to 0 at each part's
+    edges; the checks' launches go to a third part, ``check``)."""
+    import tempfile
+    import threading
+
+    from repro_torch.index import build_sharded_index
+    from repro_torch.ingest import (GenerationServer, analytics_ingester,
+                                    index_ingester)
+    from repro_torch.kernels import build
+    from repro_torch.launch import frontend as fe_cli
+    from repro_torch.robust import (CrashInjected, FakeClock, crash_after,
+                                    inject_shard_latency, trees_identical,
+                                    verify_manifest)
+    from repro_torch.serving import (FrontendConfig, QueryFrontend,
+                                     ShedError)
+    t_phase = time.perf_counter()
+    n = len(toks)
+    size = 1 << SHARD_BITS
+    num_shards = n // size
+    lo, hi, k = queries
+    lo_t, hi_t, k_t = (torch.from_numpy(x).to(dev) for x in queries)
+    launches = {part: {name: 0 for name in build.launches}
+                for part in ("ingest", "serving", "check")}
+    build.reset_launches()
+
+    def take_launches(part: str) -> dict:
+        """The launches since the last call, added to ``part``'s."""
+        got = dict(build.launches)
+        for name, v in got.items():
+            launches[part][name] += v
+        build.reset_launches()
+        return got
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def batches(start: int, stop: int, seed: int):
+        """Ragged [a, b) batches over [start, stop): no inner edge falls
+        on a shard edge."""
+        rng = np.random.default_rng(seed)
+        cuts = [start]
+        while cuts[-1] < stop:
+            nxt = cuts[-1] + int(rng.integers(size // 3, 3 * size))
+            nxt += nxt % size == 0
+            cuts.append(min(stop, nxt))
+        return list(zip(cuts[:-1], cuts[1:]))
+
+    ingest, serving = {}, {}
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_")
+    root = Path(work.name)
+    try:
+        # ---- 10.1 ingest the first S - K shards, a crash in the middle --
+        d = root / "analytics"
+
+        def make():
+            return analytics_ingester(d, SIGMA, shard_bits=SHARD_BITS,
+                                      tau=TAU, sample_rate=SAMPLE_RATE,
+                                      device=dev)
+
+        first = (num_shards - SWAP_SHARDS) * size
+        ing = make()
+        ing.recover()
+        fed, crashed = 0, None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a, b in batches(0, first, 10):
+            if (crashed is None and ing.next_gen >= CRASH_GEN
+                    and ing.buffered_tokens + b - a >= size):
+                crashed = ing.next_gen
+                try:
+                    with crash_after("rename"):
+                        ing.append_tokens(toks[a:b])
+                except CrashInjected:
+                    fed += b - a
+                    break
+                fail(f"ingest: no crash after the rename of gen {crashed}")
+            ing.append_tokens(toks[a:b])
+            fed += b - a
+        t_crash = time.perf_counter() - t0
+        commit_first = dict(ing.commit_seconds)
+        ing = make()                            # a new process: replay
+        rep, t_recover = timed(ing.recover)
+        if (rep.aborted != [crashed] or rep.resume_offset != crashed * size
+                or rep.committed != list(range(crashed))):
+            fail(f"ingest: recovery after the crash at gen {crashed}: "
+                 f"{rep.summary()}")
+        print(f"ingest: crash after the rename of gen {crashed}; "
+              f"{rep.summary()} in {t_recover:.6f} s")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a, b in batches(rep.resume_offset, first, 11):
+            ing.append_tokens(toks[a:b])
+            fed += b - a
+        torch.cuda.synchronize()
+        t_ingest = t_crash + time.perf_counter() - t0
+        commit_first = {part: v + ing.commit_seconds[part]
+                        for part, v in commit_first.items()}
+        resumed = dict(ing.commit_seconds)
+        eng0, t_load0 = timed(ing.engine)
+        if eng0.n != first or eng0.num_shards != num_shards - SWAP_SHARDS:
+            fail(f"ingest: {eng0.num_shards} shards, n {eng0.n} after "
+                 f"{first} tokens")
+        print(f"ingest: {first} tokens ({num_shards - SWAP_SHARDS} "
+              f"generations committed, {fed} fed with the replay after the "
+              f"crash) in {t_ingest:.6f} s ({first / t_ingest:.1f} tok/s); "
+              f"commit parts (s) {json.dumps(commit_first)}; engine "
+              f"loaded in {t_load0:.6f} s")
+        ingest.update({"tokens": first, "tokens_fed": fed,
+                       "crashed_gen": crashed, "ingest_s": t_ingest,
+                       "tokens_per_s": first / t_ingest,
+                       "recover_s": t_recover})
+        take_launches("ingest")
+
+        # ---- 10.3 hot swap: commit the last K, swap under readers --------
+        srv = GenerationServer(eng0)
+        r_lo, r_hi, r_k = lo_t, hi_t, k_t
+        oracle = {0: eng0.range_quantile(r_lo, r_hi, r_k), 1: quant}
+        take_launches("check")
+        if torch.equal(oracle[0], oracle[1]):
+            fail("hot swap: the two generations' oracles do not differ")
+        done = threading.Event()
+        errors, seen = [], {0: 0, 1: 0}
+        seen_lock = threading.Lock()
+
+        def reader():
+            try:
+                while not done.is_set():
+                    with srv.session() as (gen, e):
+                        got = e.range_quantile(r_lo, r_hi, r_k)
+                        same = torch.equal(got, oracle[gen])
+                    with seen_lock:
+                        seen[gen] += 1
+                    if not same:
+                        errors.append(gen)
+            except BaseException as e:          # handed to the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=reader, name=f"reader-{i}",
+                                    daemon=True) for i in range(READERS)]
+        for t in threads:
+            t.start()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for a, b in batches(first, n, 12):
+                ing.append_tokens(toks[a:b])
+            ing.flush()
+            new = ing.serve_entries()[-SWAP_SHARDS:]
+            nxt = srv.engine.add_shards(ing.stack(new), n - first)
+            torch.cuda.synchronize()
+            t_commit = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            srv.swap_generation(nxt, wait_drain=True, timeout_s=60)
+            t_pause = time.perf_counter() - t0
+            # the readers go on until each had a few batches of the new one
+            t0 = time.perf_counter()
+            while seen[1] < 4 * READERS and not errors \
+                    and time.perf_counter() - t0 < 60:
+                time.sleep(0.01)
+        finally:
+            done.set()
+            for t in threads:
+                t.join(120)
+        if any(t.is_alive() for t in threads):
+            fail("hot swap: a reader did not finish")
+        bad = [e for e in errors if not isinstance(e, int)]
+        if bad:
+            raise bad[0]
+        if errors:
+            fail(f"hot swap: {len(errors)} batches equal no generation's "
+                 f"oracle (generations {sorted(set(errors))})")
+        if min(seen.values()) < 1:
+            fail(f"hot swap: batches by generation {seen}")
+        print(f"hot swap: {SWAP_SHARDS} generations committed and appended "
+              f"in {t_commit:.6f} s under {READERS} reader threads; swap "
+              f"pause (fenced drain) {t_pause:.6f} s; {sum(seen.values())} "
+              f"quantile batches, by generation {seen}, each equal to its "
+              f"generation's oracle in whole")
+        serving["hot_swap"] = {"commit_append_s": t_commit,
+                               "swap_pause_s": t_pause, "readers": READERS,
+                               "batches": seen}
+        take_launches("serving")
+
+        # ---- 10.1 the whole stream against step 4's engine ---------------
+        full, t_load = timed(ing.engine)
+        if full.n != n or not trees_identical(full.shards, eng.shards):
+            fail("ingest: the ingested engine differs from step 4's")
+        if not trees_identical(srv.engine.shards, eng.shards):
+            fail("hot swap: the swapped engine differs from step 4's")
+        take_launches("ingest")
+        got, t_q = timed(lambda: full.range_quantile(lo_t, hi_t, k_t))
+        take_launches("check")
+        if not torch.equal(got, quant):
+            fail(f"ingest: {int((got != quant).sum())} kernel quantiles "
+                 f"differ from step 4's")
+        report, t_verify = timed(lambda: verify_manifest(d))
+        if not report.ok:
+            fail(f"ingest: verify_manifest: {report.summary()}")
+        disk = sum(p.stat().st_size for p in d.rglob("*") if p.is_file())
+        commit = {part: v - resumed[part]
+                  for part, v in ing.commit_seconds.items()}
+        print(f"ingest: the {num_shards} generations equal step 4's engine "
+              f"leaf for leaf, and their {len(lo)} kernel quantiles step "
+              f"4's ({t_q * 1e3:.6f} ms); loaded in {t_load:.6f} s; "
+              f"verify_manifest clean ({t_verify:.6f} s); {disk} B on disk")
+        ingest.update({"commit_s": commit_first,
+                       "swap_commit_s": commit, "load_s": t_load,
+                       "load_first_s": t_load0, "verify_manifest_s":
+                       t_verify, "bytes_on_disk": disk,
+                       "generations": ing.next_gen, "quantile_s": t_q})
+        del eng0, srv, nxt, oracle
+        take_launches("ingest")
+
+        # ---- 10.2 index ingest of the first shards -----------------------
+        m = INDEX_INGEST_SHARDS * size
+        iing = index_ingester(root / "index", SIGMA, shard_bits=SHARD_BITS,
+                              sample_rate=INDEX_SAMPLE_RATE,
+                              seam_overlap=SEAM_OVERLAP, device=dev)
+        iing.recover()
+
+        def index_feed():
+            for a, b in batches(0, m, 13):
+                iing.append_tokens(toks[a:b])
+            iing.flush()
+
+        _, t_iingest = timed(index_feed)
+        ieng, t_iload = timed(iing.engine)
+        index_launches = take_launches("ingest")
+        ref, t_iref = timed(lambda: build_sharded_index(
+            toks[:m], SIGMA, shard_bits=SHARD_BITS,
+            sample_rate=INDEX_SAMPLE_RATE, seam_overlap=SEAM_OVERLAP,
+            device=dev))
+        take_launches("check")
+        if (ieng.n != m or not trees_identical(ieng.shards, ref.shards)
+                or not torch.equal(ieng.seam_windows, ref.seam_windows)):
+            fail("index ingest: differs from build_sharded_index")
+        print(f"index ingest: {m} tokens, {INDEX_INGEST_SHARDS} shards in "
+              f"{t_iingest:.6f} s ({m / t_iingest:.1f} tok/s; commit parts "
+              f"{json.dumps(iing.commit_seconds)}), loaded in "
+              f"{t_iload:.6f} s; equal to build_sharded_index "
+              f"({t_iref:.6f} s) leaf for leaf, seam windows included")
+        ingest["index"] = {"tokens": m, "shards": INDEX_INGEST_SHARDS,
+                           "ingest_s": t_iingest, "load_s": t_iload,
+                           "build_sharded_index_s": t_iref,
+                           "commit_s": iing.commit_seconds,
+                           "launches": {name: v for name, v in
+                                        index_launches.items() if v}}
+        del ieng, ref
+    finally:
+        work.cleanup()
+
+    # ---- 10.4 the front-end on the system clock --------------------------
+    trace = fe_cli.make_trace(n, FE_REQUESTS, 0, base_qps=200.0,
+                              burst_qps=2000.0, burst_every_s=2.0,
+                              burst_len_s=0.5, deadline_s=FE_DEADLINE_S,
+                              topk_k=FE_TOPK)
+    runs = {}
+    for overload in FE_OVERLOADS:
+        fe = QueryFrontend(GenerationServer(full), config=FrontendConfig(
+            buckets=FE_BUCKETS, capacity=FE_CAPACITY,
+            default_deadline_s=FE_DEADLINE_S, topk_k=FE_TOPK,
+            breaker=fe_cli.CLI_BREAKER))
+        t0 = time.perf_counter()
+        steady = fe_cli.warm_up(fe, n, SIGMA)
+        t_warm = time.perf_counter() - t0
+        take_launches("serving")
+        # a breaker probe is one quantile launch too: count them apart
+        probes, probe = [0], fe.breakers._probe
+
+        def counted(s, probe=probe, probes=probes):
+            probes[0] += 1                      # hedged: one at a time
+            return probe(s)
+
+        fe.breakers._probe = counted
+        fe.start()
+        t0 = time.perf_counter()
+        try:
+            results = fe_cli.collect(fe_cli.drive(fe, trace, overload,
+                                                  SIGMA))
+            wall = time.perf_counter() - t0
+        finally:
+            fe.stop(drain=True)
+        out = fe_cli.report(fe, trace, results, wall)
+        st = fe.stats()
+        drive_launches = take_launches("serving")
+        if st["submitted"] != st["served"] + st["total_shed"] + st["queued"]:
+            fail(f"front-end x{overload}: accounting {st}")
+        if out["served"] + out["shed"] != len(trace):
+            fail(f"front-end x{overload}: {out['served']} served and "
+                 f"{out['shed']} shed of {len(trace)}")
+        exact_q = sum(ev["op"] == "quantile" and not isinstance(a, ShedError)
+                      and a.mode == "exact" and a.coverage == 1.0
+                      for ev, a in zip(trace, results))
+        query_launches = drive_launches["wm_quantile_sharded"] - probes[0]
+        if exact_q and query_launches < 1:
+            fail(f"front-end x{overload}: {exact_q} exact quantiles served "
+                 f"and no wm_quantile_sharded launch but the probes'")
+        checked = check_frontend_answers(full, seq, trace, results)
+        take_launches("check")
+        out.update({"warmup_s": t_warm, "steady_batch_s": steady,
+                    "wall_s": wall, "checked": checked, "probes": probes[0],
+                    "exact_quantiles": exact_q,
+                    "quantile_query_launches": query_launches,
+                    "launches": {k_: v for k_, v in drive_launches.items()
+                                 if v}})
+        runs[f"x{overload:g}"] = out
+        print(f"front-end x{overload:g}: warm-up {t_warm:.3f} s (steady "
+              f"batch {steady * 1e3:.3f} ms); offered {out['offered']}, "
+              f"served {out['served']}, shed {out['shed']} "
+              f"{json.dumps(out['shed_reasons'])}, degraded "
+              f"{out['degraded']}, deadline misses {out['deadline_misses']},"
+              f" {out['qps']:.1f} q/s, p50 {out['p50_ms']:.3f} ms, p99 "
+              f"{out['p99_ms']:.3f} ms, final level {out['final_level']}")
+        for op, o in out["per_op"].items():
+            print(f"  {op}: offered {o['offered']}, served {o['served']}, "
+                  f"shed {json.dumps(o['shed_reasons'])}, degraded "
+                  f"{o['degraded']}, deadline misses "
+                  f"{o['deadline_misses']}, {o['qps']:.1f} q/s, p50 "
+                  f"{o['p50_ms']:.3f} ms, p99 {o['p99_ms']:.3f} ms")
+        print(f"  checked: {json.dumps(checked)}; launches "
+              f"{json.dumps(out['launches'])} ({probes[0]} of the "
+              f"quantile launches breaker probes, {query_launches} for "
+              f"{exact_q} exact quantiles)")
+    serving["frontend"] = runs
+    if sum(r["quantile_query_launches"] for r in runs.values()) < 1:
+        fail("front-end: no exact quantile launched wm_quantile_sharded")
+
+    # ---- 10.5 breakers on a FakeClock at full width ----------------------
+    clock = FakeClock()
+    fe = QueryFrontend(GenerationServer(full), clock=clock,
+                       config=FrontendConfig(buckets=FE_BUCKETS,
+                                             capacity=FE_CAPACITY,
+                                             topk_k=FE_TOPK,
+                                             probe_shards=True))
+    try:
+        t0 = time.perf_counter()
+        with inject_shard_latency(BREAKER_SHARD, 9.0):
+            for _ in range(fe.config.breaker.fail_threshold):
+                fe.submit("count", 0, n, deadline_s=1e6)
+                fe.pump()
+        if fe.stats()["open_breakers"] != [BREAKER_SHARD]:
+            fail(f"breakers: open {fe.stats()['open_breakers']}")
+        b_lo, b_hi, b_k = (x[:FE_BUCKETS[0]].copy() for x in (lo, hi, k))
+        b_lo[0], b_hi[0], b_k[0] = 0, n, n // 2     # covers shard 2
+        tc = [fe.submit("count", int(a), int(b), deadline_s=1e6)
+              for a, b in zip(b_lo, b_hi)]
+        tq = [fe.submit("quantile", int(a), int(b), k=int(c),
+                        deadline_s=1e6) for a, b, c in zip(b_lo, b_hi, b_k)]
+        while fe.pump():
+            pass
+        take_launches("serving")
+        dropped = full.drop_shards([BREAKER_SHARD])
+        want_c = dropped.range_count(b_lo, b_hi, 0, SIGMA).tolist()
+        want_q = dropped.range_quantile(b_lo, b_hi, b_k).tolist()
+        want_cov = dropped.coverage(b_lo, b_hi).tolist()
+        take_launches("check")
+        ac, aq = [t.result(0) for t in tc], [t.result(0) for t in tq]
+        if ([a.value for a in ac] != want_c
+                or [a.value for a in aq] != want_q
+                or [a.coverage for a in ac] != want_cov
+                or not ac[0].coverage < 1.0 or not ac[0].degraded):
+            fail("breakers: answers differ from the drop_shards oracle")
+        clock.advance(fe.config.breaker.reset_after_s + 1)
+        fe.submit("count", 0, n, deadline_s=1e6)
+        fe.pump()
+        if fe.stats()["open_breakers"]:
+            fail(f"breakers: still open {fe.stats()['open_breakers']} past "
+                 f"the reset window")
+        t_breakers = time.perf_counter() - t0
+    finally:
+        fe.breakers.close_pool()
+    print(f"breakers: shard {BREAKER_SHARD} stalled 9 s on a FakeClock "
+          f"opens after {fe.config.breaker.fail_threshold} probes; "
+          f"{len(tc)} counts and {len(tq)} quantiles equal the "
+          f"drop_shards([{BREAKER_SHARD}]) oracle (coverage "
+          f"{ac[0].coverage:.6f} on the whole stream); the half-open probe "
+          f"closes it past the reset window ({t_breakers:.3f} s host time)")
+    serving["breakers"] = {"shard": BREAKER_SHARD, "s": t_breakers,
+                           "coverage_whole_stream": ac[0].coverage}
+    take_launches("serving")
+    del full
+    for part, line in (("ingest", ingest), ("serving", serving)):
+        missing = [name for name in PART_KERNELS[part]
+                   if launches[part][name] <= 0]
+        if missing:
+            fail(f"kernels not launched in step 10's {part}: {missing}")
+        line["launches_total"] = {name: v for name, v in
+                                  launches[part].items() if v}
+    ingest["check_launches"] = {name: v for name, v in
+                                launches["check"].items() if v}
+    ingest["phase_s"] = serving["phase_s"] = time.perf_counter() - t_phase
+    print(f"ingest and serving: step 10 took {ingest['phase_s']:.3f} s on "
+          f"the host clock")
+    return ingest, serving, launches["ingest"], launches["serving"]
+
+
+def check_frontend_answers(full, seq: torch.Tensor, trace: list,
+                           results: list) -> dict:
+    """Hold the front-end's answers against the card: up to FE_SAMPLE
+    exact answers of each op against plain torch on the raw stream
+    (``seq``), and every degraded answer: a count's bounds hold the range's
+    length, a quantile bracket the kernel's exact quantile, a greedy
+    top-k's counts are true counts. Fails the run on a mismatch; returns
+    what was checked."""
+    from repro_torch.serving import ShedError
+    dev = seq.device
+    exact = {"count": [], "quantile": [], "topk": []}
+    degraded = {"count": [], "quantile": [], "topk": []}
+    for ev, a in zip(trace, results):
+        if isinstance(a, ShedError):
+            continue
+        if a.mode == "exact" and a.coverage == 1.0:
+            if len(exact[ev["op"]]) < FE_SAMPLE:
+                exact[ev["op"]].append((ev, a))
+        else:
+            degraded[ev["op"]].append((ev, a))
+    for ev, a in exact["count"]:
+        if a.value != int((seq[ev["lo"]:ev["hi"]] < SIGMA).sum()):
+            fail(f"front-end: count {ev} = {a.value}")
+    for ev, a in exact["quantile"]:
+        want = int(torch.sort(seq[ev["lo"]:ev["hi"]]).values[ev["k"]])
+        if a.value != want:
+            fail(f"front-end: quantile {ev} = {a.value}, plain {want}")
+    for ev, a in exact["topk"]:
+        bc = torch.bincount(seq[ev["lo"]:ev["hi"]].long(), minlength=SIGMA)
+        syms, cnts = (torch.from_numpy(x).to(dev).long() for x in a.value)
+        live = syms >= 0
+        top = torch.sort(bc[bc > 0], descending=True).values[:len(cnts)]
+        if not (torch.equal(bc[syms[live]], cnts[live])
+                and torch.equal(cnts[live], top)):
+            fail(f"front-end: top-k {ev} = {a.value}")
+    for ev, a in degraded["count"]:
+        length = ev["hi"] - ev["lo"]
+        lower, upper = (a.value if isinstance(a.value, tuple)
+                        else (a.value, length))
+        if not lower <= length <= upper:
+            fail(f"front-end: count bounds {ev} = {a.value}")
+    if degraded["quantile"]:
+        q = [ev for ev, _ in degraded["quantile"]]
+        want = full.range_quantile(*(torch.tensor([e[f] for e in q],
+                                                  device=dev)
+                                     for f in ("lo", "hi", "k"))).tolist()
+        for (ev, a), w in zip(degraded["quantile"], want):
+            ok = (a.value[0] <= w < a.value[1] if isinstance(a.value, tuple)
+                  else True)
+            if not ok:
+                fail(f"front-end: bracket {ev} = {a.value}, exact {w}")
+    pairs = [(ev["lo"], ev["hi"], s, c) for ev, a in degraded["topk"]
+             for s, c in zip(*a.value) if s >= 0]
+    if pairs:
+        p_lo, p_hi, p_s, p_c = (torch.tensor(x, device=dev)
+                                for x in zip(*pairs))
+        if not torch.equal(full.range_count(p_lo, p_hi, p_s, p_s + 1).long(),
+                           p_c.long()):
+            fail("front-end: a greedy top-k count is not a true count")
+    return {f"{kind}_{op}": len(v) for kind, d in (("exact", exact),
+                                                   ("degraded", degraded))
+            for op, v in d.items()}
+
+
 def topk_of(hist: torch.Tensor, k: int):
     """(syms, counts) of the k largest of each row, ties to the smaller
     symbol: numpy's stable argsort on the host, sharing no code with the
@@ -2035,15 +2562,24 @@ def main() -> None:
     #         verify and repair at full width -------------------------------
     analytics, analytics_launches = analytics_phase(
         dev, toks, eng, idx, (lo, hi, k, sym_lo, sym_hi), quant, cnt)
-    del eng, idx
+    del idx
+
+    # ---- 10. crash-safe ingest and the query front-end at full width ----
+    ingest, serving, ingest_launches, serving_launches = ingest_serving_phase(
+        dev, toks, seq, eng, (lo, hi, k), quant)
+    del eng
     for row in kernels:
         row["construction_launches"] = phase_launches[row["name"]]
         row["index_launches"] = index_launches[row["name"]]
         row["analytics_launches"] = analytics_launches[row["name"]]
+        row["ingest_launches"] = ingest_launches[row["name"]]
+        row["serving_launches"] = serving_launches[row["name"]]
 
     print(json.dumps({"construction": construction}))
     print(json.dumps({"index": index}))
     print(json.dumps({"analytics": analytics}))
+    print(json.dumps({"ingest": ingest}))
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": kernels}))
     if any(row["check"] != "pass" for row in kernels):

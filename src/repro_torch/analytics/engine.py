@@ -375,6 +375,33 @@ class ShardedAnalytics:
                                               self.n, lo, hi, k, levels,
                                               self.available)
 
+    def probe_shard(self, s: int, clock=None) -> bool:
+        """Liveness probe of one shard: first sleeps any armed
+        ``robust.faults.shard_latency`` stall on ``clock`` (a real stall on
+        the system clock, an instant logical one on a ``FakeClock``), then
+        reads the shard's first symbol by a one-shard range quantile of
+        [s·2^shard_bits, s·2^shard_bits + 1) through the engine's kernel
+        operands (every level's directories of shard s, whatever the
+        availability mask; the plain descent on a CPU engine), and ends in
+        a synchronize, so a probe the circuit breakers time covers the
+        device work. Returns True on success.
+
+        The reference probes with a one-shard plain count; the port's plain
+        count is some 5,000 small launches, about 80 ms a probe on an H100,
+        which made a refresh of 128 breakers 10 s long (``PERF.md`` §6).
+        The kernel's one launch touches the same directories."""
+        from repro_torch.robust.clock import SYSTEM_CLOCK
+        from repro_torch.robust.faults import shard_latency
+        clock = clock if clock is not None else SYSTEM_CLOCK
+        delay = shard_latency(s)
+        if delay > 0:
+            clock.sleep(delay)
+        lo = int(s) << self.shard_bits
+        out = wm_quantile_sharded(self.quantile, [lo], [lo + 1], [0])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return bool(out[0] >= 0)
+
     def range_count(self, lo, hi, sym_lo, sym_hi) -> torch.Tensor:
         return sharded_range_count(self.shards, self.shard_bits, self.n, lo,
                                    hi, sym_lo, sym_hi, self.available)

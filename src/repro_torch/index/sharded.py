@@ -112,6 +112,26 @@ class ShardedTextIndex:
     def shard(self, s: int) -> FMIndex:
         return tree_map(lambda x: x[s], self.shards)
 
+    def probe_shard(self, s: int, clock=None) -> bool:
+        """Liveness probe of one shard: a one-shard backward search of a
+        one-symbol pattern that first sleeps any armed
+        ``robust.faults.shard_latency`` stall on ``clock`` and ends in a
+        synchronize (the probe covers the device work, not only its
+        dispatch). Returns True on success."""
+        from repro_torch.robust.clock import SYSTEM_CLOCK
+        from repro_torch.robust.faults import shard_latency
+        clock = clock if clock is not None else SYSTEM_CLOCK
+        delay = shard_latency(s)
+        if delay > 0:
+            clock.sleep(delay)
+        pat = torch.zeros((1, 1), dtype=torch.int32, device=self.device)
+        out = fm_count(self.shard(int(s)), pat,
+                       torch.ones((1,), dtype=torch.int32,
+                                  device=self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return bool(out[0] >= 0)
+
     # ---- incremental ingest ------------------------------------------
     def add_shards(self, new_shards: FMIndex, new_seams,
                    added_tokens: int, new_available=None

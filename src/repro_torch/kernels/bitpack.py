@@ -41,6 +41,6 @@ def bitpack(bits: torch.Tensor, n: int) -> torch.Tensor:
     err = lib.bitpack(bits.data_ptr(), rows, n, bits.stride(0),
                       words.data_ptr(), W, words.stride(0),
                       torch.cuda.current_stream(bits.device).cuda_stream)
-    build.launches["bitpack"] += 1
+    build.count_launch("bitpack")
     build.check(lib, err, "bitpack")
     return words

@@ -10,7 +10,15 @@ per file, and waits for all of them. Nothing is compiled or loaded at
 import time: the CPU tests import every module.
 
 ``launches`` holds one plain integer per kernel; each wrapper adds one
-where it launches its kernel and nowhere else.
+(:func:`count_launch`) where it launches its kernel and nowhere else.
+Several threads may launch (the serving front-end's pump, its breaker
+probes, hot-swap readers): the first build and every count take a lock.
+
+A kernel that cannot be built, loaded or launched raises
+:class:`KernelError`. It and the other failures of the device
+(:data:`DEVICE_ERRORS`) are no failure of a caller's input: the ingester
+re-raises them instead of quarantining the shard, the breakers' probes
+and the front-end's worker hand them on instead of serving around them.
 """
 from __future__ import annotations
 
@@ -19,7 +27,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -66,11 +77,32 @@ launches: dict[str, int] = {"rank_build_levels": 0, "wm_level_step": 0,
                             "wt_level_step": 0, "bitpack": 0}
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+class KernelError(RuntimeError):
+    """A CUDA kernel library failed to build or load, or a launch returned
+    a CUDA error."""
+
+
+#: failures of the device, not of a caller's input: a kernel that could not
+#: be built, loaded or launched, a CUDA error, or the card's memory running
+#: out. No path of the port quarantines, retries past its budget, or serves
+#: around them.
+DEVICE_ERRORS = (KernelError, torch.AcceleratorError, torch.OutOfMemoryError)
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``name``'s launch count (wrappers call it where they
+    launch the kernel)."""
+    with _lock:
+        launches[name] += 1
 
 
 def _nvcc() -> str:
@@ -80,7 +112,7 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def _target(name: str) -> Path:
@@ -113,7 +145,7 @@ def build_all() -> dict[str, Path]:
             else:
                 os.replace(tmp, target)
         if failures:
-            raise RuntimeError("CUDA kernel build failed:\n"
+            raise KernelError("CUDA kernel build failed:\n"
                                + "\n".join(failures))
     return targets
 
@@ -132,9 +164,11 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu`` (built on first use),
     its entry points' signatures declared."""
     if name not in _loaded:
-        for lib_name, path in build_all().items():
-            if lib_name not in _loaded:
-                _loaded[lib_name] = _load(lib_name, path)
+        with _lock:
+            if name not in _loaded:
+                for lib_name, path in build_all().items():
+                    if lib_name not in _loaded:
+                        _loaded[lib_name] = _load(lib_name, path)
     return _loaded[name]
 
 
@@ -142,4 +176,4 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:
         msg = lib.kernel_error_string(err).decode()
-        raise RuntimeError(f"CUDA kernel {what} failed: {msg} ({err})")
+        raise KernelError(f"CUDA kernel {what} failed: {msg} ({err})")

@@ -176,7 +176,7 @@ def radix_hist(digits: torch.Tensor, num_buckets: int,
     err = lib.radix_hist(digits.data_ptr(), rows, n, digits.stride(0),
                          num_buckets, hist.data_ptr(), nb,
                          torch.cuda.current_stream(digits.device).cuda_stream)
-    build.launches["radix_rank"] += 1
+    build.count_launch("radix_rank")
     build.check(lib, err, "radix_hist")
     return hist
 
@@ -199,7 +199,7 @@ def radix_apply(digits: torch.Tensor, offsets: torch.Tensor,
                           num_buckets, nb, offsets.data_ptr(),
                           dest.data_ptr(), dest.stride(0),
                           torch.cuda.current_stream(digits.device).cuda_stream)
-    build.launches["radix_rank"] += 1
+    build.count_launch("radix_rank")
     build.check(lib, err, "radix_apply")
     return dest
 
@@ -229,7 +229,7 @@ def radix_totals(digits: torch.Tensor, num_buckets: int,
     err = lib.radix_totals(digits.data_ptr(), digits.shape[0], n,
                            digits.stride(0), num_buckets, totals.data_ptr(),
                            torch.cuda.current_stream(digits.device).cuda_stream)
-    build.launches["radix_rank"] += 1
+    build.count_launch("radix_rank")
     build.check(lib, err, "radix_totals")
     return totals
 
@@ -258,7 +258,7 @@ def radix_scan(digits: torch.Tensor, num_buckets: int, n: int,
                          bucket_starts.stride(0), dest.data_ptr(),
                          dest.stride(0), status.data_ptr(),
                          torch.cuda.current_stream(digits.device).cuda_stream)
-    build.launches["radix_rank"] += 1
+    build.count_launch("radix_rank")
     build.check(lib, err, "radix_scan")
     return dest
 

@@ -55,6 +55,6 @@ def rank_build_levels(words: torch.Tensor, W: int):
         words.data_ptr(), rows, W, words.stride(0), superblock.data_ptr(),
         nsb, block.data_ptr(), nblk, status.data_ptr(),
         torch.cuda.current_stream(words.device).cuda_stream)
-    build.launches["rank_build_levels"] += 1
+    build.count_launch("rank_build_levels")
     build.check(lib, err, "rank_build_levels")
     return superblock, block

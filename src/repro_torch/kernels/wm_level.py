@@ -115,7 +115,7 @@ def wm_counts(keys: torch.Tensor, shift: int, n: int) -> torch.Tensor:
     err = lib.wm_counts(keys.data_ptr(), rows, n, keys.stride(0), shift,
                         counts.data_ptr(), nb,
                         torch.cuda.current_stream(keys.device).cuda_stream)
-    build.launches["wm_level_step"] += 1
+    build.count_launch("wm_level_step")
     build.check(lib, err, "wm_counts")
     return counts
 
@@ -143,7 +143,7 @@ def wm_apply(keys: torch.Tensor, zeros_excl: torch.Tensor,
                        dest.data_ptr(), dest.stride(0), bitmap.data_ptr(), W,
                        bitmap.stride(0),
                        torch.cuda.current_stream(keys.device).cuda_stream)
-    build.launches["wm_level_step"] += 1
+    build.count_launch("wm_level_step")
     build.check(lib, err, "wm_apply")
     return dest, bitmap
 
@@ -174,7 +174,7 @@ def wm_level_zeros(keys: torch.Tensor, lo: int, width: int,
     err = lib.wm_level_zeros(keys.data_ptr(), keys.shape[0], n,
                              keys.stride(0), lo, width, out.data_ptr(),
                              stream)
-    build.launches["wm_level_step"] += 1
+    build.count_launch("wm_level_step")
     build.check(lib, err, "wm_level_zeros")
     return out
 
@@ -202,6 +202,6 @@ def wm_level(keys: torch.Tensor, total_zeros: torch.Tensor, shift: int,
                             bitmap.data_ptr(), W, bitmap.stride(0),
                             status.data_ptr(),
                             torch.cuda.current_stream(keys.device).cuda_stream)
-    build.launches["wm_level_step"] += 1
+    build.count_launch("wm_level_step")
     build.check(lib, err, "wm_level_scan")
     return dest, bitmap, zeros

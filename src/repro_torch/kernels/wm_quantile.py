@@ -210,6 +210,6 @@ def wm_quantile_sharded(op: QuantileOperands, lo, hi, k) -> torch.Tensor:
         None if scratch is None else scratch.data_ptr(), op.over,
         op.max_blocks, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    build.launches["wm_quantile_sharded"] += 1
+    build.count_launch("wm_quantile_sharded")
     build.check(lib, err, "wm_quantile_sharded")
     return out

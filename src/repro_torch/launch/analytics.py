@@ -13,8 +13,11 @@ PYTHONPATH=src python -m repro_torch.launch.analytics --n 134217728 \
 ``--snapshot-dir`` restores the engine when the snapshot's geometry and
 corpus seed match the run (derived-leaf corruption is repaired on the way),
 ignores a directory holding something else, warns and rebuilds when the
-restore fails, and saves after a build. Metrics and device traces (the
-reference's ``--metrics-dir`` and ``--profile-dir``) are not ported yet.
+restore fails (a failure of the device, ``kernels.build.DEVICE_ERRORS``,
+is raised instead), and saves after a build. The build is retried twice with
+backoff (``robust.with_retry``), as the reference's is. Metrics and device
+traces (the reference's ``--metrics-dir`` and ``--profile-dir``) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from repro_torch.analytics import (build_sharded_analytics, load_analytics,
                                    save_analytics, snapshot_meta)
 from repro_torch.data import make_corpus
 from repro_torch.device import resolve_device
+from repro_torch.kernels.build import DEVICE_ERRORS
+from repro_torch.robust import with_retry
 
 
 def make_queries(n: int, num: int, seed: int):
@@ -98,14 +103,21 @@ def main(argv=None) -> None:
             # someone else's checkpoint: rebuild, and never overwrite it
             print(f"ignoring --snapshot-dir: {e}")
             save_snapshot = False
+        except DEVICE_ERRORS:
+            raise                       # the card failed, not the snapshot
         except Exception as e:                      # noqa: BLE001
             # an unusable snapshot (unrepairable corruption, torn write,
             # missing leaves) must not take serving down: rebuild
             print(f"WARNING: snapshot restore failed ({type(e).__name__}: "
                   f"{e}) — rebuilding from source")
     if not restored:
-        eng = build_sharded_analytics(toks, args.vocab,
-                                      shard_bits=args.shard_bits, device=dev)
+        eng = with_retry(
+            lambda: build_sharded_analytics(toks, args.vocab,
+                                            shard_bits=args.shard_bits,
+                                            device=dev),
+            retries=2, backoff_s=0.1,
+            on_retry=lambda a, e: print(
+                f"build attempt {a + 1} failed ({e}) — retrying"))
     _sync(dev)
     t_build = time.perf_counter() - t0
     verb = "restore" if restored else "build"

@@ -1,5 +1,5 @@
-"""Structural self-checks over succinct structures (port of
-``repro.robust.verify``, without ``verify_manifest``).
+"""Structural self-checks over succinct structures and the ingest manifest
+(port of ``repro.robust.verify``).
 
 Every derived structure (rank directories, select samples, per-level zero
 counts, C tables, SA-sample directories) is recomputed from the bitmaps, or
@@ -316,6 +316,91 @@ def verify_analytics(engine, report: VerifyReport | None = None
         if av.shape != (engine.num_shards,):
             report.add("available", "mask_shape",
                        f"mask shape {av.shape} vs {engine.num_shards} shards")
+    return report
+
+
+def verify_manifest(ingest_dir, report: VerifyReport | None = None,
+                    deep: bool = True) -> VerifyReport:
+    """Self-checks over an ingest directory's journaled shard manifest.
+
+    The manifest is the write path's source of truth, so its invariants
+    get the same treatment the serving structures get: recompute what
+    each record claims and classify every violation (the reference's
+    kinds and classes):
+
+    * **journal integrity** — a torn tail (single crashed append) is
+      repairable (recovery drops it and upstream re-appends); a bad line
+      before the tail is fatal corruption;
+    * **generation monotonicity** — every INTENT/QUARANTINE must
+      introduce a strictly increasing generation (the journal is a total
+      order of the stream); violation is fatal;
+    * **COMMIT ⇒ shard exists** — a committed generation whose file is
+      missing is acked data loss: fatal;
+    * **COMMIT ⇒ checksums agree** — ``deep=True`` re-hashes every
+      committed shard file against its INTENT ``leaf_crc32`` map;
+      disagreement is *repairable by re-append* (upstream replays the
+      generation under a fresh gen — recovery quarantines it meanwhile);
+    * **dangling INTENT** — an unresolved INTENT (no COMMIT/ABORT) means
+      recovery has not run yet: repairable.
+    """
+    from pathlib import Path
+
+    from repro_torch.ingest.journal import (MANIFEST_NAME, JournalCorrupt,
+                                            read_journal, replay)
+    from repro_torch.robust.integrity import verify_flat
+    report = report if report is not None else VerifyReport()
+    ingest_dir = Path(ingest_dir)
+    journal = ingest_dir / MANIFEST_NAME
+    try:
+        records, torn = read_journal(journal, strict=True)
+    except JournalCorrupt as e:
+        report.add("manifest.jsonl", "journal_corrupt",
+                   f"line {e.lineno}: {e.why} (before the tail — not a "
+                   "crash artifact)", derived=False)
+        records, torn = read_journal(journal, strict=False)
+    if torn:
+        report.add("manifest.jsonl", "journal_torn_tail",
+                   "last line incomplete or checksum-failing — crashed "
+                   "append; replay drops it")
+    last_intro = -1
+    for i, rec in enumerate(records):
+        if rec["type"] in ("INTENT", "QUARANTINE") \
+                and rec.get("gen", -1) not in \
+                {r.get("gen") for r in records[:i]
+                 if r["type"] in ("INTENT", "QUARANTINE")}:
+            gen = int(rec.get("gen", -1))
+            if gen <= last_intro:
+                report.add(f"manifest.jsonl[{i}]", "generation_monotonicity",
+                           f"record introduces gen {gen} after gen "
+                           f"{last_intro}", derived=False)
+            last_intro = max(last_intro, gen)
+    st = replay(records, torn_tail=torn)
+    shards_dir = ingest_dir / "shards"
+    for e in st.committed:
+        path = shards_dir / (e.file or "")
+        if not e.file or not path.exists():
+            report.add(f"gen{e.gen}", "commit_missing_shard",
+                       f"COMMIT recorded but {e.file!r} is absent — acked "
+                       "data loss", derived=False)
+            continue
+        if not deep:
+            continue
+        try:
+            with np.load(path) as z:
+                arrays = {k: z[k] for k in z.files}
+        except Exception:                                 # noqa: BLE001
+            report.add(f"gen{e.gen}", "commit_shard_unreadable",
+                       f"{e.file} is not a readable npz — re-append")
+            continue
+        bad = verify_flat(arrays, e.leaf_crc32)
+        if bad:
+            report.add(f"gen{e.gen}", "commit_checksum_mismatch",
+                       f"{len(bad)} leaf/leaves disagree with the INTENT "
+                       f"crc32 map ({bad[0]}, …) — re-append")
+    for e in st.pending:
+        report.add(f"gen{e.gen}", "dangling_intent",
+                   "INTENT without COMMIT/ABORT — recovery has not "
+                   "replayed this journal yet")
     return report
 
 

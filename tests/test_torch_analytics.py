@@ -26,6 +26,7 @@ from repro_torch.analytics import build_sharded_analytics
 from repro_torch.analytics import engine
 from repro_torch.core.wavelet_matrix import build_wavelet_matrix
 from repro_torch.data import build_compressed_corpus, make_corpus
+from repro_torch.kernels.build import KernelError
 from repro_torch.launch import analytics as cli
 from repro_torch.tree import tree_named_leaves
 
@@ -189,6 +190,40 @@ def test_cli_smoke_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "verified 16 samples of each op against numpy" in out
 
+
+
+def _snapshot_run(tmp_path, monkeypatch, error):
+    """Save a snapshot with the CLI, then restore it with
+    ``load_analytics`` raising ``error``."""
+    args = ["--smoke", "--device", "cpu", "--queries", "64",
+            "--snapshot-dir", str(tmp_path / "snap")]
+    cli.main(args)
+
+    def broken(*a, **k):
+        raise error("CUDA kernel rank_build_levels failed: an illegal "
+                    "memory access was encountered (700)")
+
+    monkeypatch.setattr(cli, "load_analytics", broken)
+    cli.main(args)
+
+
+def test_cli_rebuilds_when_the_snapshot_restore_fails(tmp_path, monkeypatch,
+                                                       capsys):
+    _snapshot_run(tmp_path, monkeypatch, RuntimeError)
+    out = capsys.readouterr().out
+    assert "WARNING: snapshot restore failed (RuntimeError" in out
+    assert "verified 16 samples of each op against numpy" in out
+
+
+@pytest.mark.parametrize("error", [KernelError, torch.AcceleratorError,
+                                   torch.OutOfMemoryError])
+def test_cli_raises_a_device_error_of_the_restore(error, tmp_path,
+                                                  monkeypatch, capsys):
+    """A failure of the device while restoring is no unusable snapshot:
+    the CLI raises it instead of warning and rebuilding."""
+    with pytest.raises(error):
+        _snapshot_run(tmp_path, monkeypatch, error)
+    assert "WARNING" not in capsys.readouterr().out
 
 def test_make_queries_is_the_reference_mix():
     from repro.launch.analytics import make_queries as jmake_queries

@@ -9,6 +9,7 @@ runs where only the port is installed:
 All outputs are exact integers: every comparison is equality.
 """
 import functools
+import time
 
 import numpy as np
 import pytest
@@ -831,3 +832,336 @@ def test_index_repair_on_the_card_matches_the_cpu(deep):
     assert build.launches["bitpack"] == (1 if deep else 0)
     _same_on_both(fixed.shards, cpu.shards)
     _same_on_both(fixed.shards, repair_sharded_index(cpu, deep=deep).shards)
+
+
+# --------------------------------------------------------------------------
+# ingest and the query front-end on the card
+# --------------------------------------------------------------------------
+
+_INGEST_N, _INGEST_SIGMA, _INGEST_SB = 1500, 37, 8      # 5 shards + a tail
+
+
+def _ingest(kind, directory, device, toks):
+    from repro_torch.ingest import analytics_ingester, index_ingester
+    if kind == "analytics":
+        ing = analytics_ingester(directory, _INGEST_SIGMA,
+                                 shard_bits=_INGEST_SB, device=device)
+    else:
+        ing = index_ingester(directory, _INGEST_SIGMA, shard_bits=_INGEST_SB,
+                             sample_rate=16, seam_overlap=7, device=device)
+    ing.recover()
+    for a, b in ((0, 100), (100, 700), (700, _INGEST_N)):   # ragged batches
+        ing.append_tokens(toks[a:b])
+    ing.flush()
+    return ing
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["analytics", "index"])
+def test_card_ingest_writes_the_cpu_ingest(kind, tmp_path):
+    """The same stream ingested on the card and on the CPU: the same
+    manifest lines, the same shard files, the same engine; the card's
+    build launched its kernels."""
+    dev = _card()
+    toks = np.random.default_rng(21).integers(0, _INGEST_SIGMA,
+                                              _INGEST_N).astype(np.int64)
+    build.reset_launches()
+    card = _ingest(kind, tmp_path / "card", dev, toks)
+    launched = dict(build.launches)
+    cpu = _ingest(kind, tmp_path / "cpu", "cpu", toks)
+    assert launched["wm_level_step"] > 0 and launched["rank_build_levels"] > 0
+    if kind == "index":
+        # at 256-token shards every suffix-array pass has at most 32
+        # buckets: the vectorized route, no radix_rank
+        assert launched["bitpack"] > 0
+    assert (tmp_path / "card" / "manifest.jsonl").read_bytes() == (
+        tmp_path / "cpu" / "manifest.jsonl").read_bytes()
+    names = sorted(p.name for p in (tmp_path / "cpu" / "shards").iterdir())
+    assert names == sorted(
+        p.name for p in (tmp_path / "card" / "shards").iterdir())
+    for name in names:
+        with np.load(tmp_path / "card" / "shards" / name) as a, \
+                np.load(tmp_path / "cpu" / "shards" / name) as b:
+            assert a.files == b.files
+            for key in a.files:
+                assert a[key].dtype == b[key].dtype
+                assert np.array_equal(a[key], b[key]), (name, key)
+    got, want = card.engine(), cpu.engine()
+    assert got.device.type == "cuda"
+    _same_on_both(got.shards, want.shards)
+
+
+@pytest.mark.cuda
+def test_wm_quantile_kernel_answers_padding_lanes_neutrally():
+    """lo == hi == 0 lanes (the front-end's bucket padding) give -1 from
+    the quantile kernel and 0 from counts, beside live lanes."""
+    dev = _card()
+    toks, card, cpu = _engine_pair()
+    lo = torch.zeros(32, dtype=torch.int32, device=dev)
+    hi, k = torch.zeros_like(lo), torch.zeros_like(lo)
+    lo[:3] = torch.tensor([0, 17, 600], device=dev)
+    hi[:3] = torch.tensor([_ENGINE_N, 1700, 2400], device=dev)
+    k[:3] = torch.tensor([5, 300, 1799], device=dev)
+    build.reset_launches()
+    q = card.range_quantile(lo, hi, k)
+    assert build.launches["wm_quantile_sharded"] == 1
+    assert (q[3:] == -1).all()
+    assert q[:3].tolist() == [int(np.sort(toks[a:b])[c]) for a, b, c in
+                              ((0, _ENGINE_N, 5), (17, 1700, 300),
+                               (600, 2400, 1799))]
+    counts = card.range_count(lo, hi, 0, _ENGINE_SIGMA)
+    assert (counts[3:] == 0).all() and counts[:3].tolist() == [
+        _ENGINE_N, 1683, 1800]
+
+
+@pytest.mark.cuda
+def test_batch_runner_back_to_back_batches_on_the_card():
+    """Batches of different contents run back to back on a card engine:
+    each call's device block holds its own batch, padded with zeros, and
+    the padding lanes of a quantile batch answer -1."""
+    from repro_torch.serving import BatchRunner
+    _card()
+    _, card, _ = _engine_pair()
+    runner = BatchRunner((8, 1 << 20))
+    big = 1 << 20
+    batches = [np.full((4, big), v, np.int32) for v in (1, 2, 3)]
+    for b, v in zip(batches, (1, 2, 3)):
+        b[:, ::7] = -v
+    seen = []
+
+    def keep(e, q):
+        seen.append(q.clone())
+        return q[0], q[1], q[2].float()
+
+    for b in batches + [batches[0][:, :5]]:
+        runner.run("keep", keep, card, b, b.shape[1])
+    assert all(q.is_cuda for q in seen)
+    for q, b in zip(seen, batches):
+        assert torch.equal(q.cpu(), torch.from_numpy(b))
+    assert seen[3].shape == (4, 8) and seen[3][:, 5:].abs().sum() == 0
+    assert torch.equal(seen[3][:, :5].cpu(),
+                       torch.from_numpy(batches[0][:, :5]))
+    a, b, cov = runner.run(("quantile", 0),
+                           lambda e, q: (e.range_quantile(q[0], q[1], q[2]),
+                                         q[3], q[0].float()),
+                           card, np.array([[0], [_ENGINE_N], [4], [0]],
+                                          np.int32), 1)
+    assert isinstance(a, np.ndarray) and a.shape == (8,)
+    assert (a[1:] == -1).all() and runner.compiled == 3
+
+
+def _fe_script(fe, clock, n):
+    """A FakeClock scenario through every path of the front-end: a mixed
+    queue, a burst that climbs the ladder, an expired shed, the calm, and
+    a slow shard that opens its breaker."""
+    from repro_torch.robust import inject_shard_latency
+    tickets = []
+
+    def drain():
+        while fe.pump():
+            clock.advance(0.01)
+
+    for i in range(3):                          # level 0: exact quantiles
+        tickets.append(fe.submit("quantile", 5 * i, n - 11 * i, k=33 * i,
+                                 deadline_s=10.0))
+    drain()
+    for i in range(4):
+        tickets.append(fe.submit("count", i, n - i, sym_lo=i, sym_hi=200,
+                                 deadline_s=10.0))
+        tickets.append(fe.submit("quantile", 7 * i, n - 3 * i, k=40 * i,
+                                 deadline_s=10.0))
+        tickets.append(fe.submit("topk", 100 * i, 100 * i + 900,
+                                 deadline_s=10.0))
+    drain()
+    for i in range(14):
+        tickets.append(fe.submit("quantile", i, n - i, k=i * 97,
+                                 deadline_s=50.0))
+    tickets.append(fe.submit("topk", 0, n, deadline_s=50.0))
+    drain()
+    tickets.append(fe.submit("count", 0, n, deadline_s=0.05))
+    clock.advance(0.1)
+    fe.pump()
+    clock.advance(2.0)
+    fe.pump()
+    with inject_shard_latency(2, 9.0):
+        for _ in range(fe.config.breaker.fail_threshold):
+            tickets.append(fe.submit("count", 0, n, deadline_s=1e6))
+            fe.pump()
+        tickets.append(fe.submit("quantile", 0, n, k=n // 2,
+                                 deadline_s=1e6))
+        drain()
+    return tickets
+
+
+def _fe_outcomes(tickets):
+    from repro_torch.serving import ShedError
+    out = []
+    for t in tickets:
+        try:
+            a = t.result(0)
+        except ShedError as e:
+            out.append(("shed", e.reason))
+            continue
+        v = a.value
+        if isinstance(v, tuple) and isinstance(v[0], np.ndarray):
+            v = tuple(x.tolist() for x in v)
+        out.append((v, a.mode, a.degraded, a.coverage, a.level,
+                    a.generation, a.latency_s, a.deadline_met))
+    return out
+
+
+@pytest.mark.cuda
+def test_frontend_on_a_card_engine_equals_the_cpu_engine():
+    """One FakeClock scenario over a card engine and over a CPU engine:
+    equal answers (every Answer field) and stats; the card's exact
+    quantiles and probes went through the kernel."""
+    from repro_torch.ingest import GenerationServer
+    from repro_torch.robust import FakeClock
+    from repro_torch.serving import FrontendConfig, LadderConfig, QueryFrontend
+    _card()
+    _, card, cpu = _engine_pair()
+    runs = []
+    for eng in (card, cpu):
+        clock = FakeClock()
+        fe = QueryFrontend(GenerationServer(eng), clock=clock,
+                           config=FrontendConfig(
+                               buckets=(8, 32), capacity=16,
+                               probe_shards=True,
+                               ladder=LadderConfig(up_pressure=0.5)))
+        build.reset_launches()
+        try:
+            runs.append((_fe_outcomes(_fe_script(fe, clock, _ENGINE_N)),
+                         fe.stats(), build.launches["wm_quantile_sharded"]))
+        finally:
+            fe.breakers.close_pool()
+    (got, got_stats, launched), (want, want_stats, _) = runs
+    assert got == want and got_stats == want_stats
+    assert launched > 0
+    assert any(o[1] == "exact" and o[3] == 1.0 and isinstance(o[0], int)
+               for o in got[:3])
+    assert {o[1] for o in got} >= {"exact", "quantile_bracket",
+                                   "topk_greedy", "expired"}
+    assert any(o[0] != "shed" and o[3] < 1.0 for o in got)
+
+
+@pytest.mark.cuda
+def test_threaded_hot_swap_on_the_card(tmp_path):
+    """Four reader threads run kernel quantile batches in sessions while
+    the ingester commits generations on the card and the server swaps:
+    every batch equals one generation's oracle in whole."""
+    import threading
+
+    from repro_torch.ingest import GenerationServer, analytics_ingester
+    dev = _card()
+    toks = np.random.default_rng(22).integers(0, 300, 8 * 512).astype(
+        np.int64)
+    ing = analytics_ingester(tmp_path, 300, shard_bits=9, sample_rate=128,
+                             device=dev)
+    ing.recover()
+    ing.append_tokens(toks[:4 * 512])
+    srv = GenerationServer(ing.engine())
+    rng = np.random.default_rng(23)
+    lo = rng.integers(0, 8 * 512, 256)
+    hi = lo + rng.integers(1, 8 * 512, 256)
+    k = rng.integers(0, 8 * 512, 256)
+    q = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in (lo, hi, k)]
+
+    def oracle(m):
+        return torch.tensor([int(np.sort(toks[a:min(b, m)])[
+            min(c, min(b, m) - a - 1)]) if a < m else -1
+            for a, b, c in zip(lo, hi, k)], dtype=torch.int32, device=dev)
+
+    oracles = {0: oracle(4 * 512)}
+    done, errors, seen = threading.Event(), [], []
+
+    def reader():
+        try:
+            while not done.is_set():
+                with srv.session() as (gen, e):
+                    got = e.range_quantile(*q)
+                    if not torch.equal(got, oracles[gen]):
+                        errors.append(gen)
+                seen.append(gen)
+        except BaseException as e:              # handed to the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=reader, daemon=True)
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        for g in range(1, 5):
+            ing.append_tokens(toks[(g + 3) * 512:(g + 4) * 512])
+            new = ing.serve_entries()[-1:]
+            nxt = srv.engine.add_shards(ing.stack(new), 512)
+            oracles[g] = oracle((g + 4) * 512)
+            srv.swap_generation(nxt, wait_drain=True, timeout_s=60)
+        deadline = time.time() + 30
+        while seen.count(4) < 8 and not errors and time.time() < deadline:
+            time.sleep(0.01)
+    finally:
+        done.set()
+        for t in threads:
+            t.join(60)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:3]
+    assert srv.generation == 4 and set(seen) >= {0, 4}
+    _same_on_both(srv.engine.shards, build_sharded_analytics(
+        toks, 300, shard_bits=9, sample_rate=128, device="cpu").shards)
+
+
+@pytest.mark.cuda
+def test_probe_shard_on_a_card_engine_and_index():
+    from repro_torch.robust import FakeClock, inject_shard_latency
+    _card()
+    _, card, _ = _engine_pair()
+    _, icard, _, _ = _index_pair("tail")
+    clock = FakeClock()
+    with inject_shard_latency(1, 0.7):
+        assert all(card.probe_shard(s, clock)
+                   for s in range(card.num_shards))
+        assert all(icard.probe_shard(s, clock)
+                   for s in range(icard.num_shards))
+    assert clock.sleeps == [0.7, 0.7]
+    assert card.probe_shard(0) and icard.probe_shard(0)
+
+
+
+@pytest.mark.cuda
+def test_probe_kernel_error_on_the_card_stops_the_frontend(monkeypatch):
+    """A breaker probe whose quantile kernel cannot be loaded raises
+    ``KernelError`` out of the front-end (``pump``, and ``stop`` after the
+    worker) instead of opening breakers and serving around the card."""
+    from repro_torch.ingest import GenerationServer
+    from repro_torch.robust import FakeClock
+    from repro_torch.serving import FrontendConfig, QueryFrontend
+    _card()
+    _, card, _ = _engine_pair()
+    library = build.library
+
+    def broken(name):
+        if name == "wm_quantile":
+            raise build.KernelError("CUDA kernel library wm_quantile could "
+                                    "not be loaded")
+        return library(name)
+
+    monkeypatch.setattr(build, "library", broken)
+    fe = QueryFrontend(GenerationServer(card), clock=FakeClock(),
+                       config=FrontendConfig(buckets=(8,), capacity=16,
+                                             probe_shards=True))
+    try:
+        t = fe.submit("count", 0, _ENGINE_N, deadline_s=1e6)
+        with pytest.raises(build.KernelError):
+            fe.pump()
+        with pytest.raises(build.KernelError):
+            t.result(0)
+        assert fe.stats()["open_breakers"] == [] and fe.served == 0
+        t = fe.submit("count", 0, _ENGINE_N, deadline_s=1e6)
+        fe.start()
+        with pytest.raises(build.KernelError):
+            t.result(30.0)
+        with pytest.raises(build.KernelError):
+            fe.stop()
+        assert fe.stats()["open_breakers"] == []
+    finally:
+        fe.breakers.close_pool()

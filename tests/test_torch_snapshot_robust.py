@@ -7,7 +7,9 @@ Snapshots interchange both ways: a port snapshot loads in
 ``repro.analytics.load_analytics`` and a reference snapshot in the port's,
 with equal ``leaf_crc32`` maps (the same keys, dtypes and bytes). Verify
 reports, repaired leaves and checksums equal the reference's; the deep FM
-repair equals the reference's sequential LF walk. The reference's inputs
+repair equals the reference's sequential LF walk. Faults are the port's
+own (``repro_torch.robust.faults``, held to the reference's in
+``tests/test_torch_faults.py``); the reference's flip its own structures. The reference's inputs
 are the port's structures carried into its classes leaf for leaf (the
 port's builds are held bit-identical to the reference's elsewhere), so no
 reference build runs here.
@@ -41,6 +43,7 @@ from repro_torch.checkpoint import (checkpoint_steps, flatten, latest_step,
                                     step_dir_valid)
 from repro_torch.core.wavelet_tree import build_wavelet_tree
 from repro_torch.index import build_sharded_index, suffix_array
+from repro_torch.robust import faults
 from repro_torch.robust import (IntegrityError, checksum_array,
                                 classify_bad_keys, is_primary_key,
                                 repair_analytics, repair_fm_index,
@@ -79,28 +82,11 @@ def _to_jax(x, view=None):
 
 
 def _flip(tree, *, seed: int, leaf_match=None):
-    """The reference's ``flip_leaf_bit`` on a port structure: the same leaf
-    (paths and order are the reference's), byte and bit."""
-    from repro_torch.checkpoint.checkpoint import _walk
-    rng = np.random.default_rng(seed)
-    flat = list(flatten(tree)[0].items())
-    norm = (lambda k: k.replace(".", ""))
-    cand = [i for i, (k, a) in enumerate(flat)
-            if (leaf_match is None or norm(leaf_match) in norm(k))
-            and a.size > 0]
-    key = flat[cand[int(rng.integers(0, len(cand)))]][0]
-    paths = {id(leaf): "/".join(p) for p, leaf, _ in _walk(tree, (), None)}
-
-    def flip(t):
-        if paths[id(t)] != key:
-            return t
-        a = t.numpy().copy()
-        view = a.view(np.uint8).reshape(-1)
-        byte = int(rng.integers(0, view.size))
-        view[byte] ^= np.uint8(1 << int(rng.integers(0, 8)))
-        return torch.from_numpy(a)
-
-    return tree_map(flip, tree), key
+    """The port's ``flip_leaf_bit`` on a port structure: the reference's
+    leaf (paths and order are the reference's), byte and bit for one seed
+    (``tests/test_torch_faults.py``). Returns (tree, leaf key)."""
+    bad, where = faults.flip_leaf_bit(tree, seed=seed, leaf_match=leaf_match)
+    return bad, where.split(": ")[0]
 
 
 def _report(rep):
@@ -232,7 +218,7 @@ def test_checksum_tags_shape_and_dtype():
 def test_restore_detects_any_leaf_flip(seed, tmp_path):
     _, eng = _engine()
     _snap(eng, tmp_path)
-    where = jfaults.corrupt_snapshot_leaf(tmp_path, seed=seed)
+    where = faults.corrupt_snapshot_leaf(tmp_path, seed=seed)
     with pytest.raises(IntegrityError) as exc:
         load_analytics(tmp_path, repair=False, device="cpu")
     assert where.split(":")[0] in exc.value.bad_keys
@@ -243,7 +229,7 @@ def test_restore_detects_any_leaf_flip(seed, tmp_path):
 def test_derived_flip_repaired_bit_identical(frag, tmp_path):
     _, eng = _engine()
     _snap(eng, tmp_path)
-    jfaults.corrupt_snapshot_leaf(tmp_path, seed=7, leaf_match=frag)
+    faults.corrupt_snapshot_leaf(tmp_path, seed=7, leaf_match=frag)
     healed = load_analytics(tmp_path, device="cpu")
     assert trees_identical(healed.shards, eng.shards)
     # the same file heals to the same leaves in the reference
@@ -260,7 +246,7 @@ def test_derived_flip_repaired_bit_identical(frag, tmp_path):
 def test_primary_flip_escalates_to_rebuild(tmp_path):
     _, eng = _engine()
     _snap(eng, tmp_path)
-    jfaults.corrupt_snapshot_leaf(tmp_path, seed=9, leaf_match="rank/words")
+    faults.corrupt_snapshot_leaf(tmp_path, seed=9, leaf_match="rank/words")
     with pytest.raises(IntegrityError, match="primary") as exc:
         load_analytics(tmp_path, device="cpu")
     assert exc.value.bad_keys == [".bitvectors/.rank/.words"]
@@ -335,7 +321,7 @@ def test_latest_step_skips_truncated_npz(tmp_path):
     state = {"w": torch.arange(4096, dtype=torch.int32)}
     save_checkpoint(tmp_path, 0, state)
     save_checkpoint(tmp_path, 1, {"w": state["w"] + 1})
-    jfaults.truncate_file(tmp_path, "arrays.npz", keep_frac=0.3)
+    faults.truncate_file(tmp_path, "arrays.npz", keep_frac=0.3)
     assert latest_step(tmp_path) == 0
     restored, meta = restore_checkpoint(tmp_path, state, device="cpu")
     assert meta["step"] == 0
@@ -346,14 +332,14 @@ def test_latest_step_skips_half_deleted_dir(tmp_path):
     state = {"w": torch.ones(8, dtype=torch.int32)}
     save_checkpoint(tmp_path, 0, state)
     save_checkpoint(tmp_path, 1, state)
-    jfaults.delete_file(tmp_path, "meta.json")
+    faults.delete_file(tmp_path, "meta.json")
     assert latest_step(tmp_path) == 0
     assert not step_dir_valid(tmp_path / "step_00000001")
 
 
 def test_latest_step_ignores_partial_tmp_and_junk(tmp_path):
     save_checkpoint(tmp_path, 3, {"w": torch.ones(8, dtype=torch.int32)})
-    jfaults.inject_partial_tmp(tmp_path, step=99)
+    faults.inject_partial_tmp(tmp_path, step=99)
     (tmp_path / "step_junk").mkdir()
     assert latest_step(tmp_path) == 3
 
@@ -361,7 +347,7 @@ def test_latest_step_ignores_partial_tmp_and_junk(tmp_path):
 def test_no_valid_step_raises_filenotfound(tmp_path):
     _, eng = _engine()
     _snap(eng, tmp_path)
-    jfaults.truncate_file(tmp_path, "arrays.npz")
+    faults.truncate_file(tmp_path, "arrays.npz")
     with pytest.raises(FileNotFoundError):
         load_analytics(tmp_path, device="cpu")
     with pytest.raises(FileNotFoundError):
