@@ -154,6 +154,35 @@
    launched ``wm_level_step``, ``rank_build_levels``, ``radix_rank`` and
    ``bitpack``, serving ``wm_level_step``, ``rank_build_levels`` and
    ``wm_quantile_sharded``.
+11. Drives ``repro_torch.obs`` through step 4's engine and queries, with
+   metrics configured to a temporary directory (every count and the
+   registry set to 0 first). ``profiled_op`` of the 4,096 kernel quantiles
+   (20 repeats): the roofline must lie in (0, 1.05], the steady time
+   within 2x of step 5's wrapper time, and the work model's bytes must
+   equal the bytes step 5's bound counts for the batch. ``profile_op`` of
+   one 2^20-token shard build and of the 128-shard build: a peak-memory
+   rise above 0 and a roofline in (0, 1.05]. The front-end at overload 1
+   (step 10's configuration and trace): the ``serve.frontend.*`` counters
+   must account for every request as ``stats()`` does, and each op's
+   latency histogram count equal its served count; ``launch.obs`` renders
+   the capture as a table, ``--tree``, ``--prometheus`` and ``--html``. A
+   ``torch.profiler`` trace of the 20 quantile batches and one shard build
+   must name each kernel launched in it by its ``__global__`` name and
+   the ``obs.span`` names; the device-busy share of the window is
+   printed. The 20 quantile batches on the host clock with metrics on and
+   under ``obs.disabled()``, eight runs each in turns. Over the step, each
+   kernel's ``kernels.trace{route=cuda}`` counts must agree with the rise
+   of its launch count (``kernels.ops.TRACE_LAUNCHES``, printed; the
+   launches of the warm-up and the metrics-off runs are counted apart).
+   Then
+   ``launch.chaos --smoke --device cuda`` and the analytics, index and
+   front-end CLIs at ``--smoke`` with ``--metrics-dir`` and
+   ``--profile-dir``, four processes at once: each must exit 0 and write
+   ``snapshot.json``, chaos must pass every row and its overload rows must
+   equal the reference's ``FakeClock`` numbers (served 105, shed 295, 91
+   degraded, p99 79.2 ms). Chaos and the CLIs run at their documented
+   sizes. Prints the ``obs`` JSON line; each kernel row gains
+   ``obs_launches``.
 
 Exits non-zero on any failure; prints no result without a CUDA device or
 outside a checkout. The last line is the ``{"ok": true, ...}`` object.
@@ -1231,7 +1260,7 @@ def ingest_serving_phase(dev, toks: np.ndarray, seq: torch.Tensor, eng,
     from repro_torch.index import build_sharded_index
     from repro_torch.ingest import (GenerationServer, analytics_ingester,
                                     index_ingester)
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     from repro_torch.launch import frontend as fe_cli
     from repro_torch.robust import (CrashInjected, FakeClock, crash_after,
                                     inject_shard_latency, trees_identical,
@@ -1621,6 +1650,396 @@ def ingest_serving_phase(dev, toks: np.ndarray, seq: torch.Tensor, eng,
     print(f"ingest and serving: step 10 took {ingest['phase_s']:.3f} s on "
           f"the host clock")
     return ingest, serving, launches["ingest"], launches["serving"]
+
+
+#: the __global__ functions each launch counter covers, as a trace names them
+KERNEL_SYMBOLS = {"wm_quantile_sharded": ("wm_quantile_kernel",),
+                  "wm_level_step": ("wm_level_zeros_kernel",
+                                    "zero_scan_kernel"),
+                  "rank_build_levels": ("rank_build_levels_kernel",),
+                  "wt_level_step": ("zero_scan_kernel",),
+                  "radix_rank": ("radix_scan_kernel",),
+                  "bitpack": ("bitpack_kernel",)}
+OBS_KERNELS = ("wm_level_step", "rank_build_levels", "wm_quantile_sharded")
+METRICS_COST_ROUNDS = 4          # (on, off, off, on) rounds of 11.6
+OBS_CLI_TIMEOUT_S = 300
+#: the reference's FakeClock overload rows, which the port's chaos repeats
+CHAOS_OVERLOAD_ROWS = ("served 105, shed 295 (74%",
+                       "91 degraded answers, 0 violations", "p99 79.2ms",
+                       "over 105 accepted")
+
+
+def device_busy(trace_path: Path, span_names) -> dict:
+    """Kernel names, span names and, for each of ``span_names`` and for
+    the window from the first of them to the end of the last, the wall
+    time and the device-busy share (the union of the kernel, copy and set
+    intervals inside it over its wall time) of a ``torch.profiler``
+    chrome trace."""
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    device, names, user = [], set(), {}
+    for e in events:
+        cat = e.get("cat", "")
+        if e.get("ph") != "X":
+            continue
+        a, b = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append((a, b))
+            if cat == "kernel":
+                names.add(e["name"])
+        elif cat == "user_annotation":
+            lo, hi = user.get(e["name"], (a, b))
+            user[e["name"]] = (min(lo, a), max(hi, b))
+    device.sort()
+
+    def busy(lo: float, hi: float) -> dict:
+        total, end = 0.0, lo
+        for a, b in device:
+            a, b = max(a, end), min(b, hi)
+            if b > a:
+                total += b - a
+                end = b
+        return {"wall_s": (hi - lo) / 1e6, "busy_s": total / 1e6,
+                "busy_share": total / max(hi - lo, 1e-9)}
+
+    out = {"kernel_names": sorted(names), "span_names": sorted(user),
+           "spans": {n: busy(*user[n]) for n in span_names if n in user}}
+    if out["spans"]:
+        out["window"] = busy(min(user[n][0] for n in out["spans"]),
+                             max(user[n][1] for n in out["spans"]))
+    return out
+
+
+def obs_phase(dev, toks: np.ndarray, eng, queries, serve_batches,
+              wrapper_ms: float, batch_bytes: int):
+    """Step 11: ``repro_torch.obs`` through step 4's engine ``eng`` and its
+    queries at full width, metrics on; ``wrapper_ms`` is the quantile
+    kernel's wrapper time of step 5, ``batch_bytes`` the bytes its bound
+    counts for the batch ``queries``. Returns (report, launches)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.analytics.engine import build_sharded_analytics
+    from repro_torch.core.wavelet_matrix import build_wavelet_matrix
+    from repro_torch.ingest.serving import GenerationServer
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import frontend as fe_cli
+    from repro_torch.launch import obs as obs_cli
+    from repro_torch.serving import FrontendConfig, QueryFrontend
+
+    lo_t, hi_t, k_t = queries
+    report = {}
+    t_phase = time.perf_counter()
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_obs_")
+    mdir = Path(work.name) / "metrics"
+    obs.REGISTRY.reset()
+    obs.reset_shape_tracking()
+    obs.configure(mdir)
+    torch.cuda.synchronize()
+    # the earlier steps leave the caching allocator holding many blocks,
+    # which slows the small allocations of every quantile launch: return
+    # them, so the step times the serving path as a fresh server runs it
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    untraced = {name: 0 for name in build.launches}
+
+    def gauge(name: str, op: str) -> float:
+        return obs.REGISTRY.snapshot()["gauges"].get(f"{name}{{op={op}}}")
+
+    try:
+        # ---- 11.1 the quantile kernel under profiled_op ----------------
+        out, steady_s, first_s = obs.profiled_op(
+            "analytics", "quantile_kernel",
+            lambda e, a, b, c: e.range_quantile(a, b, c), eng, lo_t, hi_t,
+            k_t, batch=NUM_QUERIES, iters=20)
+        util = gauge("prof.roofline_util", "analytics.quantile_kernel")
+        nbytes = gauge("prof.bytes_accessed", "analytics.quantile_kernel")
+        print(f"obs: profiled_op analytics.quantile_kernel: steady "
+              f"{steady_s * 1e3:.6f} ms (step 5's wrapper {wrapper_ms:.6f} "
+              f"ms), first call {first_s * 1e3:.6f} ms, roofline {util}, "
+              f"work model {nbytes} B (step 5's bound {batch_bytes} B), "
+              f"{gauge('prof.int_ops', 'analytics.quantile_kernel')} int32 "
+              f"ops")
+        if util is None or not 0 < util <= 1.05:
+            fail(f"obs: quantile roofline {util} outside (0, 1.05]")
+        if not wrapper_ms / 2 <= steady_s * 1e3 <= 2 * wrapper_ms:
+            fail(f"obs: quantile steady {steady_s * 1e3:.6f} ms not within "
+                 f"2x of the wrapper's {wrapper_ms:.6f} ms")
+        if nbytes != batch_bytes:
+            fail(f"obs: the work model's {nbytes} B for the batch differ "
+                 f"from the bound's {batch_bytes} B")
+        report["quantile"] = {"steady_s": steady_s, "first_s": first_s,
+                              "roofline_util": util, "bytes": nbytes,
+                              "wrapper_ms": wrapper_ms}
+
+        # ---- 11.2 one shard build and the 128-shard build ----------------
+        shard0 = torch.from_numpy(toks[:1 << SHARD_BITS].astype(
+            np.int32)).to(dev)
+        builds = {}
+        for name, fn, args in (
+                ("analytics.construct_shard",
+                 lambda s: build_wavelet_matrix(s, SIGMA, tau=TAU,
+                                                sample_rate=SAMPLE_RATE,
+                                                device=dev), (shard0,)),
+                ("analytics.build_sharded",
+                 lambda: build_sharded_analytics(
+                     toks, SIGMA, shard_bits=SHARD_BITS, tau=TAU,
+                     sample_rate=SAMPLE_RATE, device=dev), ())):
+            _, st = obs.profile_op(name, fn, *args)
+            builds[name] = st
+            print(f"obs: profile_op {name}: steady {st.get('steady_s')} s, "
+                  f"first call {st.get('compile_s')} s, roofline "
+                  f"{st.get('roofline_util')} ({st.get('bound')}-bound), "
+                  f"{st.get('bytes_accessed')} B and {st.get('int_ops')} "
+                  f"int32 ops in the kernels, peak rise "
+                  f"{st.get('peak_bytes')} B")
+            if "error" in st or not st.get("peak_bytes", 0) > 0:
+                fail(f"obs: {name}: no peak memory ({st})")
+            if not 0 < st.get("roofline_util", 0) <= 1.05:
+                fail(f"obs: {name}: roofline {st.get('roofline_util')} "
+                     f"outside (0, 1.05]")
+        report["builds"] = builds
+        del shard0
+
+        # ---- 11.4 the front-end at overload 1, metrics on --------------
+        trace = fe_cli.make_trace(eng.n, FE_REQUESTS, 0, base_qps=200.0,
+                                  burst_qps=2000.0, burst_every_s=2.0,
+                                  burst_len_s=0.5, deadline_s=FE_DEADLINE_S,
+                                  topk_k=FE_TOPK)
+        fe = QueryFrontend(GenerationServer(eng), config=FrontendConfig(
+            buckets=FE_BUCKETS, capacity=FE_CAPACITY,
+            default_deadline_s=FE_DEADLINE_S, topk_k=FE_TOPK,
+            breaker=fe_cli.CLI_BREAKER))
+        before = build.launches.copy()
+        fe_cli.warm_up(fe, eng.n, SIGMA)              # metrics off inside
+        for name, v in build.launches.items():
+            untraced[name] += v - before[name]
+        st0 = fe.stats()
+        fe.start()
+        t0 = time.perf_counter()
+        try:
+            with obs.span("frontend.drive", requests=len(trace),
+                          overload=1.0):
+                results = fe_cli.collect(fe_cli.drive(fe, trace, 1.0,
+                                                      SIGMA))
+            wall = time.perf_counter() - t0
+        finally:
+            fe.stop(drain=True)
+        out = fe_cli.report(fe, trace, results, wall)
+        st = fe.stats()
+        snap = obs.REGISTRY.snapshot()
+        c, h = snap["counters"], snap["histograms"]
+
+        def total(prefix: str, **want) -> int:
+            got = 0
+            for key, v in c.items():
+                name, labels = obs.parse_key(key)
+                if name == prefix and all(labels.get(k_) == v_
+                                          for k_, v_ in want.items()):
+                    got += v
+            return got
+
+        submitted, served = (total("serve.frontend.submitted"),
+                             total("serve.frontend.served"))
+        shed = total("serve.frontend.shed")
+        queued = snap["gauges"].get("serve.frontend.queue_depth")
+        print(f"obs: front-end x1 counters: submitted {submitted}, served "
+              f"{served}, shed {shed}, queue depth {queued}; stats() "
+              f"{json.dumps({k_: st[k_] - st0[k_] for k_ in ('submitted', 'served', 'total_shed')})}"
+              f" over the drive, {st['queued']} queued; {out['served']} "
+              f"served, {out['shed']} shed, p99 {out['p99_ms']:.3f} ms")
+        if submitted != len(trace):
+            fail(f"obs: {submitted} submitted counted, {len(trace)} sent")
+        if (served + shed + queued != submitted
+                or served != st["served"] - st0["served"]
+                or shed != st["total_shed"] - st0["total_shed"]
+                or queued != st["queued"]):
+            fail(f"obs: front-end counters {served} + {shed} + {queued} "
+                 f"disagree with stats() {st} (from {st0})")
+        for op in ("count", "quantile", "topk"):
+            n_op = h.get(f"serve.frontend.{op}.latency_s", {}).get("count", 0)
+            if n_op != total("serve.frontend.served", op=op):
+                fail(f"obs: {op}: {n_op} latencies, "
+                     f"{total('serve.frontend.served', op=op)} served")
+        report["frontend"] = {"submitted": submitted, "served": served,
+                              "shed": shed, "queued": queued,
+                              "p99_ms": out["p99_ms"], "wall_s": wall}
+        obs.write_snapshot()
+        sink = io.StringIO()
+        for mode in ([], ["--tree"], ["--prometheus"],
+                     ["--html", str(Path(work.name) / "dash.html")]):
+            with contextlib.redirect_stdout(sink):
+                rc = obs_cli.main([str(mdir), *mode])
+            if rc != 0:
+                fail(f"obs: launch.obs {mode} exited {rc}")
+        print(f"obs: launch.obs rendered the capture (table, --tree, "
+              f"--prometheus, --html): {len(sink.getvalue())} characters")
+
+        # ---- 11.5 a torch.profiler trace of a short window -------------
+        pdir = Path(work.name) / "profile"
+        window0 = build.launches.copy()
+        torch.cuda.synchronize()
+        obs.start_trace(pdir)
+        with obs.span("analytics.serve", queries=NUM_QUERIES):
+            for b in serve_batches:
+                eng.range_quantile(*b)
+        with obs.span("analytics.build", n=1 << SHARD_BITS) as sp:
+            sp.sync(build_wavelet_matrix(
+                torch.from_numpy(toks[:1 << SHARD_BITS].astype(np.int32)
+                                 ).to(dev), SIGMA, tau=TAU,
+                sample_rate=SAMPLE_RATE, device=dev))
+        path = obs.stop_trace()
+        window = device_busy(path, ("analytics.serve", "analytics.build"))
+        in_window = [k_ for k_, v in build.launches.items()
+                     if v > window0[k_]]
+        want = {sym for k_ in in_window for sym in KERNEL_SYMBOLS[k_]}
+        missing = sorted(sym for sym in want if not any(
+            sym in name for name in window["kernel_names"]))
+        spans_missing = sorted({"analytics.serve", "analytics.build"}
+                               - set(window["span_names"]))
+        if missing or spans_missing:
+            print(f"obs: kernels in the trace: {window['kernel_names']}")
+            fail(f"obs: the trace misses kernels {missing} or spans "
+                 f"{spans_missing}")
+        for name, b in [*window["spans"].items(),
+                        ("both", window["window"])]:
+            print(f"obs: torch.profiler trace, {name}: {b['wall_s']:.6f} s "
+                  f"wall, device busy {b['busy_s']:.6f} s "
+                  f"({100 * b['busy_share']:.3f}%)")
+        print(f"obs: the trace names {sorted(want)} and the spans")
+        window.pop("span_names")
+        window["kernel_names"] = [name[:120] for name in
+                                  window["kernel_names"]]
+        report["trace_window"] = window
+
+        # ---- 11.6 the cost of metrics on the quantile batches ----------
+        def serve_rate() -> tuple[float, float]:
+            ts = []
+            for b in serve_batches:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                eng.range_quantile(*b)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t1)
+            return (len(ts) * NUM_QUERIES / sum(ts),
+                    float(np.median(ts)))
+
+        cost = {"on": [], "off": []}
+        for mode in ("on", "off", "off", "on") * METRICS_COST_ROUNDS:
+            if mode == "on":
+                cost["on"].append(serve_rate())
+            else:
+                before = build.launches.copy()
+                with obs.disabled():
+                    cost["off"].append(serve_rate())
+                for name, v in build.launches.items():
+                    untraced[name] += v - before[name]
+        for mode, runs in cost.items():
+            cost[mode] = {"qps": [r[0] for r in runs],
+                          "median_batch_s": [r[1] for r in runs]}
+            cost[mode]["median_of_medians_s"] = float(np.median(
+                cost[mode]["median_batch_s"]))
+        print(f"obs: {SERVE_BATCHES} quantile batches on the host clock, "
+              f"{2 * METRICS_COST_ROUNDS} runs each in turns (on, off, off, "
+              f"on): metrics on {cost['on']['qps']} q/s, median batch "
+              f"{cost['on']['median_batch_s']} s; obs.disabled() "
+              f"{cost['off']['qps']} q/s, median batch "
+              f"{cost['off']['median_batch_s']} s; the median of the "
+              f"medians {cost['on']['median_of_medians_s']:.9f} s on, "
+              f"{cost['off']['median_of_medians_s']:.9f} s off")
+        report["metrics_cost"] = cost
+
+        # ---- 11.3 trace counters against the launch log ----------------
+        torch.cuda.synchronize()
+        launches = dict(build.launches)
+        traced = {name: [0, 0] for name in build.launches}
+        for key, v in obs.REGISTRY.snapshot()["counters"].items():
+            name, labels = obs.parse_key(key)
+            if name == "kernels.trace" and labels.get("route") == "cuda":
+                kernel, least, most = ops.TRACE_LAUNCHES[labels["op"]]
+                traced[kernel][0] += least * v
+                traced[kernel][1] += most * v
+        bad = {name: (traced[name], launches[name] - untraced[name])
+               for name in launches
+               if not traced[name][0] <= launches[name] - untraced[name]
+               <= traced[name][1]}
+        print(f"obs: kernels.trace op -> (launch counter, launches a trace: "
+              f"least, most) {json.dumps(ops.TRACE_LAUNCHES)}")
+        print(f"obs: launches over step 11 {json.dumps(launches)} "
+              f"({json.dumps({k_: v for k_, v in untraced.items() if v})} "
+              f"with metrics off); traced {json.dumps(traced)}")
+        if bad:
+            fail(f"obs: kernels.trace{{route=cuda}} counts disagree with "
+                 f"build.launches: {bad}")
+        missing = [k_ for k_ in OBS_KERNELS if launches[k_] <= 0]
+        if missing:
+            fail(f"kernels not launched in step 11: {missing}")
+        report["launches"] = launches
+        report["untraced_launches"] = untraced
+        obs.configure(None)
+
+        # ---- 11.7 chaos and the three CLIs on the card ------------------
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   PYTHONIOENCODING="utf-8")
+        runs = {}
+        for name, args in (
+                ("chaos", ["--smoke", "--device", "cuda"]),
+                ("analytics", ["--smoke", "--device", "cuda"]),
+                ("index", ["--smoke", "--device", "cuda", "--drop-shards",
+                           "1,3"]),
+                ("frontend", ["--smoke", "--device", "cuda"])):
+            d = Path(work.name) / name
+            extra = ["--metrics-dir", str(d / "metrics")]
+            if name != "chaos":
+                extra += ["--profile-dir", str(d / "profile")]
+            runs[name] = (subprocess.Popen(
+                [sys.executable, "-m", f"repro_torch.launch.{name}", *args,
+                 *extra], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                env=env, cwd=str(ROOT), text=True, encoding="utf-8"), d,
+                time.perf_counter())
+        clis = {}
+        for name, (proc, d, t1) in runs.items():
+            try:
+                text, _ = proc.communicate(timeout=OBS_CLI_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                for other, _, _ in runs.values():
+                    other.kill()
+                fail(f"obs: launch.{name} ran past {OBS_CLI_TIMEOUT_S} s")
+            lines = text.splitlines()
+            clis[name] = {"rc": proc.returncode,
+                          "s": time.perf_counter() - t1,
+                          "snapshot": (d / "metrics" / "snapshot.json"
+                                       ).exists()}
+            if proc.returncode != 0 or not clis[name]["snapshot"]:
+                print("\n".join(lines[-40:]).encode("ascii", "replace")
+                      .decode(), file=sys.stderr)
+                fail(f"obs: launch.{name} exited {proc.returncode}, "
+                     f"snapshot.json written: {clis[name]['snapshot']}")
+            if name == "chaos":
+                rows = [ln for ln in lines if "[PASS]" in ln
+                        or "[FAIL]" in ln]
+                done = [ln for ln in lines if "scenarios survived" in ln]
+                got = [want for want in CHAOS_OVERLOAD_ROWS
+                       if any(want in ln for ln in rows)]
+                clis[name].update(rows=len(rows),
+                                  overload=[ln for ln in rows
+                                            if "overload" in ln])
+                if not done or len(got) != len(CHAOS_OVERLOAD_ROWS):
+                    fail(f"obs: chaos: {done}, overload rows "
+                         f"{clis[name]['overload']}")
+                print(f"obs: chaos: {len(rows)} rows, all passed, the "
+                      f"overload rows equal the reference's FakeClock rows")
+        print(f"obs: chaos and the analytics, index and front-end CLIs at "
+              f"--smoke on the card: {json.dumps(clis)}")
+        report["clis"] = clis
+    finally:
+        obs.configure(None)
+        work.cleanup()
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"obs: step 11 took {report['phase_s']:.3f} s on the host clock")
+    return report, launches
 
 
 def check_frontend_answers(full, seq: torch.Tensor, trace: list,
@@ -2567,6 +2986,13 @@ def main() -> None:
     # ---- 10. crash-safe ingest and the query front-end at full width ----
     ingest, serving, ingest_launches, serving_launches = ingest_serving_phase(
         dev, toks, seq, eng, (lo, hi, k), quant)
+
+    # ---- 11. repro_torch.obs through the engine, the CLIs and chaos -----
+    wrapper_ms = next(row["ms"] for row in kernels
+                      if row["name"] == "wm_quantile_sharded")
+    obs_report, obs_launches = obs_phase(
+        dev, toks, eng, (lo_t, hi_t, k_t), serve_batches, wrapper_ms,
+        quantile_bytes(sectors))
     del eng
     for row in kernels:
         row["construction_launches"] = phase_launches[row["name"]]
@@ -2574,12 +3000,14 @@ def main() -> None:
         row["analytics_launches"] = analytics_launches[row["name"]]
         row["ingest_launches"] = ingest_launches[row["name"]]
         row["serving_launches"] = serving_launches[row["name"]]
+        row["obs_launches"] = obs_launches[row["name"]]
 
     print(json.dumps({"construction": construction}))
     print(json.dumps({"index": index}))
     print(json.dumps({"analytics": analytics}))
     print(json.dumps({"ingest": ingest}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"obs": obs_report}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": kernels}))
     if any(row["check"] != "pass" for row in kernels):

@@ -20,6 +20,12 @@ local ranges of unavailable shards, so every op serves the surviving data;
 the quantile then takes the plain descent, as the reference sends degraded
 mode to XLA. ``coverage`` reports the covered fraction of each query and
 the ``*_bounds`` forms bracket the full-corpus answer.
+
+Counters (the reference's): ``analytics.op{op}`` an engine query,
+``analytics.path{op=quantile, path=kernel|degraded_torch}`` the quantile's
+route (the reference's ``path=xla``/``degraded_xla`` for its XLA
+descent; the port's engine takes the kernel route whenever every shard is
+available) and ``ingest.shard_swap{layer=analytics}`` an ``add_shards``.
 """
 from __future__ import annotations
 
@@ -28,10 +34,11 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.wavelet_matrix import (WaveletMatrix, wm_child_interval,
                                              wm_interval_zeros)
-from repro_torch.kernels.wm_quantile import (QuantileOperands,
-                                             wm_quantile_sharded)
+from repro_torch.kernels import ops
+from repro_torch.kernels.wm_quantile import QuantileOperands
 from repro_torch.tree import tree_leaves, tree_map
 
 from . import range_ops
@@ -133,9 +140,11 @@ def sharded_range_quantile_fused(shards: WaveletMatrix, shard_bits: int,
     one-off call: it fixes the kernel's operands for this call alone, where
     :meth:`ShardedAnalytics.range_quantile` reuses its engine's."""
     if available is not None:
+        obs.counter("analytics.path", op="quantile",
+                    path="degraded_torch").inc()
         return sharded_range_quantile(shards, shard_bits, n, lo, hi, k,
                                       available)
-    from repro_torch.kernels import ops
+    obs.counter("analytics.path", op="quantile", path="kernel").inc()
     return ops.wm_quantile_sharded_batch(shards, shard_bits, n, lo, hi, k)
 
 
@@ -255,7 +264,6 @@ class ShardedAnalytics:
 
     def __post_init__(self):
         if self.quantile is None:
-            from repro_torch.kernels import ops
             object.__setattr__(self, "quantile", ops.quantile_operands(
                 self.shards, self.shard_bits, self.n))
 
@@ -354,6 +362,7 @@ class ShardedAnalytics:
             mask = torch.cat([old, new])
             if bool(mask.all()):
                 mask = None
+        obs.counter("ingest.shard_swap", layer="analytics").inc()
         return dataclasses.replace(self, shards=merged,
                                    n=self.n + added_tokens, available=mask,
                                    quantile=None)
@@ -363,14 +372,19 @@ class ShardedAnalytics:
         """Global k-th smallest in [lo, hi) for (Q,) batches: the
         ``wm_quantile_sharded`` kernel on a CUDA engine, its plain version on
         a CPU engine, the plain descent under an availability mask."""
+        obs.counter("analytics.op", op="quantile").inc()
         if self.available is not None:
+            obs.counter("analytics.path", op="quantile",
+                        path="degraded_torch").inc()
             return sharded_range_quantile(self.shards, self.shard_bits,
                                           self.n, lo, hi, k, self.available)
-        return wm_quantile_sharded(self.quantile, lo, hi, k)
+        obs.counter("analytics.path", op="quantile", path="kernel").inc()
+        return ops.wm_quantile(self.quantile, lo, hi, k)
 
     def range_quantile_bracket(self, lo, hi, k, levels: int):
         """(sym_lo, sym_hi) bracketing the exact k-th smallest after a
         descent cut to ``levels`` bit levels."""
+        obs.counter("analytics.op", op="quantile_bracket").inc()
         return sharded_range_quantile_bracket(self.shards, self.shard_bits,
                                               self.n, lo, hi, k, levels,
                                               self.available)
@@ -397,42 +411,49 @@ class ShardedAnalytics:
         if delay > 0:
             clock.sleep(delay)
         lo = int(s) << self.shard_bits
-        out = wm_quantile_sharded(self.quantile, [lo], [lo + 1], [0])
+        out = ops.wm_quantile(self.quantile, [lo], [lo + 1], [0])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return bool(out[0] >= 0)
 
     def range_count(self, lo, hi, sym_lo, sym_hi) -> torch.Tensor:
+        obs.counter("analytics.op", op="count").inc()
         return sharded_range_count(self.shards, self.shard_bits, self.n, lo,
                                    hi, sym_lo, sym_hi, self.available)
 
     def range_count_bounds(self, lo, hi, sym_lo, sym_hi):
         """(lower, upper, coverage) bracketing the full-corpus count."""
+        obs.counter("analytics.op", op="count_bounds").inc()
         return sharded_range_count_bounds(self.shards, self.shard_bits,
                                           self.n, lo, hi, sym_lo, sym_hi,
                                           self.available)
 
     def range_topk(self, lo, hi, k: int):
+        obs.counter("analytics.op", op="topk").inc()
         return sharded_range_topk(self.shards, self.shard_bits, self.n, lo,
                                   hi, k, self.available)
 
     def range_topk_greedy(self, lo, hi, k: int, budget: int | None = None,
                           prune: bool = True):
+        obs.counter("analytics.op", op="topk_greedy").inc()
         return sharded_range_topk_greedy(self.shards, self.shard_bits,
                                          self.n, lo, hi, k, budget, prune,
                                          self.available)
 
     def range_distinct(self, lo, hi) -> torch.Tensor:
+        obs.counter("analytics.op", op="distinct").inc()
         return sharded_range_distinct(self.shards, self.shard_bits, self.n,
                                       lo, hi, self.available)
 
     def range_histogram(self, lo, hi) -> torch.Tensor:
+        obs.counter("analytics.op", op="histogram").inc()
         return sharded_range_histogram(self.shards, self.shard_bits, self.n,
                                        lo, hi, self.available)
 
     def range_histogram_bounds(self, lo, hi):
         """(hist_lower, uncovered, coverage): true per-symbol counts lie in
         [hist_lower[c], hist_lower[c] + uncovered]."""
+        obs.counter("analytics.op", op="histogram_bounds").inc()
         return sharded_range_histogram_bounds(self.shards, self.shard_bits,
                                               self.n, lo, hi, self.available)
 

@@ -13,7 +13,10 @@ into it, bit-exactly.
 Restores are verified (per-leaf crc32 from ``meta.json``) and self-healing:
 corrupted *derived* leaves are recomputed from the level bitmaps and
 re-checked against the recorded checksums; only primary bitmap corruption
-escapes as ``IntegrityError`` (rebuild from source).
+escapes as ``IntegrityError`` (rebuild from source). A load records the
+reference's ``analytics.load`` span (``.restore`` and ``.repair`` inside
+it), its ``robust.restore{outcome}`` counter and, on a checksum mismatch,
+the ``integrity.corrupt`` event.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.core.rank_select import (BLOCK_WORDS, SUPERBLOCK_WORDS,
@@ -124,26 +128,45 @@ def load_analytics(directory: str | Path, step: Optional[int] = None,
                                 sigma=meta["sigma"],
                                 shard_bits=meta["shard_bits"])
 
-    try:
-        shards, _ = restore_checkpoint(directory, target, step=step,
-                                       device=device, verify=verify)
-        return make(shards)
-    except IntegrityError as err:
-        if not repair:
-            raise
-        derived, primary = classify_bad_keys(err.bad_keys)
-        if primary:
-            raise IntegrityError(
-                primary, where=f"{directory} (primary bitmaps corrupt — "
-                "repair impossible, rebuild from source)") from err
-        shards, _ = restore_checkpoint(directory, target, step=step,
-                                       device=device, verify=False)
-        engine = repair_analytics(make(shards))
-        want = meta.get("leaf_crc32", {})
-        got = tree_checksums(engine.shards)
-        still_bad = sorted(k for k in derived if got.get(k) != want.get(k))
-        if still_bad:
-            raise IntegrityError(
-                still_bad, where=f"{directory} (repair did not converge)"
-            ) from err
-        return engine
+    with obs.span("analytics.load", dir=str(directory), step=step) as lsp:
+        try:
+            with obs.span("analytics.load.restore", verify=verify):
+                shards, _ = restore_checkpoint(directory, target, step=step,
+                                               device=device, verify=verify)
+            obs.counter("robust.restore", outcome="clean").inc()
+            lsp.set("outcome", "clean")
+            return make(shards)
+        except IntegrityError as err:
+            if not repair:
+                obs.counter("robust.restore",
+                            outcome="corrupt_norepair").inc()
+                lsp.set("outcome", "corrupt_norepair")
+                raise
+            derived, primary = classify_bad_keys(err.bad_keys)
+            obs.event("integrity.corrupt", derived=len(derived),
+                      primary=len(primary))
+            if primary:
+                obs.counter("robust.restore",
+                            outcome="primary_corrupt").inc()
+                lsp.set("outcome", "primary_corrupt")
+                raise IntegrityError(
+                    primary, where=f"{directory} (primary bitmaps corrupt — "
+                    "repair impossible, rebuild from source)") from err
+            with obs.span("analytics.load.repair", bad_leaves=len(derived)):
+                shards, _ = restore_checkpoint(directory, target, step=step,
+                                               device=device, verify=False)
+                engine = repair_analytics(make(shards))
+                want = meta.get("leaf_crc32", {})
+                got = tree_checksums(engine.shards)
+            still_bad = sorted(k for k in derived
+                               if got.get(k) != want.get(k))
+            if still_bad:
+                obs.counter("robust.restore",
+                            outcome="repair_diverged").inc()
+                lsp.set("outcome", "repair_diverged")
+                raise IntegrityError(
+                    still_bad, where=f"{directory} (repair did not converge)"
+                ) from err
+            obs.counter("robust.restore", outcome="repaired").inc()
+            lsp.set("outcome", "repaired")
+            return engine

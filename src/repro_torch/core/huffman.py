@@ -22,6 +22,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from .rank_select import (BinaryRank, _rank1_at, build_binary_rank,
                           partition_select, partition_select_directory)
 from .scan import (exclusive_sum, segment_ids_from_starts,
@@ -181,8 +182,11 @@ def build_huffman_wavelet_tree(seq, codes, lengths, max_len: int,
 
     The reference takes the scatter path for a traced codebook; a torch
     codebook is always concrete, so here ``fused=True`` with ``max_len >
-    1`` always takes the fused path. Codewords are left-justified in 32
-    bits, as the reference's uint32 does: ``max_len`` above 32 raises.
+    1`` always takes the fused path, and the reference's
+    ``core.huffman_traced_codebook_fallback`` counter has no counterpart.
+    Codewords are left-justified in 32 bits, as the reference's uint32
+    does: ``max_len`` above 32 raises. Counts ``core.build{builder=huffman,
+    path}``.
     """
     if max_len > 32:
         raise ValueError(f"max_len {max_len} > 32: codewords are "
@@ -192,7 +196,10 @@ def build_huffman_wavelet_tree(seq, codes, lengths, max_len: int,
     codes_np, lengths_np = (np.asarray(
         x.cpu() if isinstance(x, torch.Tensor) else x).astype(np.int64)
         for x in (codes, lengths))
-    if fused and max_len > 1:
+    take_fused = fused and max_len > 1
+    obs.counter("core.build", builder="huffman",
+                path="fused" if take_fused else "scatter").inc()
+    if take_fused:
         return _build_huffman_fused(sidx, codes_np, lengths_np, max_len)
     n = sidx.shape[0]
     on_card = dev.type == "cuda"

@@ -15,6 +15,7 @@ from typing import List
 
 import torch
 
+from .. import obs
 from .rank_select import (GeneralizedRankSelect, build_generalized,
                           build_generalized_from_counts, field_node_counts,
                           generalized_access, generalized_rank,
@@ -89,6 +90,8 @@ def build_multiary_wavelet_tree(seq, sigma: int, width: int = 2,
     n = order.shape[0]
     nbits = max(1, math.ceil(math.log2(max(2, sigma))))
     nlevels = (nbits + width - 1) // width
+    obs.counter("core.build", builder="multiary",
+                path="fused" if fused else "scatter").inc()
     if fused:
         return _build_multiary_fused(order, width, nlevels, n, chunk_syms)
     total_bits = width * nlevels

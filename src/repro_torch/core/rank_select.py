@@ -25,6 +25,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from . import bitops
 from .scan import lift, take
 from ..tree import tree_leaves
@@ -290,8 +291,11 @@ def build_bitvector_levels(words: torch.Tensor, n: int,
 
     ``use_kernels`` routes the rank tables through
     ``kernels.ops.rank_build_levels`` (one launch for all rows); the select
-    samples stay plain torch, as they stay XLA in the reference.
+    samples stay plain torch, as they stay XLA in the reference. Counts
+    ``core.rank_build{impl=kernel|torch}`` (the reference's ``impl=xla``).
     """
+    obs.counter("core.rank_build",
+                impl="kernel" if use_kernels else "torch").inc()
     if use_kernels:
         from repro_torch.kernels import ops
         superblock, block = ops.rank_build_levels(

@@ -25,6 +25,12 @@ pack through the ``bitpack`` kernel and the radix big step ranks through
 Sequences may carry one leading batch axis (S, n): each row is built into
 its own matrix and every leaf gains that leading axis — the stacked shard
 layout, with one level of all shards per kernel launch.
+
+Counters (the reference's): ``core.build{builder, path}`` a build and
+``core.level_step{builder=wm, impl=kernel|torch}`` a level of the fused
+build (the reference's ``impl=xla``). The reference's
+``core.kernel_guard_trip`` guards jit's batch tracers, which the port does
+not have, and has no counterpart here.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import obs
 from . import bitops
 from .rank_select import (BitVector, access_bit, build_bitvector,
                           build_bitvector_levels, rank0, rank1, select0,
@@ -121,6 +128,8 @@ def build_wavelet_matrix(seq, sigma: int, tau: int = 8,
     dev, order, batched = _input_rows(seq, device)
     if use_kernels is None:
         use_kernels = dev.type == "cuda"
+    obs.counter("core.build", builder="wm",
+                path="fused" if fused else "scatter").inc()
     if not fused:
         return _build_wavelet_matrix_steps(order, sigma, tau, big_step,
                                            sample_rate, use_kernels,
@@ -151,6 +160,8 @@ def build_wavelet_matrix(seq, sigma: int, tau: int = 8,
             # big step re-sorts from the chunk-start order)
             move = (alpha0 + t < nbits - 1) and (t < width - 1
                                                  or idx is not None)
+            obs.counter("core.level_step", builder="wm",
+                        impl="kernel" if use_kernels else "torch").inc()
             if use_kernels:
                 dest, words, z = ops.wm_level_step(
                     sub, shift, n, level_zeros[:, alpha0 + t])
@@ -230,6 +241,7 @@ def build_wavelet_matrix_levelwise(seq, sigma: int, sample_rate: int = 512,
     symbols moved by a stable 0/1 partition at every level. ``seq``: (n,)
     or (S, n), moved to ``device``; on a CUDA device the level bitmaps pack
     through the ``bitpack`` kernel."""
+    obs.counter("core.build", builder="wm_levelwise", path="scatter").inc()
     dev, order, batched = _input_rows(seq, device)
     n = order.shape[-1]
     nbits = num_levels(sigma)

@@ -26,6 +26,12 @@ CUDA device their level bitmaps pack through ``bitpack`` and the
 unfused radix big step ranks through ``radix_rank`` where
 ``core.sort.counting_rank`` routes it; their directories are plain torch,
 as the reference builds them without kernels.
+
+Counters (the reference's): ``core.build{builder, path}`` a build,
+``core.level_step{builder=wt, impl=kernel|torch}`` a moving level of the
+fused build (the reference's ``impl=xla``) and ``core.wt_deep_fallback
+{level}`` a level too deep for the ``wt_level`` kernel on the kernel
+route.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import List
 
 import torch
 
+from .. import obs
 from . import bitops
 from .rank_select import (BitVector, access_bit, build_bitvector,
                           build_bitvector_levels, rank0, rank1,
@@ -174,6 +181,8 @@ def build_wavelet_tree(seq, sigma: int, tau: int = 8,
     dev, order = _input(seq, device)
     if use_kernels is None:
         use_kernels = dev.type == "cuda"
+    obs.counter("core.build", builder="wt",
+                path="fused" if fused else "scatter").inc()
     if not fused:
         return _build_wavelet_tree_steps(order, sigma, tau, big_step,
                                          sample_rate, use_kernels)
@@ -196,6 +205,16 @@ def build_wavelet_tree(seq, sigma: int, tau: int = 8,
             # movement arranges the next level; at the chunk's last level
             # only a compose big step still consumes the permutation
             move = l < nbits - 1 and (t < width - 1 or need_idx)
+            if move:
+                kernel_ok = _wt_kernel_fits(l)
+                if use_kernels and not kernel_ok:
+                    # 2^(l+1) buckets exceed the wt_level kernel's bound:
+                    # the deep levels are plain torch, counted so profiles
+                    # show the fallback
+                    obs.counter("core.wt_deep_fallback", level=l).inc()
+                obs.counter("core.level_step", builder="wt",
+                            impl="kernel" if use_kernels and kernel_ok
+                            else "torch").inc()
             if move and use_kernels and _wt_kernel_fits(l):
                 from repro_torch.kernels import ops
                 nid = _level_nid(node_starts, l, n)
@@ -280,6 +299,8 @@ def build_wavelet_tree_levelwise(seq, sigma: int, sample_rate: int = 512,
     symbols split per node at every level. ``fused=True`` applies each
     split as a segmented select-gather, ``fused=False`` as the inverse of
     its scatter destinations; the same tree either way."""
+    obs.counter("core.build", builder="wt_levelwise",
+                path="fused" if fused else "scatter").inc()
     dev, order = _input(seq, device)
     on_card = dev.type == "cuda"
     n = order.shape[0]
@@ -335,6 +356,8 @@ def build_wavelet_tree_dd(seq, sigma: int, num_chunks: int,
     inverse of the scatter destinations and merges by an element scatter.
     The same tree either way.
     """
+    obs.counter("core.build", builder="wt_dd",
+                path="fused" if fused else "scatter").inc()
     dev, order = _input(seq, device)
     on_card = dev.type == "cuda"
     n = order.shape[0]

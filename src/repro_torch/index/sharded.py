@@ -18,6 +18,9 @@ stream, and a sliding compare counts the matches that cross the boundary
 (within-shard matches are excluded by the crossing condition, so nothing
 is counted twice). Counts are exact for pattern lengths ≤ min(seam_overlap
 + 1, shard_size). ``locate`` reports within-shard positions only.
+
+Counters (the reference's): ``index.op{op, path=full|degraded}`` a query
+and ``ingest.shard_swap{layer=index}`` an ``add_shards``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -180,6 +184,7 @@ class ShardedTextIndex:
             mask = torch.cat([old, new])
             if bool(mask.all()):
                 mask = None
+        obs.counter("ingest.shard_swap", layer="index").inc()
         return dataclasses.replace(self, shards=merged, seam_windows=seams,
                                    n=self.n + added_tokens, available=mask)
 
@@ -215,6 +220,8 @@ class ShardedTextIndex:
         windows. Exact for lengths ≤ min(seam_overlap + 1, shard_size). On
         a degraded index this counts surviving shards only (a lower bound
         on the true count; ``count_bounds`` brackets it)."""
+        obs.counter("index.op", op="count",
+                    path="degraded" if self.degraded else "full").inc()
         within = self.count_by_shard(patterns, lengths).sum(0)
         seams = self._seam_count(*self._sanitize(patterns, lengths))
         return (within + seams).to(torch.int32)
@@ -228,6 +235,8 @@ class ShardedTextIndex:
         ``upper = lower + unavailable_positions + skipped_seams·(len−1)``.
         Fully available indexes return lower == upper, coverage 1.0.
         """
+        obs.counter("index.op", op="count_bounds",
+                    path="degraded" if self.degraded else "full").inc()
         lower = self.count(patterns, lengths)
         if self.available is None:
             return lower, lower, self.coverage()
@@ -298,6 +307,8 @@ class ShardedTextIndex:
         each shard's true hit count are -1. Sorted ascending per pattern
         with the -1 padding swept to the back.
         """
+        obs.counter("index.op", op="locate",
+                    path="degraded" if self.degraded else "full").inc()
         patterns, lengths = self._sanitize(patterns, lengths)
         local = fm_locate(self.shards, patterns, lengths,
                           max_hits_per_shard)                   # (S, B, H)

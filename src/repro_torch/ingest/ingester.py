@@ -36,6 +36,11 @@ built or launched, a CUDA error or the card's memory running out
 (``kernels.build.DEVICE_ERRORS``) is not a failure of the shard's data:
 it propagates out of the commit (after ``with_retry``'s attempts) and is
 never quarantined.
+
+Telemetry (the reference's): the ``ingest.recover`` and ``ingest.commit``
+spans, ``ingest.replay``, ``ingest.quarantine{reason}`` and
+``ingest.shard_commit{outcome}`` counters, the ``ingest.generation`` gauge
+and the ``ingest.corrupt_committed`` / ``ingest.recovered`` events.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint.checkpoint import _rebuild, flatten
 from repro_torch.device import resolve_device
 from repro_torch.kernels.build import DEVICE_ERRORS
@@ -203,46 +209,62 @@ class ShardIngester:
         Idempotent: a second replay (or a crash during recovery) converges
         to the same state.
         """
-        st = load_manifest(self.directory)
-        rep = RecoveryReport(torn_tail=st.torn_tail)
-        for e in st.pending:                    # INTENT without COMMIT
-            final = self.shards_dir / (e.file or "")
-            tmp = self.shards_dir / f".tmp_{e.file}"
-            if e.file and final.exists():
-                shutil.move(str(final), str(self.quarantine_dir / e.file))
-            if e.file and tmp.exists():
-                tmp.unlink()
-            append_record(self.manifest,
-                          {"type": "ABORT", "gen": e.gen,
-                           "reason": "intent_without_commit"},
-                          fsync=self.fsync)
-            rep.aborted.append(e.gen)
-            e.status = "aborted"
-        known = {f".tmp_{e.file}" for e in st.entries.values() if e.file}
-        for t in self.shards_dir.glob(".tmp_shard_*.npz"):
-            if t.name not in known:
-                t.unlink()
-                rep.stray_tmps += 1
-        if verify_committed:
-            for e in st.committed:
-                bad = self._committed_defect(e)
-                if bad:
-                    if (self.shards_dir / e.file).exists():
-                        shutil.move(str(self.shards_dir / e.file),
-                                    str(self.quarantine_dir / e.file))
-                    append_record(
-                        self.manifest,
-                        {"type": "QUARANTINE", "gen": e.gen,
-                         "n_tokens": e.n_tokens, "reason": bad,
-                         "extra": e.extra}, fsync=self.fsync)
-                    e.status = "quarantined"
-                    rep.quarantined.append(e.gen)
-        rep.committed = [e.gen for e in st.committed]
-        rep.quarantined += [e.gen for e in st.quarantined
-                            if e.gen not in rep.quarantined]
-        rep.resume_offset = st.committed_tokens
-        self._state = st
-        return rep
+        with obs.span("ingest.recover", dir=str(self.directory)) as sp:
+            obs.counter("ingest.replay").inc()
+            st = load_manifest(self.directory)
+            rep = RecoveryReport(torn_tail=st.torn_tail)
+            for e in st.pending:                    # INTENT without COMMIT
+                final = self.shards_dir / (e.file or "")
+                tmp = self.shards_dir / f".tmp_{e.file}"
+                if e.file and final.exists():
+                    shutil.move(str(final), str(self.quarantine_dir / e.file))
+                if e.file and tmp.exists():
+                    tmp.unlink()
+                append_record(self.manifest,
+                              {"type": "ABORT", "gen": e.gen,
+                               "reason": "intent_without_commit"},
+                              fsync=self.fsync)
+                obs.counter("ingest.quarantine",
+                            reason="intent_without_commit").inc()
+                rep.aborted.append(e.gen)
+                e.status = "aborted"
+            known = {f".tmp_{e.file}" for e in st.entries.values() if e.file}
+            for t in self.shards_dir.glob(".tmp_shard_*.npz"):
+                if t.name not in known:
+                    t.unlink()
+                    rep.stray_tmps += 1
+            if verify_committed:
+                for e in st.committed:
+                    bad = self._committed_defect(e)
+                    if bad:
+                        if (self.shards_dir / e.file).exists():
+                            shutil.move(str(self.shards_dir / e.file),
+                                        str(self.quarantine_dir / e.file))
+                        append_record(
+                            self.manifest,
+                            {"type": "QUARANTINE", "gen": e.gen,
+                             "n_tokens": e.n_tokens, "reason": bad,
+                             "extra": e.extra}, fsync=self.fsync)
+                        obs.counter("ingest.quarantine",
+                                    reason="corrupt_committed").inc()
+                        obs.event("ingest.corrupt_committed", gen=e.gen,
+                                  why=bad)
+                        e.status = "quarantined"
+                        rep.quarantined.append(e.gen)
+            rep.committed = [e.gen for e in st.committed]
+            rep.quarantined += [e.gen for e in st.quarantined
+                                if e.gen not in rep.quarantined]
+            rep.resume_offset = st.committed_tokens
+            self._state = st
+            sp.set("committed", len(rep.committed))
+            sp.set("aborted", len(rep.aborted))
+            obs.gauge("ingest.generation").set(float(st.last_gen))
+            obs.event("ingest.recovered", **{
+                "committed": len(rep.committed),
+                "aborted": len(rep.aborted),
+                "quarantined": len(rep.quarantined),
+                "resume_offset": rep.resume_offset})
+            return rep
 
     def _committed_defect(self, e: ShardEntry) -> str:
         path = self.shards_dir / (e.file or "")
@@ -322,66 +344,74 @@ class ShardIngester:
         """Run one generation through the 6-step protocol; returns gen."""
         gen = self._state.next_gen
         extra = self._shard_extra(true_tokens)
-        t = time.perf_counter()
-        try:
-            tree = with_retry(
-                lambda: self._built(true_tokens),
-                retries=self.retries, backoff_s=self.backoff_s,
-                deadline_s=self.deadline_s, clock=self.clock)
-        except DEVICE_ERRORS:
-            raise
-        except Exception as e:                            # noqa: BLE001
-            # permanent build failure: the stream must keep flowing, so
-            # journal the hole and serve around it (coverage < 1)
-            append_record(self.manifest,
-                          {"type": "QUARANTINE", "gen": gen,
+        with obs.span("ingest.commit", gen=gen,
+                      n_tokens=int(true_tokens.size)) as sp:
+            t = time.perf_counter()
+            try:
+                tree = with_retry(
+                    lambda: self._built(true_tokens),
+                    retries=self.retries, backoff_s=self.backoff_s,
+                    deadline_s=self.deadline_s, clock=self.clock)
+            except DEVICE_ERRORS:
+                raise
+            except Exception as e:                            # noqa: BLE001
+                # permanent build failure: the stream must keep flowing, so
+                # journal the hole and serve around it (coverage < 1)
+                append_record(self.manifest,
+                              {"type": "QUARANTINE", "gen": gen,
+                               "n_tokens": int(true_tokens.size),
+                               "reason": f"build_failed: {type(e).__name__}",
+                               "extra": extra}, fsync=self.fsync)
+                check_crash_point(QUARANTINE_STEP)
+                obs.counter("ingest.quarantine", reason="build_failed").inc()
+                obs.counter("ingest.shard_commit", outcome="quarantined").inc()
+                sp.set("outcome", "quarantined")
+                self._state.entries[gen] = ShardEntry(
+                    gen=gen, status="quarantined",
+                    n_tokens=int(true_tokens.size),
+                    reason=f"build_failed: {type(e).__name__}", extra=extra)
+                self._state.last_gen = gen
+                return gen
+            t = self._timed("build", t)
+
+            arrays, dtypes = flatten(tree)
+            fname = f"shard_{gen:08d}.npz"
+            tmp = self.shards_dir / f".tmp_{fname}"
+            np.savez(tmp, **arrays)                                # [1]
+            t = self._timed("write", t)
+            check_crash_point("write_tmp")
+            crcs = checksum_flat(arrays)                           # [2]
+            t = self._timed("checksum", t)
+            check_crash_point("checksum")
+            if self.fsync:                                         # [3]
+                _fsync_path(tmp)
+                _fsync_dir(self.shards_dir)
+            t = self._timed("fsync", t)
+            check_crash_point("fsync")
+            append_record(self.manifest,                           # [4]
+                          {"type": "INTENT", "gen": gen, "file": fname,
                            "n_tokens": int(true_tokens.size),
-                           "reason": f"build_failed: {type(e).__name__}",
+                           "dtypes": dtypes, "leaf_crc32": crcs,
                            "extra": extra}, fsync=self.fsync)
-            check_crash_point(QUARANTINE_STEP)
+            t = self._timed("journal", t)
+            check_crash_point("intent")
+            os.replace(tmp, self.shards_dir / fname)               # [5]
+            t = self._timed("rename", t)
+            check_crash_point("rename")
+            append_record(self.manifest,                           # [6]
+                          {"type": "COMMIT", "gen": gen},
+                          fsync=self.fsync)
+            self._timed("journal", t)
+            check_crash_point("commit")
+            obs.counter("ingest.shard_commit", outcome="committed").inc()
+            obs.gauge("ingest.generation").set(float(gen))
+            sp.set("outcome", "committed")
             self._state.entries[gen] = ShardEntry(
-                gen=gen, status="quarantined",
-                n_tokens=int(true_tokens.size),
-                reason=f"build_failed: {type(e).__name__}", extra=extra)
+                gen=gen, status="committed", file=fname,
+                n_tokens=int(true_tokens.size), leaf_crc32=crcs,
+                dtypes=dtypes, extra=extra)
             self._state.last_gen = gen
             return gen
-        t = self._timed("build", t)
-
-        arrays, dtypes = flatten(tree)
-        fname = f"shard_{gen:08d}.npz"
-        tmp = self.shards_dir / f".tmp_{fname}"
-        np.savez(tmp, **arrays)                                # [1]
-        t = self._timed("write", t)
-        check_crash_point("write_tmp")
-        crcs = checksum_flat(arrays)                           # [2]
-        t = self._timed("checksum", t)
-        check_crash_point("checksum")
-        if self.fsync:                                         # [3]
-            _fsync_path(tmp)
-            _fsync_dir(self.shards_dir)
-        t = self._timed("fsync", t)
-        check_crash_point("fsync")
-        append_record(self.manifest,                           # [4]
-                      {"type": "INTENT", "gen": gen, "file": fname,
-                       "n_tokens": int(true_tokens.size),
-                       "dtypes": dtypes, "leaf_crc32": crcs,
-                       "extra": extra}, fsync=self.fsync)
-        t = self._timed("journal", t)
-        check_crash_point("intent")
-        os.replace(tmp, self.shards_dir / fname)               # [5]
-        t = self._timed("rename", t)
-        check_crash_point("rename")
-        append_record(self.manifest,                           # [6]
-                      {"type": "COMMIT", "gen": gen},
-                      fsync=self.fsync)
-        self._timed("journal", t)
-        check_crash_point("commit")
-        self._state.entries[gen] = ShardEntry(
-            gen=gen, status="committed", file=fname,
-            n_tokens=int(true_tokens.size), leaf_crc32=crcs,
-            dtypes=dtypes, extra=extra)
-        self._state.last_gen = gen
-        return gen
 
     def _built(self, true_tokens: np.ndarray) -> Any:
         """The shard of ``true_tokens`` (padded), built on the device and

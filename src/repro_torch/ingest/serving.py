@@ -19,11 +19,17 @@ not on a thread's current device. ``ShardedAnalytics.add_shards`` and
 ``ShardedTextIndex.add_shards`` produce the next generation's engine from
 the previous one plus the newly committed shard trees;
 ``swap_generation`` publishes it.
+
+Telemetry (the reference's): the ``ingest.serving_generation`` gauge,
+``ingest.swap`` and ``ingest.swap_fence_timeout`` counters, the
+``ingest.swap_pause_s`` histogram and the ``ingest.swap`` event.
 """
 from __future__ import annotations
 
 import threading
 from typing import Any, Callable, Optional, Tuple
+
+from repro_torch import obs
 
 
 class GenerationServer:
@@ -34,6 +40,7 @@ class GenerationServer:
         self._engine = engine
         self._gen = int(generation)
         self._inflight: dict[int, int] = {}      # generation -> open sessions
+        obs.gauge("ingest.serving_generation").set(float(self._gen))
 
     # ---- reader side ----------------------------------------------------
     @property
@@ -77,18 +84,26 @@ class GenerationServer:
         swap itself has already happened and is not rolled back).
         Returns the new generation number.
         """
+        sw = obs.Stopwatch()
         with self._lock:
             self._gen += 1
             new_gen = self._gen
             self._engine = engine
+            obs.counter("ingest.swap").inc()
+            obs.gauge("ingest.serving_generation").set(float(new_gen))
             if wait_drain:
                 def drained() -> bool:
                     return not any(g < new_gen and c > 0
                                    for g, c in self._inflight.items())
                 if not self._lock.wait_for(drained, timeout=timeout_s):
+                    obs.counter("ingest.swap_fence_timeout").inc()
                     raise TimeoutError(
                         f"generation {new_gen - 1} did not drain within "
                         f"{timeout_s}s")
+        pause = sw.total()
+        obs.histogram("ingest.swap_pause_s").observe(pause)
+        obs.event("ingest.swap", generation=new_gen, pause_s=pause,
+                  fenced=wait_drain)
         return new_gen
 
     # ---- session bookkeeping -------------------------------------------

@@ -31,6 +31,16 @@ from repro_torch.core.rank_select import BLOCK_WORDS, BinaryRank, rank1
 
 from . import build
 
+#: the work model's units (:func:`quantile_work`): a 32-byte sector, the
+#: least a rank probe can fetch, covers 224 positions in the rank-line
+#: layout (seven words of bits after a count, ``launch/sweep_quantile.py``);
+#: a probe counts as 40 int32 operations, as ``chip_smoke.py``'s bound has
+#: counted it since the kernel's first port.
+SECTOR_BYTES = 32
+SECTOR_BITS = 224
+PROBE_OPS = 40
+
+
 @dataclass(frozen=True)
 class QuantileOperands:
     """The kernel's operands for S stacked shards, fixed once per engine.
@@ -159,10 +169,9 @@ def descend(rank_at, op: QuantileOperands, lo, hi, k) -> torch.Tensor:
     return torch.where(total <= 0, -1, sym).to(torch.int32)
 
 
-def wm_quantile_sharded_plain(op: QuantileOperands, lo, hi,
-                              k) -> torch.Tensor:
-    """The kernel's plain version: the count-then-refine descent in plain
-    torch on the operands' directories. (Q,) int32, -1 if empty."""
+def _plain_rank_at(op: QuantileOperands):
+    """``rank_at(l, pos)`` of :func:`descend` in plain torch on the
+    operands' directories."""
     S, nbits, size = op.num_shards, op.nbits, 1 << op.shard_bits
     w3 = op.words.reshape(S, nbits, -1)
     sb3 = op.superblock.reshape(S, nbits, -1)
@@ -171,7 +180,43 @@ def wm_quantile_sharded_plain(op: QuantileOperands, lo, hi,
     def rank_at(l, pos):
         return rank1(BinaryRank(words=w3[:, l], superblock=sb3[:, l],
                                 block=b3[:, l], n=size), pos)
-    return descend(rank_at, op, lo, hi, k)
+    return rank_at
+
+
+def wm_quantile_sharded_plain(op: QuantileOperands, lo, hi,
+                              k) -> torch.Tensor:
+    """The kernel's plain version: the count-then-refine descent in plain
+    torch on the operands' directories. (Q,) int32, -1 if empty."""
+    return descend(_plain_rank_at(op), op, lo, hi, k)
+
+
+def quantile_work(op: QuantileOperands, lo, hi, k) -> tuple[int, int]:
+    """(bytes, int32 operations) that a batch's descent needs, counted on
+    this batch's data (the work model of ``obs.prof``): each query's lo,
+    hi, k and answer (16 bytes), one ``SECTOR_BYTES`` sector for every
+    distinct sector of ``SECTOR_BITS`` positions that its live rank probes
+    fall in (probes that share a sector need it from memory once), and
+    ``PROBE_OPS`` operations a probe. A probe is live where a shard's local
+    range at that level is not empty. Runs the plain descent once."""
+    plain = _plain_rank_at(op)
+    calls = []
+
+    def rank_at(l, pos):
+        calls.append((l, pos))
+        return plain(l, pos)
+
+    q = descend(rank_at, op, lo, hi, k).shape[0]
+    per_row = (1 << op.shard_bits) // SECTOR_BITS + 1
+    first_row = torch.arange(op.num_shards, device=op.zeros.device)[:, None]
+    probes, keys = 0, []
+    for (l, los), (_, his) in zip(calls[::2], calls[1::2]):
+        live = his > los
+        probes += 2 * int(live.sum())
+        row = (first_row * op.nbits + l).expand_as(los)[live] * per_row
+        keys += [row + los[live] // SECTOR_BITS,
+                 row + his[live] // SECTOR_BITS]
+    sectors = int(torch.unique(torch.cat(keys)).numel()) if keys else 0
+    return q * 16 + sectors * SECTOR_BYTES, probes * PROBE_OPS
 
 
 def _queries(x, device) -> torch.Tensor:

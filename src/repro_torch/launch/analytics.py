@@ -9,29 +9,41 @@ PYTHONPATH=src python -m repro_torch.launch.analytics --smoke --device cpu \
     --snapshot-dir /tmp/snap      # twice: build + save, then restore
 PYTHONPATH=src python -m repro_torch.launch.analytics --n 134217728 \
     --vocab 151936 --shard-bits 20 --queries 4096
+PYTHONPATH=src python -m repro_torch.launch.analytics --smoke --device cpu \
+    --metrics-dir /tmp/m
+PYTHONPATH=src python -m repro_torch.launch.obs /tmp/m     # then inspect
 
 ``--snapshot-dir`` restores the engine when the snapshot's geometry and
 corpus seed match the run (derived-leaf corruption is repaired on the way),
 ignores a directory holding something else, warns and rebuilds when the
 restore fails (a failure of the device, ``kernels.build.DEVICE_ERRORS``,
 is raised instead), and saves after a build. The build is retried twice with
-backoff (``robust.with_retry``), as the reference's is. Metrics and device
-traces (the reference's ``--metrics-dir`` and ``--profile-dir``) are not
-ported yet.
+backoff (``robust.with_retry``), as the reference's is.
+
+``--metrics-dir`` captures the run through ``repro_torch.obs``, as the
+reference's does: per-op ``serve.analytics.*`` latency histograms, q/s and
+first-call cost, the build and restore spans, the path-selection counters
+and a JSONL event log, rendered by ``repro_torch.launch.obs``. Serving ops
+run under ``obs.profiled_op``, and one shard build and a 16-query kernel
+batch under ``obs.profile_op``, so the snapshot carries the ``prof.*``
+gauges (bytes and int32 operations of the kernel wrappers' work model,
+roofline utilization, peak device memory on a card). ``--profile-dir``
+wraps the serving section in a ``torch.profiler`` trace.
 """
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.analytics import (build_sharded_analytics, load_analytics,
                                    save_analytics, snapshot_meta)
 from repro_torch.data import make_corpus
 from repro_torch.device import resolve_device
 from repro_torch.kernels.build import DEVICE_ERRORS
+from repro_torch.obs.spans import wait_for
 from repro_torch.robust import with_retry
 
 
@@ -46,11 +58,6 @@ def make_queries(n: int, num: int, seed: int):
     hi = np.minimum(lo + width, n).astype(np.int32)
     k = rng.integers(0, np.maximum(hi - lo, 1)).astype(np.int32)
     return lo, hi, k
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def main(argv=None) -> None:
@@ -70,7 +77,15 @@ def main(argv=None) -> None:
                     help="persisted analytics snapshot: restore from here "
                          "when present (skipping the build), else build "
                          "and save here")
+    ap.add_argument("--metrics-dir", type=str, default=None,
+                    help="export obs metrics snapshot + JSONL events here "
+                         "(inspect with `python -m repro_torch.launch.obs`)")
+    ap.add_argument("--profile-dir", type=str, default=None,
+                    help="capture a torch.profiler trace of the serving "
+                         "section into this directory")
     args = ap.parse_args(argv)
+    if args.metrics_dir:
+        obs.configure(args.metrics_dir)
     if args.smoke:
         args.n = min(args.n, 1 << 14)
         args.vocab = min(args.vocab, 512)
@@ -79,7 +94,7 @@ def main(argv=None) -> None:
     dev = resolve_device(args.device)
     toks = make_corpus(args.n, args.vocab, seed=args.seed)
 
-    t0 = time.perf_counter()
+    sw = obs.Stopwatch()
     eng, restored, save_snapshot = None, False, bool(args.snapshot_dir)
     if args.snapshot_dir:
         # geometry AND corpus identity must match what this run verifies
@@ -111,15 +126,20 @@ def main(argv=None) -> None:
             print(f"WARNING: snapshot restore failed ({type(e).__name__}: "
                   f"{e}) — rebuilding from source")
     if not restored:
-        eng = with_retry(
-            lambda: build_sharded_analytics(toks, args.vocab,
-                                            shard_bits=args.shard_bits,
-                                            device=dev),
-            retries=2, backoff_s=0.1,
-            on_retry=lambda a, e: print(
-                f"build attempt {a + 1} failed ({e}) — retrying"))
-    _sync(dev)
-    t_build = time.perf_counter() - t0
+        with obs.span("analytics.build", n=args.n, vocab=args.vocab,
+                      shard_bits=args.shard_bits) as sp:
+            eng = sp.sync(with_retry(
+                lambda: build_sharded_analytics(toks, args.vocab,
+                                                shard_bits=args.shard_bits,
+                                                device=dev),
+                retries=2, backoff_s=0.1,
+                on_retry=lambda a, e: print(
+                    f"build attempt {a + 1} failed ({e}) — retrying")))
+    wait_for(eng)
+    t_build = sw.lap()
+    obs.gauge("serve.analytics.build_s").set(t_build)
+    obs.gauge("serve.analytics.tokens_per_s").set(args.n / max(t_build,
+                                                               1e-9))
     verb = "restore" if restored else "build"
     print(f"{verb}: {args.n} tokens, vocab {args.vocab}, {eng.num_shards} "
           f"shards of {eng.shard_size} in {t_build:.3f}s "
@@ -135,20 +155,51 @@ def main(argv=None) -> None:
     sym_hi = np.minimum(sym_lo + 64, args.vocab).astype(np.int32)
     lo_t, hi_t, k_t, s0_t, s1_t = (torch.from_numpy(x).to(dev)
                                    for x in (lo, hi, k, sym_lo, sym_hi))
+    B = args.queries
+    obs.gauge("serve.analytics.coverage").set(
+        float(eng.coverage(0, args.n)))
+
+    # the work-model profile of the construction path (one shard-sized
+    # build) and of the quantile kernel, beside the serving ops below
+    from repro_torch.core.wavelet_matrix import build_wavelet_matrix
+    shard0 = torch.from_numpy(toks[:eng.shard_size].astype(np.int32)).to(dev)
+    _, cstats = obs.profile_op(
+        "analytics.construct_shard",
+        lambda s: build_wavelet_matrix(s, eng.sigma, device=dev),
+        shard0, work_elements=float(eng.shard_size))
+    if "roofline_util" in cstats:
+        print(f"construct_shard: roofline {cstats['roofline_util']:.1%} "
+              f"({cstats.get('bound', '?')}-bound)")
+    nk = min(16, B)
+    _, kstats = obs.profile_op(
+        "analytics.quantile_kernel",
+        lambda e, a, b, c: e.range_quantile(a, b, c),
+        eng, lo_t[:nk], hi_t[:nk], k_t[:nk], work_elements=float(nk))
+    if "error" in kstats:
+        print(f"quantile_kernel profile skipped: {kstats['error']}")
+
     results = {}
-    for name, fn in (("quantile", lambda: eng.range_quantile(lo_t, hi_t, k_t)),
-                     ("count", lambda: eng.range_count(lo_t, hi_t, s0_t,
-                                                       s1_t)),
-                     ("topk", lambda: eng.range_topk(lo_t, hi_t, args.topk)),
-                     ("distinct", lambda: eng.range_distinct(lo_t, hi_t))):
-        t0 = time.perf_counter()
-        out = fn()
-        _sync(dev)
-        t = time.perf_counter() - t0
-        results[name] = (tuple(x.cpu().numpy() for x in out)
-                         if isinstance(out, tuple) else out.cpu().numpy())
-        print(f"{name}: {args.queries} queries in {t * 1e3:.3f} ms "
-              f"({args.queries / t:.0f} q/s)")
+    with obs.span("analytics.serve", queries=B), obs.trace(args.profile_dir):
+        ops = {
+            "quantile": (lambda e, a, b, c: e.range_quantile(a, b, c),
+                         (eng, lo_t, hi_t, k_t)),
+            "count": (lambda e, a, b, s0, s1: e.range_count(a, b, s0, s1),
+                      (eng, lo_t, hi_t, s0_t, s1_t)),
+            "topk": (lambda e, a, b: e.range_topk(a, b, args.topk),
+                     (eng, lo_t, hi_t)),
+            "distinct": (lambda e, a, b: e.range_distinct(a, b),
+                         (eng, lo_t, hi_t)),
+        }
+        for name, (fn, fargs) in ops.items():
+            out, t, t_first = obs.profiled_op("analytics", name, fn, *fargs,
+                                              batch=B)
+            results[name] = (tuple(x.cpu().numpy() for x in out)
+                             if isinstance(out, tuple)
+                             else out.cpu().numpy())
+            print(f"{name}: {B} queries in {t * 1e3:.3f} ms "
+                  f"({B / t:.0f} q/s; first call {t_first:.3f} s)")
+    if args.profile_dir:
+        print(f"device trace → {args.profile_dir}")
 
     bad = 0
     nv = min(args.verify, args.queries)
@@ -176,6 +227,10 @@ def main(argv=None) -> None:
     if bad:
         raise SystemExit(f"{bad} verification failures")
     print(f"verified {nv} samples of each op against numpy ✓")
+    if args.metrics_dir:
+        obs.write_snapshot()
+        obs.configure(None)
+        print(f"metrics → {args.metrics_dir}")
 
 
 if __name__ == "__main__":

@@ -9,6 +9,9 @@ PYTHONPATH=src python -m repro_torch.launch.frontend --smoke \\
     --record-trace /tmp/burst.jsonl                # record the trace
 PYTHONPATH=src python -m repro_torch.launch.frontend --smoke \\
     --replay /tmp/burst.jsonl --overload 5.0       # replay it 5× faster
+PYTHONPATH=src python -m repro_torch.launch.frontend --smoke --device cpu \
+    --metrics-dir /tmp/m --profile-dir /tmp/p      # capture, then
+PYTHONPATH=src python -m repro_torch.launch.obs /tmp/m --tree
 
 The trace is a bursty arrival process (quiet base load with periodic
 storm windows, seeded) of mixed count/quantile/top-k queries, the
@@ -19,18 +22,24 @@ requests offered X× faster). Submission is paced on the shared
 once rather than thinning the offered load. The run ends in a check:
 every sampled exact answer equals numpy's on the raw stream, every
 sampled degraded answer brackets it, and ``submitted == served + shed +
-queued``. Metrics and device traces (the reference's ``--metrics-dir`` and
-``--profile-dir``) are not ported yet.
+queued``.
+
+``--metrics-dir`` captures the run through ``repro_torch.obs`` as the
+reference's does: the front-end's ``serve.frontend.*`` counters, gauges
+and per-op latency histograms, the ``frontend.pump`` spans inside one
+``frontend.drive`` span, and the breaker and ladder events. The warm-up
+runs with metrics off (``obs.disabled``), so the capture holds the trace
+alone. ``--profile-dir`` wraps the drive in a ``torch.profiler`` trace.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import time
 from pathlib import Path
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.analytics.engine import build_sharded_analytics
 from repro_torch.data import make_corpus
 from repro_torch.device import resolve_device
@@ -198,8 +207,14 @@ def warm_up(fe: QueryFrontend, n: int, sigma: int) -> float:
     """Run every (op, level, bucket) once and re-seed the admission EWMA
     from a steady-state batch, as the reference does: warm-up pumps feed
     first-call service times into the EWMA, which would otherwise shed
-    the trace as over_budget before it starts. Returns the steady batch's
-    seconds."""
+    the trace as over_budget before it starts. Metrics are off for the
+    whole warm-up, so a capture's counters and latency histograms hold the
+    trace alone. Returns the steady batch's seconds."""
+    with obs.disabled():
+        return _warm_up(fe, n, sigma)
+
+
+def _warm_up(fe: QueryFrontend, n: int, sigma: int) -> float:
     eng = fe.server.engine
     warm = (("count", {"sym_hi": sigma}), ("quantile", {"k": 0}),
             ("topk", {}))
@@ -218,9 +233,9 @@ def warm_up(fe: QueryFrontend, n: int, sigma: int) -> float:
     for _ in range(2):       # the first batch may absorb a probe refresh
         for _ in range(batch):
             fe.submit("count", 0, n, deadline_s=600.0, sym_hi=sigma)
-        t0 = time.perf_counter()
+        sw = obs.Stopwatch()
         fe.pump()
-        steady_s = time.perf_counter() - t0
+        steady_s = sw.lap()
     for _ in range(30):
         fe.queue.observe_service(steady_s, batch)
     return steady_s
@@ -250,7 +265,15 @@ def main(argv=None) -> None:
     ap.add_argument("--record-trace", type=str, default=None,
                     help="write the generated trace here (JSONL) for "
                          "later --replay")
+    ap.add_argument("--metrics-dir", type=str, default=None,
+                    help="export obs metrics snapshot + JSONL events here "
+                         "(inspect with `python -m repro_torch.launch.obs`)")
+    ap.add_argument("--profile-dir", type=str, default=None,
+                    help="capture a torch.profiler trace of the serving "
+                         "section into this directory")
     args = ap.parse_args(argv)
+    if args.metrics_dir:
+        obs.configure(args.metrics_dir)
     if args.smoke:
         args.n = min(args.n, 1 << 13)
         args.vocab = min(args.vocab, 64)
@@ -260,12 +283,12 @@ def main(argv=None) -> None:
 
     toks = np.asarray(make_corpus(args.n, args.vocab, seed=args.seed),
                       np.int64)
-    t0 = time.perf_counter()
+    sw = obs.Stopwatch()
     eng = build_sharded_analytics(toks, args.vocab,
                                   shard_bits=args.shard_bits, device=dev)
     eng.probe_shard(0)   # first call before the breakers time it
     print(f"engine: {args.n} tokens, {eng.num_shards} shards "
-          f"in {time.perf_counter() - t0:.2f}s (device {dev})")
+          f"in {sw.lap():.2f}s (device {dev})")
 
     if args.replay:
         trace = load_trace(args.replay)
@@ -288,20 +311,25 @@ def main(argv=None) -> None:
             capacity=args.capacity, topk_k=args.topk_k,
             buckets=(8, 32) if args.smoke else (8, 32, 128),
             breaker=CLI_BREAKER))
-    t0 = time.perf_counter()
+    sw.lap()
     steady_s = warm_up(fe, args.n, args.vocab)
     print(f"warmup: {fe.runner.compiled} variants run in "
-          f"{time.perf_counter() - t0:.2f}s (steady batch "
-          f"{steady_s * 1e3:.2f}ms)")
+          f"{sw.lap():.2f}s (steady batch {steady_s * 1e3:.2f}ms)")
 
+    obs.start_trace(args.profile_dir)
     fe.start()
-    t0 = time.perf_counter()
+    sw.lap()
     try:
-        tickets = drive(fe, trace, args.overload, args.vocab)
-        results = collect(tickets)
-        out = report(fe, trace, results, time.perf_counter() - t0)
+        with obs.span("frontend.drive", requests=len(trace),
+                      overload=args.overload):
+            tickets = drive(fe, trace, args.overload, args.vocab)
+            results = collect(tickets)
+            out = report(fe, trace, results, sw.lap())
     finally:
         fe.stop(drain=True)
+        trace_path = obs.stop_trace()
+    if trace_path:
+        print(f"device trace → {trace_path}")
 
     print(f"offered {out['offered']} requests "
           f"({args.overload:.1f}× pacing): served {out['served']} "
@@ -319,6 +347,10 @@ def main(argv=None) -> None:
           f"degraded bracket it); submitted {st['submitted']} == served "
           f"{st['served']} + shed {st['total_shed']} + queued "
           f"{st['queued']} ✓")
+    if args.metrics_dir:
+        obs.write_snapshot()
+        obs.configure(None)
+        print(f"metrics → {args.metrics_dir}")
 
 
 if __name__ == "__main__":

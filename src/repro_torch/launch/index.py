@@ -7,6 +7,8 @@ PYTHONPATH=src python -m repro_torch.launch.index --n 262144 --vocab 4096 \
 PYTHONPATH=src python -m repro_torch.launch.index --smoke --drop-shards 1,3
     # degraded mode: lost shards are served around with an explicit
     # coverage fraction and lower/upper count bounds
+PYTHONPATH=src python -m repro_torch.launch.index --smoke --device cpu \
+    --metrics-dir /tmp/m --profile-dir /tmp/p
 
 Build: per-shard prefix-doubling suffix array → BWT → wavelet matrix
 (paper Theorem 4.5) → sampled-SA directories, every shard at once (the
@@ -15,17 +17,21 @@ kernels on a CUDA device). Query: one backward search over (shards,
 patterns); every step is two wavelet-matrix ranks. A sample of counts is
 verified against naive numpy substring search on the raw stream.
 
-Metrics and device traces (the reference's ``--metrics-dir`` and
-``--profile-dir``) are not ported yet.
+``--metrics-dir`` captures the run through ``repro_torch.obs`` as the
+reference's does: the ``index.build`` span, the count under
+``obs.profiled_op`` (``serve.index.count.*`` and its ``prof.*`` gauges),
+locate and the degraded bounds under ``obs.timed_op``, the coverage gauge
+and the path counters. ``--profile-dir`` wraps the count in a
+``torch.profiler`` trace.
 """
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.data import make_corpus
 from repro_torch.device import resolve_device
 from repro_torch.index import build_sharded_index, sample_patterns
@@ -83,15 +89,6 @@ def naive_count_degraded(toks: np.ndarray, pat: np.ndarray, plen: int,
     return total
 
 
-def _timed(fn, dev: torch.device):
-    """(result, host seconds ending in a synchronize on a CUDA device)."""
-    t0 = time.perf_counter()
-    out = fn()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    return out, time.perf_counter() - t0
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true",
@@ -110,7 +107,15 @@ def main(argv=None) -> None:
                          "coverage fraction and count bounds")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--metrics-dir", type=str, default=None,
+                    help="export obs metrics snapshot + JSONL events here "
+                         "(inspect with `python -m repro_torch.launch.obs`)")
+    ap.add_argument("--profile-dir", type=str, default=None,
+                    help="capture a torch.profiler trace of the query "
+                         "section into this directory")
     args = ap.parse_args(argv)
+    if args.metrics_dir:
+        obs.configure(args.metrics_dir)
     if args.smoke:
         args.n = min(args.n, 1 << 14)
         args.shard_bits = min(args.shard_bits, 11)
@@ -118,9 +123,14 @@ def main(argv=None) -> None:
     dev = resolve_device(args.device)
 
     toks = make_corpus(args.n, args.vocab, seed=args.seed).astype(np.int64)
-    idx, t_build = _timed(lambda: build_sharded_index(
-        toks, args.vocab, shard_bits=args.shard_bits,
-        sample_rate=args.sample_rate, device=dev), dev)
+    sw = obs.Stopwatch()
+    with obs.span("index.build", n=args.n, vocab=args.vocab,
+                  shard_bits=args.shard_bits) as sp:
+        idx = sp.sync(build_sharded_index(
+            toks, args.vocab, shard_bits=args.shard_bits,
+            sample_rate=args.sample_rate, device=dev))
+    t_build = sw.lap()
+    obs.gauge("serve.index.build_s").set(t_build)
     print(f"build: {args.n} tokens, vocab {args.vocab}, "
           f"{idx.num_shards} shards of {idx.shard_size} in {t_build:.3f}s "
           f"({args.n / t_build / 1e3:.0f} ktok/s, "
@@ -130,14 +140,22 @@ def main(argv=None) -> None:
                                  pad=args.vocab, seed=args.seed + 1)
     pt, lt = torch.from_numpy(pats).to(dev), torch.from_numpy(lens).to(dev)
 
-    out, t_query = _timed(lambda: idx.count(pt, lt), dev)
+    with obs.trace(args.profile_dir):
+        out, t_query, t_first = obs.profiled_op(
+            "index", "count", lambda ix, p, l: ix.count(p, l), idx, pt, lt,
+            batch=args.patterns)
     counts = out.cpu().numpy()
     print(f"count: {args.patterns} patterns in {t_query * 1e3:.1f} ms "
-          f"({args.patterns / t_query:.0f} patterns/s); hits: "
+          f"({args.patterns / t_query:.0f} patterns/s; first call "
+          f"{t_first:.3f} s); hits: "
           f"min {counts.min()} median {int(np.median(counts))} "
           f"max {counts.max()}")
+    if args.profile_dir:
+        print(f"device trace → {args.profile_dir}")
 
-    out, t_loc = _timed(lambda: idx.locate(pt, lt, 4), dev)
+    out, t_loc, _ = obs.timed_op(
+        "index", "locate", lambda ix, p, l: ix.locate(p, l, 4), idx, pt, lt,
+        batch=args.patterns)
     pos = out.cpu().numpy()
     print(f"locate: {args.patterns} patterns × ≤{4 * idx.num_shards} hits "
           f"in {t_loc * 1e3:.1f} ms")
@@ -170,9 +188,12 @@ def main(argv=None) -> None:
                              f"[0, {idx.num_shards})")
         deg = idx.drop_shards(drop)
         cov = float(deg.coverage())
+        obs.gauge("serve.index.coverage").set(cov)
         print(f"degraded mode: dropped shards {drop} "
               f"({cov * 100:.1f}% coverage)")
-        (lower, upper, _), _ = _timed(lambda: deg.count_bounds(pt, lt), dev)
+        (lower, upper, _), _, _ = obs.timed_op(
+            "index", "count_bounds", lambda ix, p, l: ix.count_bounds(p, l),
+            deg, pt, lt, batch=args.patterns)
         lower, upper = lower.cpu().numpy(), upper.cpu().numpy()
         avail = np.ones(idx.num_shards, bool)
         avail[drop] = False
@@ -196,6 +217,11 @@ def main(argv=None) -> None:
             raise SystemExit(f"{bad} degraded-mode verification failures")
         print("degraded counts verified against the surviving-shard oracle; "
               "bounds bracket the full-corpus truth")
+
+    if args.metrics_dir:
+        obs.write_snapshot()
+        obs.configure(None)
+        print(f"metrics → {args.metrics_dir}")
 
 
 if __name__ == "__main__":

@@ -30,6 +30,11 @@ byte and bit as the reference's (the leaf order and keys are
 the bounded retry with full-jitter exponential backoff under an optional
 deadline; all elapsed time and sleeping go through one injectable
 ``robust.Clock``.
+
+Every fault records the reference's ``robust.fault{kind}`` counter and a
+``fault.<kind>`` event (inside the open span, so a chaos scenario's tree
+shows injection → detection → repair); ``with_retry`` records
+``robust.retry`` / ``robust.retry_exhausted`` and their events.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint.checkpoint import (_SEP, _is_node, _walk,
                                               host_array)
 
@@ -148,7 +154,11 @@ def flip_leaf_bit(tree: Any, *, seed: int,
         where.append(w)
         return new
 
-    return _replace_leaf(tree, (), key, flip), f"{key}: {where[0]}"
+    out = _replace_leaf(tree, (), key, flip)
+    obs.counter("robust.fault", kind="leaf_bitflip").inc()
+    obs.event("fault.leaf_bitflip", kind="fault", leaf=key, where=where[0],
+              seed=seed)
+    return out, f"{key}: {where[0]}"
 
 
 # --------------------------------------------------------------------------
@@ -181,6 +191,9 @@ def corrupt_snapshot_leaf(ckpt_dir: str | Path, *, seed: int,
     key = keys[int(rng.integers(0, len(keys)))]
     arrays[key], where = _flip_bit_in_array(arrays[key], rng)
     np.savez(d / "arrays.npz", **arrays)
+    obs.counter("robust.fault", kind="snapshot_bitflip").inc()
+    obs.event("fault.snapshot_bitflip", kind="fault", leaf=key, where=where,
+              seed=seed, step_dir=d.name)
     return f"{key}: {where}"
 
 
@@ -191,6 +204,9 @@ def truncate_file(ckpt_dir: str | Path, name: str = "arrays.npz",
     size = path.stat().st_size
     with open(path, "r+b") as f:
         f.truncate(max(1, int(size * keep_frac)))
+    obs.counter("robust.fault", kind="truncate").inc()
+    obs.event("fault.truncate", kind="fault", file=str(path),
+              keep_frac=keep_frac)
     return path
 
 
@@ -198,6 +214,8 @@ def delete_file(ckpt_dir: str | Path, name: str = "meta.json") -> Path:
     """Delete one file of the newest snapshot step (half-deleted dir)."""
     path = _latest_step_dir(ckpt_dir) / name
     path.unlink()
+    obs.counter("robust.fault", kind="delete_file").inc()
+    obs.event("fault.delete_file", kind="fault", file=str(path))
     return path
 
 
@@ -205,6 +223,8 @@ def delete_step(ckpt_dir: str | Path) -> Path:
     """Remove the newest step directory entirely."""
     d = _latest_step_dir(ckpt_dir)
     shutil.rmtree(d)
+    obs.counter("robust.fault", kind="delete_step").inc()
+    obs.event("fault.delete_step", kind="fault", step_dir=str(d))
     return d
 
 
@@ -219,6 +239,9 @@ def inject_partial_tmp(ckpt_dir: str | Path, step: int = 99) -> Path:
     bare = ckpt_dir / f"step_{step:08d}"
     bare.mkdir(exist_ok=True)
     (bare / "meta.json").write_text(json.dumps({"step": step}))
+    obs.counter("robust.fault", kind="partial_tmp").inc()
+    obs.event("fault.partial_tmp", kind="fault", tmp=str(tmp),
+              bare=str(bare))
     return tmp
 
 
@@ -265,6 +288,8 @@ def check_crash_point(step: str) -> None:
     global _armed_crash_step
     if _armed_crash_step is not None and _armed_crash_step == step:
         _armed_crash_step = None
+        obs.counter("robust.fault", kind="crash_point").inc()
+        obs.event("fault.crash_point", kind="fault", step=step)
         raise CrashInjected(step)
 
 
@@ -286,6 +311,9 @@ def inject_shard_latency(shard: int, seconds: float):
     """
     prev = _shard_latency.get(shard)
     _shard_latency[shard] = float(seconds)
+    obs.counter("robust.fault", kind="shard_latency").inc()
+    obs.event("fault.shard_latency", kind="fault", shard=shard,
+              seconds=seconds)
     try:
         yield
     finally:
@@ -338,7 +366,13 @@ def with_retry(fn: Callable, *, retries: int = 2, backoff_s: float = 0.05,
             out_of_time = (deadline_s is not None
                            and elapsed >= deadline_s)
             if attempt == retries or out_of_time:
+                obs.counter("robust.retry_exhausted").inc()
+                obs.event("retry_exhausted", attempt=attempt,
+                          error=type(e).__name__,
+                          deadline_hit=bool(out_of_time))
                 raise
+            obs.counter("robust.retry").inc()
+            obs.event("retry", attempt=attempt, error=type(e).__name__)
             if on_retry is not None:
                 on_retry(attempt, e)
             delay = backoff_s * (2 ** attempt)

@@ -31,6 +31,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
 
+from repro_torch import obs
 from repro_torch.robust.clock import SYSTEM_CLOCK, Clock
 
 
@@ -185,6 +186,7 @@ class AdmissionQueue:
     def _shed_locked(self, req: Request, reason: str, depth: int,
                      est_wait_s: Optional[float] = None) -> None:
         self.shed_counts[reason] += 1
+        obs.counter("serve.frontend.shed", reason=reason).inc()
         req.ticket.reject(ShedError(reason, queue_depth=depth,
                                     est_wait_s=est_wait_s))
 

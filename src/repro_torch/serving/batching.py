@@ -16,7 +16,8 @@ wants to be served now. The runner reconciles the two:
   nothing.
 * **variants**: there is no compile step, so the reference's jit cache
   becomes the set of (op-key, bucket) variants run; ``compiled`` counts
-  them, so ``QueryFrontend.stats()`` keeps its fields.
+  them, so ``QueryFrontend.stats()`` keeps its fields, and the
+  reference's ``serve.frontend.compile`` counter counts each new one.
 
 The engine rides along as an argument, so a generation hot swap needs
 nothing from the runner.
@@ -27,6 +28,8 @@ from typing import Any, Callable, Set, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import obs
 
 _Key = Tuple[Any, int]
 
@@ -70,6 +73,8 @@ class BatchRunner:
         padded = np.zeros((4, bucket), np.int32)   # neutral lo == hi == 0
         padded[:, :n] = np.asarray(qargs, np.int32)[:, :n]
         q = torch.from_numpy(padded).to(engine.device)
+        if (key, bucket) not in self._variants:
+            obs.counter("serve.frontend.compile").inc()
         self._variants.add((key, bucket))
         out = fn(engine, q)
         return tuple(x.cpu().numpy() for x in out)

@@ -34,6 +34,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.kernels.build import DEVICE_ERRORS
 from repro_torch.robust.clock import SYSTEM_CLOCK, Clock
 
@@ -125,18 +126,25 @@ class ShardBreakers:
                 if self._fails[s] >= cfg.fail_threshold:
                     self._open(s)
         self._mask = self._state == _CLOSED
+        obs.gauge("serve.frontend.breakers_open").set(
+            float(np.sum(~self._mask)))
         return self._mask
 
     def _open(self, s: int, half_open_retrial: bool = False) -> None:
         self._state[s] = _OPEN
         self._opened_t[s] = self.clock.now()
         self._fails[s] = 0
+        obs.counter("serve.frontend.breaker_open").inc()
+        obs.event("frontend.breaker_open", shard=int(s),
+                  retrial=half_open_retrial)
 
     def _close(self, s: int) -> None:
         self._state[s] = _CLOSED
         self._fails[s] = 0
         self._next_probe_t[s] = (self.clock.now()
                                  + self.config.probe_interval_s)
+        obs.counter("serve.frontend.breaker_close").inc()
+        obs.event("frontend.breaker_close", shard=int(s))
 
     # ---- serving-side view ---------------------------------------------
     def mask(self) -> Optional[np.ndarray]:

@@ -27,6 +27,13 @@ The exact quantile goes through ``ShardedAnalytics.range_quantile``: the
 available, the plain descent under a mask (the reference takes its XLA
 descent here; the answers are the same). The bracket, bound and greedy
 variants are the engine's plain torch functions.
+
+Telemetry (the reference's, across this package): ``serve.frontend.
+{submitted{op}, served{op,mode}, shed{reason}, deadline_miss{op},
+degrade{direction}, breaker_open, breaker_close, compile, pump_error}``
+counters, the ``queue_depth``, ``qps``, ``shed_rate``, ``degrade_level``
+and ``breakers_open`` gauges, one ``serve.frontend.<op>.latency_s``
+histogram per op and the ``frontend.pump`` span.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.analytics import engine as eng_mod
 from repro_torch.ingest.serving import GenerationServer
 from repro_torch.kernels.build import DEVICE_ERRORS
@@ -129,6 +137,7 @@ class QueryFrontend:
         now = self.clock.now()
         budget = (self.config.default_deadline_s if deadline_s is None
                   else float(deadline_s))
+        obs.counter("serve.frontend.submitted", op=op).inc()
         req = Request(op=op, args=args, deadline_t=now + budget,
                       submitted_t=now, ticket=Ticket())
         return self.queue.submit(req)
@@ -217,31 +226,38 @@ class QueryFrontend:
         pressure = self.queue.pressure
         level = self.ladder.observe(pressure)
         batch = self.queue.take(self.runner.max_batch)
+        obs.gauge("serve.frontend.queue_depth").set(float(self.queue.depth))
         if not batch:
+            self._publish_rates()
             return 0
         op = batch[0].op
         t0 = self.clock.now()
-        with self.server.session() as (gen, engine):
-            mode, fn = self._op_fn(op, level)
-            qargs = np.asarray([r.args for r in batch],
-                               np.int32).T              # (4, n)
-            try:
-                if engine.num_shards != self.breakers.num_shards:
-                    self.breakers.resize(engine.num_shards)
-                # a probe's device fault is raised here and, like a
-                # failed batch, rejects the tickets taken
-                bmask = (self.breakers.refresh()
-                         if self.config.probe_shards else None)
-                eng = self._effective_engine(engine, bmask)
-                a, b, cov = self.runner.run((op, level), fn, eng,
-                                            qargs, len(batch))
-            except Exception as e:                        # noqa: BLE001
-                for r in batch:
-                    r.ticket.reject(e)
-                raise
-        batch_s = self.clock.now() - t0
-        self.queue.observe_service(batch_s, len(batch))
-        self._resolve(batch, op, mode, level, gen, a, b, cov)
+        with obs.span("frontend.pump", op=op, n=len(batch),
+                      level=level) as sp:
+            with self.server.session() as (gen, engine):
+                mode, fn = self._op_fn(op, level)
+                qargs = np.asarray([r.args for r in batch],
+                                   np.int32).T          # (4, n)
+                try:
+                    if engine.num_shards != self.breakers.num_shards:
+                        self.breakers.resize(engine.num_shards)
+                    # a probe's device fault is raised here and, like a
+                    # failed batch, rejects the tickets taken
+                    bmask = (self.breakers.refresh()
+                             if self.config.probe_shards else None)
+                    eng = self._effective_engine(engine, bmask)
+                    a, b, cov = self.runner.run((op, level), fn, eng,
+                                                qargs, len(batch))
+                except Exception as e:                    # noqa: BLE001
+                    for r in batch:
+                        r.ticket.reject(e)
+                    raise
+            batch_s = self.clock.now() - t0
+            self.queue.observe_service(batch_s, len(batch))
+            self._resolve(batch, op, mode, level, gen, a, b, cov)
+            sp.set("gen", gen)
+            sp.set("mode", mode)
+        self._publish_rates(batch_s=batch_s, batch_n=len(batch))
         return len(batch)
 
     def _resolve(self, batch, op, mode, level, gen, a, b, cov) -> None:
@@ -259,13 +275,24 @@ class QueryFrontend:
             lat = finish - r.submitted_t
             if not met:
                 self.deadline_misses += 1
+                obs.counter("serve.frontend.deadline_miss", op=op).inc()
             if degraded:
                 self.degraded_served += 1
             self.served += 1
+            obs.counter("serve.frontend.served", op=op, mode=mode).inc()
+            obs.histogram(f"serve.frontend.{op}.latency_s").observe(lat)
             r.ticket.resolve(Answer(
                 value=value, mode=mode, degraded=degraded,
                 coverage=coverage, level=level, generation=gen,
                 latency_s=lat, deadline_met=met))
+
+    def _publish_rates(self, batch_s: float = 0.0, batch_n: int = 0
+                       ) -> None:
+        if batch_n and batch_s > 0:
+            obs.gauge("serve.frontend.qps").set(batch_n / batch_s)
+        sub = max(1, self.queue.submitted)
+        obs.gauge("serve.frontend.shed_rate").set(
+            self.queue.total_shed / sub)
 
     # ---- background worker ---------------------------------------------
     def start(self) -> None:
@@ -289,7 +316,7 @@ class QueryFrontend:
             except Exception:                             # noqa: BLE001
                 # the failing batch's tickets were already rejected;
                 # keep the loop alive for the rest of the stream.
-                pass
+                obs.counter("serve.frontend.pump_error").inc()
 
     def stop(self, drain: bool = True) -> None:
         """Stop the worker; with ``drain`` serve what is still queued.

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from repro_torch import obs
 from repro_torch.robust.clock import SYSTEM_CLOCK, Clock
 
 
@@ -67,8 +68,15 @@ class DegradeLadder:
             self._calm_since = now
         if pressure >= cfg.up_pressure and self._level < cfg.max_level:
             self._level += 1
+            obs.counter("serve.frontend.degrade", direction="up").inc()
+            obs.event("frontend.degrade", level=self._level,
+                      pressure=pressure)
         elif (pressure <= cfg.down_pressure and self._level > 0
               and now - self._calm_since >= cfg.cooldown_s):
             self._level -= 1
             self._calm_since = now          # one rung per cooldown window
+            obs.counter("serve.frontend.degrade", direction="down").inc()
+            obs.event("frontend.degrade", level=self._level,
+                      pressure=pressure)
+        obs.gauge("serve.frontend.degrade_level").set(float(self._level))
         return self._level

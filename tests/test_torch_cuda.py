@@ -1165,3 +1165,202 @@ def test_probe_kernel_error_on_the_card_stops_the_frontend(monkeypatch):
         assert fe.stats()["open_breakers"] == []
     finally:
         fe.breakers.close_pool()
+
+# ---------------------------------------------------------------------------
+# repro_torch.obs on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def _fresh_obs():
+    from repro_torch import obs
+    obs.REGISTRY.reset()
+    obs.reset_shape_tracking()
+    yield obs
+    obs.configure(None)
+    obs.REGISTRY.reset()
+
+
+@functools.lru_cache(maxsize=None)
+def _obs_engine():
+    """An engine of 2^20 Zipf tokens in 16 shards of 2^16 and 4,096 of its
+    queries, on the card."""
+    dev = _card()
+    n, sigma = 1 << 20, 4096
+    toks = (np.random.default_rng(5).zipf(1.2, n) % sigma).astype(np.int64)
+    eng = build_sharded_analytics(toks, sigma, shard_bits=16, device=dev)
+    rng = np.random.default_rng(6)
+    lo = rng.integers(0, n - 1, 4096)
+    hi = np.minimum(lo + rng.integers(1, n // 4, 4096), n)
+    k = rng.integers(0, np.maximum(hi - lo, 1))
+    return eng, [torch.from_numpy(x.astype(np.int32)).to(dev)
+                 for x in (lo, hi, k)]
+
+
+@pytest.mark.cuda
+def test_span_sync_waits_for_a_long_kernel(_fresh_obs):
+    obs = _fresh_obs
+    dev = _card()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with obs.span("test.sleep") as sp:
+        start.record()
+        torch.cuda._sleep(200_000_000)                 # about 0.1 s
+        end.record()
+        sp.sync(torch.ones(1, device=dev) + 1)
+    end.synchronize()
+    span_ms = obs.REGISTRY.snapshot()["histograms"]["span.test.sleep"][
+        "max"] * 1e3
+    assert span_ms >= start.elapsed_time(end) > 10.0
+
+
+@pytest.mark.cuda
+def test_device_errors_raise_out_of_profiling_and_spans(_fresh_obs,
+                                                        monkeypatch):
+    """A quantile kernel that cannot be loaded raises ``KernelError`` out of
+    ``profile_op``, ``profiled_op`` and a span that syncs; a device error
+    at the synchronize of a span whose body finished cleanly raises too."""
+    obs = _fresh_obs
+    eng, (lo, hi, k) = _obs_engine()
+    library = build.library
+
+    def broken(name):
+        if name == "wm_quantile":
+            raise build.KernelError("CUDA kernel library wm_quantile could "
+                                    "not be loaded")
+        return library(name)
+
+    def quantile(e, a, b, c):
+        return e.range_quantile(a, b, c)
+
+    monkeypatch.setattr(build, "library", broken)
+    with pytest.raises(build.KernelError):
+        obs.profile_op("analytics.quantile_kernel", quantile, eng, lo, hi, k)
+    with pytest.raises(build.KernelError):
+        obs.profiled_op("analytics", "quantile_kernel", quantile, eng, lo,
+                        hi, k, batch=lo.shape[0])
+    with pytest.raises(build.KernelError):
+        with obs.span("test.quantile") as sp:
+            sp.sync(quantile(eng, lo, hi, k))
+    assert "prof.error{op=analytics.quantile_kernel}" not in \
+        obs.REGISTRY.snapshot()["counters"]
+    monkeypatch.setattr(build, "library", library)
+
+    def failing_synchronize(device=None):
+        raise torch.OutOfMemoryError("raised at the synchronize")
+
+    out = quantile(eng, lo, hi, k)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(torch.cuda, "synchronize", failing_synchronize)
+    with pytest.raises(torch.OutOfMemoryError):
+        with obs.span("test.quantile") as sp:
+            sp.sync(out)
+    assert obs.current_span() is None
+
+
+@pytest.mark.cuda
+def test_time_compiled_on_the_card(_fresh_obs):
+    obs = _fresh_obs
+    eng, (lo, hi, k) = _obs_engine()
+    out, steady_s, first_s = obs.time_compiled(eng.range_quantile, lo, hi, k,
+                                               iters=5)
+    assert out.device.type == "cuda"
+    assert torch.equal(out, sharded_range_quantile(
+        eng.shards, eng.shard_bits, eng.n, lo, hi, k))
+    assert 0 < steady_s and 0 < first_s
+
+
+@pytest.mark.cuda
+def test_profiled_op_of_the_quantile_kernel(_fresh_obs):
+    obs = _fresh_obs
+    eng, (lo, hi, k) = _obs_engine()
+    out, steady_s, _ = obs.profiled_op(
+        "analytics", "quantile_kernel",
+        lambda e, a, b, c: e.range_quantile(a, b, c), eng, lo, hi, k,
+        batch=lo.shape[0], iters=10)
+    g = obs.REGISTRY.snapshot()["gauges"]
+    util = g["prof.roofline_util{op=analytics.quantile_kernel}"]
+    assert 0 < util <= 1.05
+    assert g["prof.peak_bytes{op=analytics.quantile_kernel}"] > 0
+    assert g["prof.bytes_accessed{op=analytics.quantile_kernel}"] == (
+        wm_quantile.quantile_work(eng.quantile, lo, hi, k)[0])
+    assert torch.equal(out, eng.range_quantile(lo, hi, k))
+
+
+@pytest.mark.cuda
+def test_memory_gauges_on_the_card(_fresh_obs):
+    obs = _fresh_obs
+    keep = torch.ones((1 << 20,), dtype=torch.int32, device=_card())
+    stats = obs.record_memory_gauges()
+    assert stats["live_bytes"] == stats["device_bytes_in_use"]
+    assert stats["live_bytes"] >= keep.numel() * 4
+    assert stats["device_peak_bytes"] >= stats["live_bytes"]
+    assert stats["live_arrays"] >= 1
+    g = obs.REGISTRY.snapshot()["gauges"]
+    assert g["prof.mem.live_bytes"] == stats["live_bytes"]
+
+
+@pytest.mark.cuda
+def test_trace_names_the_quantile_kernel(_fresh_obs, tmp_path):
+    import json
+    obs = _fresh_obs
+    eng, (lo, hi, k) = _obs_engine()
+    eng.range_quantile(lo, hi, k)
+    assert obs.start_trace(tmp_path / "prof")
+    assert not obs.start_trace(tmp_path / "other")   # one at a time
+    with obs.span("test.quantile"):
+        eng.range_quantile(lo, hi, k)
+    path = obs.stop_trace()
+    assert not obs.stop_trace()
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert any("wm_quantile_kernel" in name for name in kernels), kernels
+    assert "test.quantile" in {e["name"] for e in events
+                               if e.get("cat") == "user_annotation"}
+
+
+@pytest.mark.cuda
+def test_trace_counts_agree_with_launches(_fresh_obs):
+    obs = _fresh_obs
+    dev = _card()
+    rng = np.random.default_rng(3)
+    n = 70_001
+    build.reset_launches()
+    seq = torch.from_numpy(rng.integers(0, 3000, (4, n))).to(dev)
+    wm = build_wavelet_matrix(seq, 3000, device=dev)
+    build_wavelet_tree(seq[0], 3000, big_step="radix", device=dev)
+    d = torch.from_numpy(rng.integers(0, 64, (3, n)).astype(np.int32)).to(
+        dev)
+    ops.radix_rank(d, 64)
+    ops.wm_level_step(d, 2, n)
+    ops.rank_build(wm.bitvectors.rank.words[0, 0], n)
+    lo, hi, k = _queries(n, 100, 1, dev)
+    ops.wm_quantile_batch(tree_map(lambda x: x[0], wm), lo, hi, k)
+    eng = build_sharded_analytics(seq.reshape(-1).cpu().numpy(), 3000,
+                                  shard_bits=15, device=dev)
+    eng.range_quantile(lo, hi, k)
+    torch.cuda.synchronize()
+    traced = {name: [0, 0] for name in build.launches}
+    for key, v in obs.REGISTRY.snapshot()["counters"].items():
+        name, labels = obs.parse_key(key)
+        if name == "kernels.trace":
+            assert labels["route"] == "cuda"
+            kernel, least, most = ops.TRACE_LAUNCHES[labels["op"]]
+            traced[kernel][0] += least * v
+            traced[kernel][1] += most * v
+    for name, launched in build.launches.items():
+        assert traced[name][0] <= launched <= traced[name][1], name
+        assert launched > 0, name
+
+
+@pytest.mark.cuda
+def test_chaos_on_the_card(_fresh_obs, tmp_path, capsys):
+    from repro_torch.launch import chaos
+    _card()
+    check = chaos.main(["--smoke", "--device", "cuda", "--metrics-dir",
+                        str(tmp_path / "m")])
+    out = capsys.readouterr().out
+    assert check.failures == 0 and len(check.rows) == 31
+    assert "served 105, shed 295 (74%" in out
+    assert "p99 79.2ms" in out
+    assert (tmp_path / "m" / "snapshot.json").exists()
