@@ -183,6 +183,24 @@
    degraded, p99 79.2 ms). Chaos and the CLIs run at their documented
    sizes. Prints the ``obs`` JSON line; each kernel row gains
    ``obs_launches``.
+12. The LM serving path and the examples. (a) The four port examples
+   (``examples/torch_*.py``) at their default sizes on the card, each
+   ending in its ✓ line, with the launch counts zeroed before each and
+   read after it: exactly the kernels its path reaches must have launched
+   (``EXAMPLE_KERNELS``). (b) ``qwen2_0_5b`` at its full config (24
+   layers, d_model 896, 14 heads, 2 KV heads, d_ff 4864, vocab 151,936,
+   630,396,800 parameters), fresh init on the card, served through
+   ``launch/serve.py``'s functions at the CLI's defaults (batch 4, prompt
+   64, 32 decode steps) and at batch 8, prompt 2,048 (four 512-query
+   chunks), 128 decode steps: prefill and decode tok/s, the peak memory
+   and its rise, finite logits, and the prefill's last-position logits
+   equal to the teacher-forced decode of the prompt within
+   ``rtol=atol=0.05`` (the reference's own bound). (c) At full width and
+   depth 2, the card's prefill logits and 8 greedy decode steps against
+   the port's CPU run of the same params: logits within the same bound,
+   the tokens equal wherever the CPU's top-two margin is at least 0.1.
+   (d) The serve path launches no wavelet kernel. Prints the ``lm`` JSON
+   line; each kernel row gains ``lm_launches`` (the examples' launches).
 
 Exits non-zero on any failure; prints no result without a CUDA device or
 outside a checkout. The last line is the ``{"ok": true, ...}`` object.
@@ -256,6 +274,25 @@ BREAKER_SHARD = 2
 #: kernels each part of step 10 must launch (the checks' launches are
 #: counted apart): the ingest builds matrices and indexes; serving builds
 #: the hot swap's generations and answers exact quantiles
+#: kernels each example's path launches; every other kernel must not
+EXAMPLE_KERNELS = {
+    "torch_quickstart": ("wt_level_step", "bitpack", "rank_build_levels",
+                         "wm_level_step"),
+    "torch_corpus_analytics": ("wm_level_step", "rank_build_levels",
+                               "wm_quantile_sharded"),
+    "torch_corpus_search": ("radix_rank", "wm_level_step",
+                            "rank_build_levels", "bitpack"),
+    "torch_serve_decode": ("wm_level_step", "rank_build_levels"),
+}
+LM_ARCH = "qwen2_0_5b"
+LM_PARAMS = 630_396_800
+#: (batch, prompt, decode steps): the serve CLI's defaults, then a long
+#: prompt that the prefill takes in four 512-query chunks
+LM_SHAPES = ((4, 64, 32), (8, 2048, 128))
+LM_TOL = 0.05                 # tests/test_models_smoke.py:163-186
+LM_CHECK_DEPTH = 2
+LM_CHECK_STEPS = 8
+LM_MARGIN = 0.1
 PART_KERNELS = {"ingest": ("wm_level_step", "rank_build_levels",
                            "radix_rank", "bitpack"),
                 "serving": ("wm_level_step", "rank_build_levels",
@@ -2042,6 +2079,186 @@ def obs_phase(dev, toks: np.ndarray, eng, queries, serve_batches,
     return report, launches
 
 
+def lm_phase(dev) -> tuple[dict, dict]:
+    """Step 12: the four port examples on the card, then the LM serving
+    path at Qwen2-0.5B's full width. Returns (report, the examples'
+    launches summed)."""
+    import contextlib
+    import dataclasses
+    import importlib.util
+    import io
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.model import build_model, map_tree, tree_paths
+
+    report = {"examples": {}, "serve": []}
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in build.launches}
+
+    # ---- 12a. the examples at their default sizes -----------------------
+    for name, want in EXAMPLE_KERNELS.items():
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(build.launches)
+        out = buf.getvalue().strip().splitlines()
+        print("\n".join(f"  {name}: {ln}" for ln in out))
+        if not out or not out[-1].endswith("✓"):
+            fail(f"lm: {name} did not end in its check line")
+        wrong = {k: v for k, v in launches.items()
+                 if (v > 0) != (k in want)}
+        print(f"lm: {name}: {secs:.3f} s, launches {json.dumps(launches)}")
+        if wrong:
+            fail(f"lm: {name} launched {wrong}; its path launches exactly "
+                 f"{list(want)}")
+        report["examples"][name] = {"s": secs, "launches": launches}
+        for k, v in launches.items():
+            total[k] += v
+
+    # ---- 12b. Qwen2-0.5B at full width, two shapes ---------------------
+    cfg = get_config(LM_ARCH)
+    dims = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.d_ff, cfg.vocab_size, cfg.param_count())
+    if dims != (24, 896, 14, 2, 4864, 151_936, LM_PARAMS):
+        fail(f"lm: {LM_ARCH} config {dims}")
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    report["init_s"] = time.perf_counter() - t0
+    report["param_bytes"] = sum(leaf.numel() * leaf.element_size()
+                                for _, leaf in tree_paths(params))
+    print(f"lm: {LM_ARCH} full config, {LM_PARAMS} parameters "
+          f"({report['param_bytes'] / 2**30:.3f} GiB bf16), fresh init on "
+          f"the card in {report['init_s']:.3f} s")
+    for b, plen, steps in LM_SHAPES:
+        prompts = serve_cli.make_prompts(cfg.vocab_size, b, plen, 0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = serve_cli.serve(model, params, prompts, steps, dev)
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        pre, warm = res["prefill_logits"], res["warm_logits"]
+        row = {"batch": b, "prompt": plen, "decode_steps": steps,
+               "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+               "prefill_tok_s": b * plen / res["prefill_s"],
+               "decode_tok_s": b * (steps - 1) / res["decode_s"],
+               "warmup_decode_steps": plen, "s": secs,
+               "peak_gib": peak / 2**30, "peak_rise_gib": (peak - base)
+               / 2**30,
+               "prefill_vs_decode_max_abs": float(
+                   (pre - warm).abs().max())}
+        print(f"lm: serve batch {b}, prompt {plen}, {steps} decode steps: "
+              f"prefill {row['prefill_s'] * 1e3:.3f} ms "
+              f"({row['prefill_tok_s']:.1f} tok/s), decode "
+              f"{row['decode_s'] * 1e3:.3f} ms ({row['decode_tok_s']:.1f} "
+              f"tok/s), {plen} teacher-forced warm-up steps, {secs:.3f} s "
+              f"in all; peak {row['peak_gib']:.3f} GiB (rise "
+              f"{row['peak_rise_gib']:.3f} GiB); prefill vs teacher-forced "
+              f"decode max abs {row['prefill_vs_decode_max_abs']:.6f}")
+        if not (torch.isfinite(pre).all() and torch.isfinite(warm).all()):
+            fail("lm: non-finite logits")
+        toks = res["tokens"]
+        if (tuple(toks.shape) != (b, steps) or int(toks.min()) < 0
+                or int(toks.max()) >= cfg.vocab_size):
+            fail(f"lm: generated tokens {tuple(toks.shape)} out of range")
+        try:
+            torch.testing.assert_close(warm, pre, rtol=LM_TOL, atol=LM_TOL)
+        except AssertionError as e:
+            fail(f"lm: prefill and teacher-forced decode disagree: {e}")
+        report["serve"].append(row)
+        del res, pre, warm
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- 12c. full width, depth 2: the card against the CPU ------------
+    cfg2 = dataclasses.replace(cfg, num_layers=LM_CHECK_DEPTH)
+    model2 = build_model(cfg2)
+    card = model2.init(0, device=dev)
+    cpu = map_tree(lambda _, a: a.cpu(), card)
+    prompts = serve_cli.make_prompts(cfg.vocab_size, 2, 16, 1)
+    c = teacher_forced(model2, card, dev, prompts, None)
+    h = teacher_forced(model2, cpu, torch.device("cpu"), prompts,
+                       c["tokens"])
+    err = {k: float((c[k] - h[k]).abs().max()) for k in ("prefill",
+                                                         "decode")}
+    plen = prompts.shape[1]
+    top2 = h["decode"][plen - 1:].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1] >= LM_MARGIN).T
+    same = bool((c["tokens"][clear] == h["tokens"][clear]).all())
+    report["card_vs_cpu"] = {"depth": LM_CHECK_DEPTH, "max_abs_err": err,
+                             "clear_tokens": int(clear.sum()),
+                             "tokens_equal": same,
+                             "card_tokens": c["tokens"].tolist()}
+    print(f"lm: full width, depth {LM_CHECK_DEPTH}: card against CPU, max "
+          f"abs err {json.dumps(err)}; greedy tokens "
+          f"{c['tokens'].tolist()}, equal at the {int(clear.sum())} steps "
+          f"with a clear margin: {same}")
+    for key in ("prefill", "decode"):
+        try:
+            torch.testing.assert_close(c[key], h[key], rtol=LM_TOL,
+                                       atol=LM_TOL)
+        except AssertionError as e:
+            fail(f"lm: card and CPU {key} logits disagree: {e}")
+    if not same:
+        fail("lm: card and CPU greedy tokens differ at a clear margin")
+    del card, cpu
+
+    # ---- 12d. no wavelet kernel on the serve path ----------------------
+    serve_launches = dict(build.launches)
+    report["serve_launches"] = serve_launches
+    print(f"lm: launches over the serve path {json.dumps(serve_launches)}")
+    if any(serve_launches.values()):
+        fail("lm: the serve path launched a wavelet kernel")
+    report["launches"] = total
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"lm: step 12 took {report['phase_s']:.3f} s on the host clock")
+    return report, total
+
+
+def teacher_forced(model, params, dev, prompts: np.ndarray, forced):
+    """Prefill logits (B, V) and decode logits (P + LM_CHECK_STEPS - 1, B,
+    V) on the host of ``prompts`` (B, P), the prompt teacher-forced and
+    then LM_CHECK_STEPS greedy tokens (B, LM_CHECK_STEPS), or the tokens
+    ``forced`` fed in their place."""
+    from repro_torch.models.model import zero_cache
+    b, plen = prompts.shape
+    with torch.inference_mode():
+        toks = torch.from_numpy(prompts).to(dev).long()
+        pre = model.prefill(params, toks).cpu()
+        cache = zero_cache(model.cfg, b, plen + LM_CHECK_STEPS, device=dev)
+        logits, gen = [], []
+        tok = toks[:, :1]
+        for i in range(plen + LM_CHECK_STEPS - 1):
+            lg, cache = model.decode_step(
+                params, tok, cache, torch.full((b,), i, dtype=torch.int32))
+            logits.append(lg.cpu())
+            if i + 1 < plen:
+                tok = toks[:, i + 1:i + 2]
+                continue
+            gen.append(lg.argmax(-1).cpu())
+            k = len(gen) - 1
+            tok = (gen[k] if forced is None else forced[:, k]).to(dev)[:,
+                                                                     None]
+    return {"prefill": pre, "decode": torch.stack(logits),
+            "tokens": torch.stack(gen, dim=1)}
+
+
 def check_frontend_answers(full, seq: torch.Tensor, trace: list,
                            results: list) -> dict:
     """Hold the front-end's answers against the card: up to FE_SAMPLE
@@ -2994,6 +3211,9 @@ def main() -> None:
         dev, toks, eng, (lo_t, hi_t, k_t), serve_batches, wrapper_ms,
         quantile_bytes(sectors))
     del eng
+
+    # ---- 12. the examples and the LM serving path ----------------------
+    lm_report, lm_launches = lm_phase(dev)
     for row in kernels:
         row["construction_launches"] = phase_launches[row["name"]]
         row["index_launches"] = index_launches[row["name"]]
@@ -3001,6 +3221,7 @@ def main() -> None:
         row["ingest_launches"] = ingest_launches[row["name"]]
         row["serving_launches"] = serving_launches[row["name"]]
         row["obs_launches"] = obs_launches[row["name"]]
+        row["lm_launches"] = lm_launches[row["name"]]
 
     print(json.dumps({"construction": construction}))
     print(json.dumps({"index": index}))
@@ -3008,6 +3229,7 @@ def main() -> None:
     print(json.dumps({"ingest": ingest}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"obs": obs_report}))
+    print(json.dumps({"lm": lm_report}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": kernels}))
     if any(row["check"] != "pass" for row in kernels):

@@ -19,7 +19,13 @@ An FM index has its matrix under ``wm.``, ``C`` and ``sa_sample``
 the same under ``shards.`` with ``seam_windows`` (int32) and, when degraded,
 ``available`` (bool), plus ``n``, ``sigma``, ``shard_bits`` and
 ``seam_overlap``.
-The port keeps the same bytes in ``int32``/``int16``. No JAX is imported
+The port keeps the same bytes in ``int32``/``int16``.
+
+A model's params (``repro.models`` ↔ ``repro_torch.models``) are nested
+dicts of arrays with the same paths and shapes on both sides
+(:func:`params_from_reference`, :func:`params_to_reference`); their bf16
+leaves arrive as ml_dtypes ``bfloat16`` or a 2-byte ``V2`` view and are
+read by their bits, so no ``ml_dtypes`` is needed here. No JAX is imported
 here: callers flatten the reference pytree to numpy themselves.
 """
 from __future__ import annotations
@@ -27,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import host_array
 from repro_torch.core.huffman import HuffmanWaveletTree
 from repro_torch.core.multiary import MultiaryWaveletTree
 from repro_torch.core.rank_select import (BinaryRank, BinarySelect, BitVector,
@@ -269,3 +276,36 @@ def sharded_index_to_reference(idx: ShardedTextIndex) -> dict:
     if idx.available is not None:
         out["available"] = idx.available.cpu().numpy()
     return out
+
+
+def _param_tensor(arr, device) -> torch.Tensor:
+    """A reference param leaf as a tensor on ``device``: a 2-byte float
+    that numpy cannot name (ml_dtypes ``bfloat16``, or its ``V2`` view) is
+    read as bf16 by its bits; anything else keeps its dtype."""
+    arr = np.ascontiguousarray(np.asarray(arr))
+    if arr.dtype.itemsize == 2 and arr.dtype.kind not in "iuf":
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(device)
+
+
+def params_from_reference(tree: dict,
+                          device: str | torch.device = "cuda") -> dict:
+    """The port's params on ``device`` from the reference's nested dict of
+    numpy arrays (``jax.tree.map(np.asarray, params)``): the same paths,
+    shapes and dtypes."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, dev) for k, v in tree.items()}
+    return _param_tensor(tree, dev)
+
+
+def params_to_reference(params: dict) -> dict:
+    """Nested dict of host numpy arrays of the port's params, the paths,
+    shapes and dtypes the reference holds; bf16 leaves come as their bits
+    in a ``V2`` view (``.view(ml_dtypes.bfloat16)`` on the reference's
+    side)."""
+    if isinstance(params, dict):
+        return {k: params_to_reference(v) for k, v in params.items()}
+    return host_array(params)

@@ -104,10 +104,13 @@ def select_in_word(word: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return pos
 
 
-def pack_fields(values: torch.Tensor, width: int) -> torch.Tensor:
-    """Pack ``width``-bit fields into ``int32`` words, 32 // width a word,
-    LSB-first along the last axis (the paper's packed lists); ``width``
-    divides 32 and the tail is padded with zero fields."""
+def pack_fields(values: torch.Tensor, width: int,
+                out_dtype_name: str = "uint32") -> torch.Tensor:
+    """Pack ``width``-bit fields into words, 32 // width a word, LSB-first
+    along the last axis (the paper's packed lists); ``width`` divides 32 and
+    the tail is padded with zero fields. The words come as ``int32``
+    holding the uint32 pattern for ``"uint32"``, and converted to the named
+    dtype otherwise, as the reference's ``astype`` converts them."""
     if 32 % width:
         raise ValueError(f"width {width} does not divide 32")
     per = WORD_BITS // width
@@ -119,7 +122,24 @@ def pack_fields(values: torch.Tensor, width: int) -> torch.Tensor:
     out = torch.zeros(v.shape[:-1], dtype=torch.long, device=v.device)
     for j in range(per):                 # OR, as the reference reduces
         out |= v[..., j] << (j * width)
-    return to_i32(out)
+    if out_dtype_name == "uint32":
+        return to_i32(out)
+    return out.to(getattr(torch, out_dtype_name))
+
+
+def unpack_fields(words: torch.Tensor, width: int, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_fields`: the first ``n`` fields of ``width``
+    bits along the last axis, ``int64``."""
+    if 32 % width:
+        raise ValueError(f"width {width} does not divide 32")
+    shifts = torch.arange(0, WORD_BITS, width, device=words.device)
+    fields = (u32(words)[..., None] >> shifts) & ((1 << width) - 1)
+    return fields.reshape(words.shape[:-1] + (-1,))[..., :n]
+
+
+def extract_bit(values: torch.Tensor, bit) -> torch.Tensor:
+    """Bit ``bit`` (0 = LSB) of each value, ``int64`` in {0, 1}."""
+    return (u32(values) >> bit) & 1
 
 
 def extract_field(values: torch.Tensor, lo_bit: int,

@@ -7,8 +7,9 @@ and once more under ``torch.profiler`` (CPU and CUDA activities): the
 build from the numpy tokens, one doubling round of the suffix array (the
 first, offset 1, on all shards), a count batch and a locate batch (4 hits
 a shard). For each it prints the wall time, the device-busy share (the
-union of kernel intervals over the wall time), and the kernels and
-operators that took the most device time, then one JSON line of them all.
+union of kernel intervals over the wall time), the kernel launches, and
+the kernels and operators that took the most device time, then one JSON
+line of them all.
 
 PYTHONPATH=src python -m repro_torch.launch.profile_index
 
@@ -17,12 +18,12 @@ Needs a CUDA device; there is nothing to measure on the CPU.
 from __future__ import annotations
 
 import json
-import time
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch import obs
 from repro_torch.data import make_corpus
 from repro_torch.device import resolve_device
 from repro_torch.index import build_sharded_index, sample_patterns
@@ -45,14 +46,18 @@ def profiled(name: str, fn) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        sw = obs.Stopwatch()
         fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = sw.lap()
     busy = _busy_us(prof.events()) / 1e6
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
     print(f"{name}: {wall:.6f} s wall under the profiler, device busy "
-          f"{busy:.6f} s ({100 * busy / wall:.1f}%)")
-    out = {"phase": name, "wall_s": wall, "device_busy_s": busy}
+          f"{busy:.6f} s ({100 * busy / wall:.1f}%), {launches} kernel "
+          f"launches")
+    out = {"phase": name, "wall_s": wall, "device_busy_s": busy,
+           "kernel_launches": launches}
     for kind in ("kernels", "operators"):
         rows = []
         for e in prof.key_averages():

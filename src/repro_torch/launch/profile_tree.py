@@ -14,12 +14,12 @@ Needs a CUDA device; there is nothing to measure on the CPU.
 from __future__ import annotations
 
 import json
-import time
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch import obs
 from repro_torch.core.wavelet_tree import build_wavelet_tree
 from repro_torch.data import make_corpus
 from repro_torch.device import resolve_device
@@ -56,10 +56,10 @@ def main() -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        sw = obs.Stopwatch()
         run()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = sw.lap()
     events = prof.events()
     busy = _busy_us(events) / 1e6
     print(f"device: {torch.cuda.get_device_name(0)}; tree build of {N} "

@@ -209,3 +209,60 @@ def test_partition_select_matches_reference(n, kind):
         jnp.asarray(words), jnp.int32(total_zeros), n)
     assert np.array_equal(g.numpy(), np.asarray(jg))
     assert np.array_equal(g.numpy(), np.argsort(bits, kind="stable"))
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000])
+@pytest.mark.parametrize("width", [1, 2, 4, 8, 16])
+def test_unpack_fields_round_trips_pack_fields(width, n):
+    """The inputs of the reference's ``test_pack_fields_roundtrip``, on a
+    fixed grid (it is a hypothesis test, which skips without hypothesis)."""
+    vals = np.random.default_rng(n * 17 + width).integers(
+        0, 1 << width, n).astype(np.uint32)
+    words = bitops.pack_fields(_t(vals), width)
+    assert words.shape == ((n * width + 31) // 32,)
+    np.testing.assert_array_equal(
+        _u(words), np.asarray(jbitops.pack_fields(jnp.asarray(vals), width)))
+    back = bitops.unpack_fields(words, width, n)
+    np.testing.assert_array_equal(back.numpy(), vals)
+    np.testing.assert_array_equal(
+        back.numpy(), np.asarray(jbitops.unpack_fields(
+            jbitops.pack_fields(jnp.asarray(vals), width), width, n)))
+
+
+def test_extract_field_and_bit_match_reference():
+    """The inputs of the reference's ``test_extract_field_and_bit``."""
+    vals = np.asarray([0b101101, 0b011010], np.uint32)
+    for bit in range(8):
+        np.testing.assert_array_equal(
+            bitops.extract_bit(_t(vals), bit).numpy(),
+            np.asarray(jbitops.extract_bit(jnp.asarray(vals),
+                                           jnp.uint32(bit))))
+    np.testing.assert_array_equal(
+        bitops.extract_bit(_t(vals), torch.tensor([0, 1])).numpy(), [1, 1])
+    np.testing.assert_array_equal(bitops.extract_field(_t(vals), 2, 3).numpy(),
+                                  [0b011, 0b110])
+
+
+@pytest.mark.parametrize("dtype", ["uint32", "int32", "uint16",
+                                   "float32"])
+def test_pack_fields_out_dtype_matches_reference(dtype):
+    vals = np.random.default_rng(5).integers(0, 16, 77).astype(np.uint32)
+    want = np.asarray(jbitops.pack_fields(jnp.asarray(vals), 4,
+                                          out_dtype_name=dtype))
+    got = bitops.pack_fields(_t(vals), 4, out_dtype_name=dtype)
+    if dtype == "uint32":
+        assert got.dtype == torch.int32        # the uint32 pattern
+        got = got.numpy().view(np.uint32)
+    else:
+        got = got.numpy()
+    assert got.dtype == want.dtype
+    assert got.tobytes() == want.tobytes()
+
+
+def test_core_exposes_the_reference_surface():
+    import repro.core
+    import repro_torch.core
+    missing = [n for n in repro.core.__all__
+               if not hasattr(repro_torch.core, n)]
+    assert not missing
+    assert set(repro.core.__all__) <= set(repro_torch.core.__all__)

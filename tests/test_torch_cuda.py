@@ -6,7 +6,10 @@ runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-All outputs are exact integers: every comparison is equality.
+The kernels' outputs are exact integers: every comparison of them is
+equality. The LM serving path at the end has no kernel: its card logits are
+held to the port's CPU run of the same params within the reference's
+prefill/decode bound.
 """
 import functools
 import time
@@ -1364,3 +1367,81 @@ def test_chaos_on_the_card(_fresh_obs, tmp_path, capsys):
     assert "served 105, shed 295 (74%" in out
     assert "p99 79.2ms" in out
     assert (tmp_path / "m" / "snapshot.json").exists()
+
+
+# ---- the LM serving path and the examples (no kernel: the card's logits
+# ---- against the port's CPU run of the same params) ----------------------
+
+LM_FAMILY_ARCHS = ("qwen2_0_5b", "dbrx_132b", "arctic_480b", "mamba2_370m",
+                   "jamba_v0_1_52b", "whisper_medium", "llama_3_2_vision_90b")
+LM_TOL = dict(rtol=0.05, atol=0.05)   # the reference's prefill/decode bound
+
+
+def _lm_run(model, params, dev, prompt, extras, memory, forced):
+    """Prefill logits and the decode logits of the prompt teacher-forced,
+    then 8 tokens: greedy, or ``forced`` (the card's greedy tokens)."""
+    from repro_torch.models.model import zero_cache
+    b, plen = prompt.shape
+    with torch.inference_mode():
+        toks = prompt.to(dev)
+        ext = {k: v.to(dev) for k, v in extras.items()} or None
+        pre = model.prefill(params, toks, ext).cpu()
+        cache = zero_cache(model.cfg, b, plen + 8, device=dev)
+        for name, mem in memory.items():
+            cache[name] = mem.to(dev)
+        logits, gen, tok = [], [], toks[:, :1]
+        for i in range(plen + 7):
+            lg, cache = model.decode_step(
+                params, tok, cache, torch.full((b,), i, dtype=torch.int32))
+            logits.append(lg.cpu())
+            if i + 1 < plen:
+                tok = toks[:, i + 1:i + 2]
+                continue
+            gen.append(lg.argmax(-1).cpu())
+            nxt = gen[-1] if forced is None else forced[:, len(gen) - 1]
+            tok = nxt.to(dev)[:, None]
+    return pre, torch.stack(logits), torch.stack(gen, dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_FAMILY_ARCHS)
+def test_lm_family_on_the_card_matches_the_cpu(arch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build_model, map_tree, zero_cache
+    dev = _card()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    cpu = model.init(0, device="cpu")
+    card = map_tree(lambda _, a: a.to(dev), cpu)
+    g = torch.Generator().manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 16), generator=g)
+    extras = {k: torch.randn(s, generator=g).to(torch.bfloat16)
+              for k, s in model.extras_shapes(2).items()}
+    shapes = {k: v.shape for k, v in zero_cache(cfg, 2, 24, "cpu").items()}
+    memory = {k: torch.randn(shapes[k], generator=g).to(torch.bfloat16)
+              for k in ("xk", "xv") if k in shapes}
+    c_pre, c_dec, c_tok = _lm_run(model, card, dev, prompt, extras, memory,
+                                  None)
+    h_pre, h_dec, _ = _lm_run(model, cpu, torch.device("cpu"), prompt,
+                              extras, memory, c_tok)
+    assert torch.isfinite(c_pre).all() and torch.isfinite(c_dec).all()
+    torch.testing.assert_close(c_pre, h_pre, **LM_TOL)
+    torch.testing.assert_close(c_dec, h_dec, **LM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n", [("torch_quickstart", 20_000),
+                                    ("torch_corpus_analytics", 1 << 14),
+                                    ("torch_corpus_search", 1 << 13),
+                                    ("torch_serve_decode", 1 << 13)])
+def test_example_on_the_card(name, n, capsys):
+    import importlib.util
+    from pathlib import Path
+    _card()
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parents[1] / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(device="cuda", n=n)
+    assert capsys.readouterr().out.strip().splitlines()[-1].endswith("✓")

@@ -12,8 +12,9 @@
 * The kernel wrappers' ``kernels.work.*`` gauges equal the reference's,
   and ``profile_op`` of a wrapper op gives a roofline in (0, 1] from the
   work model, whose quantile bytes equal an independent count.
-* No module of ``repro_torch.obs`` or of the port's CLIs imports ``jax``
-  or ``repro`` (a subprocess with both blocked).
+* No module of ``repro_torch.obs``, of the port's CLIs or LM serving path,
+  no port example and not ``chip_smoke.py`` imports ``jax``, ``ml_dtypes``
+  or ``repro`` (a subprocess with all three blocked).
 """
 import subprocess
 import sys
@@ -425,19 +426,23 @@ def test_quantile_work_counts_the_bound_s_sectors():
 
 
 def test_no_jax_or_reference_import():
-    """Every module of repro_torch.obs and the port's CLIs imports in a
-    process where importing ``jax`` or ``repro`` raises."""
+    """Every module of repro_torch.obs, the port's CLIs, its LM serving path
+    (configs, models, ``convert``), the port's examples and
+    ``chip_smoke.py`` import in a process where importing ``jax``,
+    ``ml_dtypes`` or ``repro`` raises."""
     code = textwrap.dedent("""
-        import importlib, sys
+        import importlib, importlib.util, sys
+        from pathlib import Path
 
         class Block:
             def find_spec(self, name, path=None, target=None):
                 top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "repro"):
+                if top in ("jax", "jaxlib", "ml_dtypes", "repro"):
                     raise ImportError(f"blocked: {name}")
                 return None
 
         sys.meta_path.insert(0, Block())
+        from repro_torch.configs.base import ARCHITECTURES
         for m in ("repro_torch.obs", "repro_torch.obs.metrics",
                   "repro_torch.obs.export", "repro_torch.obs.spans",
                   "repro_torch.obs.timing", "repro_torch.obs.report",
@@ -445,16 +450,28 @@ def test_no_jax_or_reference_import():
                   "repro_torch.obs.prof", "repro_torch.launch.obs",
                   "repro_torch.launch.regress", "repro_torch.launch.chaos",
                   "repro_torch.launch.analytics", "repro_torch.launch.index",
-                  "repro_torch.launch.frontend"):
+                  "repro_torch.launch.frontend", "repro_torch.launch.serve",
+                  "repro_torch.launch.profile_tree",
+                  "repro_torch.launch.profile_index", "repro_torch.convert",
+                  "repro_torch.configs", "repro_torch.models",
+                  "repro_torch.models.layers", "repro_torch.models.ssm",
+                  "repro_torch.models.moe", "repro_torch.models.model",
+                  *(f"repro_torch.configs.{a}" for a in ARCHITECTURES)):
             importlib.import_module(m)
+        root = Path(sys.argv[1])
+        for f in (*sorted((root / "examples").glob("torch_*.py")),
+                  root / "chip_smoke.py"):
+            spec = importlib.util.spec_from_file_location(f.stem, f)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+               if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")]
         assert not bad, bad
         print("clean")
     """)
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, env={"PYTHONPATH": str(SRC),
-                                         "PATH": "/usr/bin:/bin"},
+    out = subprocess.run([sys.executable, "-c", code, str(SRC.parent)],
+                         capture_output=True, text=True,
+                         env={"PYTHONPATH": str(SRC),
+                              "PATH": "/usr/bin:/bin"},
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
