@@ -201,6 +201,31 @@
    the tokens equal wherever the CPU's top-two margin is at least 0.1.
    (d) The serve path launches no wavelet kernel. Prints the ``lm`` JSON
    line; each kernel row gains ``lm_launches`` (the examples' launches).
+13. The LM training half, fed from the wavelet-matrix store. (a) The
+   store of the whole stream (128 shards of 2^20, τ = 8, sample rate 512)
+   built on the card: exactly 19 ``wm_level_step`` (18 levels and the
+   totals) and 1 ``rank_build_levels`` launch. Every batch below comes
+   from ``TokenBatcher(corpus=..., batch=8, seq_len=256)`` and is held
+   against the numpy stream at ``batch_offsets``; its time is kept.
+   (b) ``qwen2_0_5b`` at its full config, fresh init on the card, trained
+   20 steps at the train CLI's defaults (batch 8, 256 tokens, lr 3e-4,
+   warmup 5): s a step (the first apart, then the median), tok/s, the
+   6·N·tokens work model's share of 989 TFLOP/s, peak memory and its
+   rise, the loss and grad norm of every step; the mean loss of the last
+   two steps must fall below the first two's by 0.1. (c) A second run
+   from scratch saves at step 10, a fresh ``Trainer`` resumes there and
+   runs to 20: the losses of both equal (b)'s and the final params equal
+   (b)'s bit for bit. (d) ``grad_accum=4`` against 1 on one batch within
+   ``tests/test_train.py``'s tolerances. (e) 3 steps with 6-bit
+   error-feedback compression: ``bitpack`` exactly once a leaf a step;
+   the words of one step's gradients (their first 2^22 elements a leaf)
+   equal the CPU's; ``bitpack`` at the embedding's 6 planes against its
+   plain version, timed. (f) At depth 2, one step from the same carried
+   state on the card and the CPU: loss within ``rtol=atol=0.05``, grad
+   norm within 5%, params within 2·lr + 2 bf16 ulp; a poisoned step is
+   skipped and keeps the step. (g) ``examples/torch_train_lm.py --steps
+   20`` on the card. Prints the ``train`` JSON line; each kernel row
+   gains ``train_launches``, the step's launches without its checks'.
 
 Exits non-zero on any failure; prints no result without a CUDA device or
 outside a checkout. The last line is the ``{"ok": true, ...}`` object.
@@ -293,6 +318,20 @@ LM_TOL = 0.05                 # tests/test_models_smoke.py:163-186
 LM_CHECK_DEPTH = 2
 LM_CHECK_STEPS = 8
 LM_MARGIN = 0.1
+TRAIN_BATCH, TRAIN_SEQ = 8, 256   # launch/train.py's defaults
+TRAIN_LR = 3e-4
+TRAIN_STEPS, TRAIN_WARMUP = 20, 5
+TRAIN_RESUME_AT = 10
+TRAIN_ACCUM = 4
+TRAIN_ACCUM_LR = 1e-3             # tests/test_train.py's accumulation case
+TRAIN_COMPRESS_BITS, TRAIN_COMPRESS_STEPS = 6, 3
+TRAIN_CHECK_SHAPE = (2, 64)       # batch, tokens a row of the depth-2 check
+TRAIN_LOSS_DROP = 0.1             # tests/test_train.py::test_loss_decreases
+TRAIN_WORDS_CHECK = 1 << 22       # leading elements of a vocabulary-sized
+#                                   gradient whose words the CPU repacks
+BF16_DENSE_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
+#                                   (NVIDIA H100 Tensor Core GPU datasheet)
+TRAIN_KERNELS = ("wm_level_step", "rank_build_levels", "bitpack")
 PART_KERNELS = {"ingest": ("wm_level_step", "rank_build_levels",
                            "radix_rank", "bitpack"),
                 "serving": ("wm_level_step", "rank_build_levels",
@@ -2259,6 +2298,364 @@ def teacher_forced(model, params, dev, prompts: np.ndarray, forced):
             "tokens": torch.stack(gen, dim=1)}
 
 
+def train_phase(dev, toks: np.ndarray) -> tuple[dict, dict]:
+    """Step 13: the LM training half at Qwen2-0.5B's full width, fed from
+    the wavelet-matrix store of the stream. Returns (report, the step's
+    launches, the checks' own left out)."""
+    import dataclasses
+    import importlib.util
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import (TokenBatcher, batch_offsets,
+                                  build_compressed_corpus)
+    from repro_torch.kernels import bitpack, build
+    from repro_torch.models.model import (build_model, count_params,
+                                          map_tree, tree_paths)
+    from repro_torch.optim.grad_compress import quantize_bitplanes
+    from repro_torch.train import Trainer, make_train_step, value_and_grad
+
+    report = {}
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in build.launches}
+
+    def add_launches(part: str) -> dict:
+        launches = dict(build.launches)
+        for k, v in launches.items():
+            total[k] += v
+        print(f"train: {part} launches {json.dumps(launches)}")
+        return launches
+
+    # ---- 13a. the store that feeds the batcher -------------------------
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    corpus = build_compressed_corpus(toks, SIGMA, shard_bits=SHARD_BITS,
+                                     tau=TAU, sample_rate=SAMPLE_RATE,
+                                     device=dev)
+    torch.cuda.synchronize()
+    report["store_build_s"] = time.perf_counter() - t0
+    launches = add_launches("store build")
+    want = {"wm_level_step": corpus.nbits + 1, "rank_build_levels": 1}
+    if any(launches[k] != v for k, v in want.items()) or any(
+            v for k, v in launches.items() if k not in want):
+        fail(f"train: the store build launched {launches}, not {want}")
+    report["store_bits_per_token"] = corpus.bits_per_token()
+    print(f"train: store of {corpus.n} tokens in {corpus.num_shards} shards "
+          f"of 2^{SHARD_BITS} built in {report['store_build_s']:.3f} s, "
+          f"{report['store_bits_per_token']:.4f} bits a token")
+    batch_s = []
+
+    class CheckedBatcher(TokenBatcher):
+        """The store's batcher; every batch held against the numpy stream
+        and timed."""
+        def batch_at(self, step: int) -> np.ndarray:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = super().batch_at(step)
+            batch_s.append(time.perf_counter() - t)
+            offs = batch_offsets(step, self.batch, self.n, self.seq_len,
+                                 self.seed)
+            want = toks[offs[:, None] + np.arange(self.seq_len + 1)]
+            if got.dtype != np.int32 or not np.array_equal(got, want):
+                fail(f"train: the store's batch of step {step} differs "
+                     f"from the stream")
+            return got
+
+    def batcher():
+        return CheckedBatcher(corpus=corpus, batch=TRAIN_BATCH,
+                              seq_len=TRAIN_SEQ, seed=0)
+
+    # ---- 13b. Qwen2-0.5B at full width, 20 steps -----------------------
+    cfg = get_config(LM_ARCH)
+    n_params = count_params(cfg)
+    if n_params != LM_PARAMS or cfg.num_layers != 24:
+        fail(f"train: {LM_ARCH} has {n_params} params, {cfg.num_layers} "
+             f"layers")
+    model = build_model(cfg)
+    kw = dict(base_lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
+              device=dev)
+
+    def trainer(**extra):
+        return Trainer(model, batcher(), log_every=1, **{**kw, **extra})
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    a = trainer()
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.run(1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    add_launches("full-width training")
+    losses = [h["loss"] for h in a.history]
+    gnorms = [h["grad_norm"] for h in a.history]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = float(np.median(step_s[1:]))
+    report["full_width"] = {
+        "arch": LM_ARCH, "params": n_params, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "lr": TRAIN_LR, "warmup": TRAIN_WARMUP,
+        "steps": TRAIN_STEPS, "first_step_s": step_s[0],
+        "median_step_s": med, "step_s": step_s, "tok_s": tokens / med,
+        "work_model_share": 6 * n_params * tokens / med / BF16_DENSE_FLOPS,
+        "batch_s_median": float(np.median(batch_s)),
+        "peak_gib": peak / 2**30, "peak_rise_gib": (peak - base) / 2**30,
+        "loss": losses, "grad_norm": gnorms}
+    fw = report["full_width"]
+    print(f"train: {LM_ARCH} full width, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: first step {step_s[0]:.3f} s, then median "
+          f"{med:.4f} s a step ({fw['tok_s']:.1f} tok/s, 6·N·tokens "
+          f"{100 * fw['work_model_share']:.2f}% of 989 TFLOP/s), a store "
+          f"batch {1e3 * fw['batch_s_median']:.2f} ms; peak "
+          f"{fw['peak_gib']:.3f} GiB (rise {fw['peak_rise_gib']:.3f} GiB)")
+    print(f"train: losses {json.dumps(losses)}")
+    print(f"train: grad norms {json.dumps(gnorms)}")
+    if not all(np.isfinite(losses + gnorms)):
+        fail("train: a non-finite loss or grad norm")
+    first, last = np.mean(losses[:2]), np.mean(losses[-2:])
+    if not last < first - TRAIN_LOSS_DROP:
+        fail(f"train: the loss fell from {first:.4f} to {last:.4f}, not by "
+             f"{TRAIN_LOSS_DROP}")
+    final = {p: x.clone() for p, x in tree_paths(a.state.params)}
+    del a
+    torch.cuda.empty_cache()
+
+    # ---- 13c. resume and replay ----------------------------------------
+    from repro_torch.train import trainer as trainer_mod
+    save_s = []
+
+    def timed_save(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = save(*args, **kwargs)
+        save_s.append(time.perf_counter() - t)
+        return out
+    save, trainer_mod.save_checkpoint = trainer_mod.save_checkpoint, timed_save
+    with tempfile.TemporaryDirectory() as ckpt:
+        build.reset_launches()
+        b = trainer(ckpt_dir=ckpt, ckpt_every=TRAIN_RESUME_AT)
+        b.run(TRAIN_RESUME_AT)
+        trainer_mod.save_checkpoint = save
+        replay = [h["loss"] for h in b.history]
+        del b
+        torch.cuda.empty_cache()
+        c = trainer(ckpt_dir=ckpt, ckpt_every=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = c.maybe_resume()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        c.run(TRAIN_STEPS - TRAIN_RESUME_AT)
+        resumed = [h["loss"] for h in c.history]
+        same = all(torch.equal(x, final[p])
+                   for p, x in tree_paths(c.state.params))
+        del c
+        torch.cuda.empty_cache()
+        add_launches("resume and replay")
+    report["resume"] = {"at": start, "save_s": save_s[0],
+                        "restore_s": restore_s,
+                        "replay_equal": replay == losses[:TRAIN_RESUME_AT],
+                        "resumed_equal": resumed == losses[TRAIN_RESUME_AT:],
+                        "params_equal": same}
+    print(f"train: replay from scratch {replay == losses[:TRAIN_RESUME_AT]}"
+          f"; the state saved at step {TRAIN_RESUME_AT} in {save_s[0]:.3f} "
+          f"s; resumed at step {start} (restore {restore_s:.3f} s), losses "
+          f"equal {resumed == losses[TRAIN_RESUME_AT:]}, params bit for bit "
+          f"{same}")
+    if not (start == TRAIN_RESUME_AT and all(report["resume"].values())):
+        fail(f"train: resume or replay is not bit-identical: "
+             f"{report['resume']}")
+    del final
+
+    # ---- 13d. accumulation ---------------------------------------------
+    from repro_torch.train import init_train_state
+    build.reset_launches()
+    batch = {"tokens": torch.from_numpy(batcher().batch_at(0)).to(
+        dev).long()}
+    outs = []
+    for accum in (1, TRAIN_ACCUM):
+        state = init_train_state(model, 0, device=dev)
+        outs.append(make_train_step(model, grad_accum=accum,
+                                    base_lr=TRAIN_ACCUM_LR)(state, batch))
+        del state
+    (n1, m1), (n4, m4) = outs
+    acc = {"loss": [float(m1["loss"]), float(m4["loss"])],
+           "grad_norm": [float(m1["grad_norm"]), float(m4["grad_norm"])]}
+    ok = abs(acc["loss"][1] - acc["loss"][0]) <= 2e-2 * abs(acc["loss"][0])
+    ok &= (abs(acc["grad_norm"][1] - acc["grad_norm"][0])
+           <= 2e-2 * abs(acc["grad_norm"][0]))
+    for (_, x), (_, y) in zip(tree_paths(n1.params), tree_paths(n4.params)):
+        ok &= bool(torch.allclose(y.float(), x.float(), rtol=2e-2,
+                                  atol=2e-4))
+    report["accumulation"] = {**acc, "within": ok}
+    print(f"train: grad_accum {TRAIN_ACCUM} against 1: loss "
+          f"{acc['loss']}, grad norm {acc['grad_norm']}, within "
+          f"tests/test_train.py's tolerances: {ok}")
+    del outs, n1, n4
+    torch.cuda.empty_cache()
+    add_launches("accumulation")
+    if not ok:
+        fail("train: accumulation disagrees with the full batch")
+
+    # ---- 13e. compression ----------------------------------------------
+    build.reset_launches()
+    comp = trainer(compress_bits=TRAIN_COMPRESS_BITS)
+    comp.run(TRAIN_COMPRESS_STEPS)
+    torch.cuda.synchronize()
+    leaves = len(list(tree_paths(comp.state.params)))
+    launches = add_launches("compressed training")
+    comp_losses = [h["loss"] for h in comp.history]
+    # the words of one step's gradients, card against CPU (check launches
+    # counted apart)
+    _, grads = value_and_grad(model.loss_fn, comp.state.params,
+                              batch["tokens"])
+    del comp
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    words_equal = True
+    for _, g in tree_paths(grads):
+        g = g.reshape(-1)[:TRAIN_WORDS_CHECK]
+        w, sc = quantize_bitplanes(g, TRAIN_COMPRESS_BITS)
+        hw, hs = quantize_bitplanes(g.cpu(), TRAIN_COMPRESS_BITS)
+        words_equal &= torch.equal(w.cpu(), hw) and torch.equal(sc.cpu(), hs)
+    # the kernel at the path's widest planes against its plain version
+    big = grads["embed"].reshape(-1)
+    planes = torch.empty((TRAIN_COMPRESS_BITS, big.numel()),
+                         dtype=torch.int32, device=dev)
+    planes.copy_((torch.rand(planes.shape, device=dev) < 0.5).int())
+    n = big.numel()
+    got = bitpack.bitpack(planes, n)
+    err = max_abs_err(got, bitpack.bitpack_plain(planes, n))
+    kernel_ms = cuda_ms(lambda: bitpack.bitpack(planes, n), 10)
+    plain_ms = cuda_ms(lambda: bitpack.bitpack_plain(planes, n), 2)
+    nbytes = planes.numel() * 4 + got.numel() * 4
+    nops = planes.numel() * 2
+    del planes, got, grads, big
+    torch.cuda.empty_cache()
+    report["compression"] = {
+        "bits": TRAIN_COMPRESS_BITS, "steps": TRAIN_COMPRESS_STEPS,
+        "leaves": leaves, "bitpack_launches": launches["bitpack"],
+        "loss": comp_losses, "words_equal_cpu": words_equal,
+        "bitpack_at_embedding": {"planes": TRAIN_COMPRESS_BITS, "n": n,
+                                 "ms": kernel_ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms(nbytes, nops),
+                                 "max_abs_err": err}}
+    print(f"train: compressed ({TRAIN_COMPRESS_BITS} bits) for "
+          f"{TRAIN_COMPRESS_STEPS} steps, losses {comp_losses}; bitpack "
+          f"{launches['bitpack']} launches for {leaves} leaves a step; "
+          f"words equal to the CPU's: {words_equal}; bitpack of the "
+          f"embedding's {TRAIN_COMPRESS_BITS} x {n} planes {kernel_ms:.4f} "
+          f"ms (plain {plain_ms:.4f} ms, bound "
+          f"{report['compression']['bitpack_at_embedding']['bound_ms']:.4f}"
+          f" ms), max_abs_err {err}")
+    if launches["bitpack"] != leaves * TRAIN_COMPRESS_STEPS:
+        fail(f"train: bitpack launched {launches['bitpack']} times, not once "
+             f"a leaf a step ({leaves * TRAIN_COMPRESS_STEPS})")
+    if not words_equal or err or not all(np.isfinite(comp_losses)):
+        fail("train: compressed gradients disagree with the CPU's or the "
+             "plain pack")
+
+    # ---- 13f. the card against the CPU at depth 2; a poisoned step -----
+    build.reset_launches()
+    cfg2 = dataclasses.replace(cfg, num_layers=LM_CHECK_DEPTH)
+    model2 = build_model(cfg2)
+    cb, cs = TRAIN_CHECK_SHAPE
+    small = TokenBatcher(corpus=corpus, batch=cb, seq_len=cs, seed=1)
+    step2 = make_train_step(model2, base_lr=TRAIN_LR, warmup=1,
+                            total_steps=TRAIN_STEPS)
+    card = init_train_state(model2, 0, device=dev)
+    card, _ = step2(card, {"tokens": torch.from_numpy(small.batch_at(0)).to(
+        dev).long()})                       # carried: the next lr is > 0
+    host = dataclasses.replace(
+        card, params=map_tree(lambda _, x: x.cpu(), card.params),
+        opt=dataclasses.replace(
+            card.opt, m=map_tree(lambda _, x: x.cpu(), card.opt.m),
+            v=map_tree(lambda _, x: x.cpu(), card.opt.v),
+            step=card.opt.step.cpu()))
+    tok1 = torch.from_numpy(small.batch_at(1)).long()
+    c_new, c_met = step2(card, {"tokens": tok1.to(dev)})
+    h_new, h_met = step2(host, {"tokens": tok1})
+    lr = float(h_met["lr"])
+    worst = 0.0
+    within = True
+    for path, x in tree_paths(c_new.params):
+        y = dict(tree_paths(h_new.params))[path].float()
+        d = (x.float().cpu() - y).abs()
+        within &= bool((d <= 2 * lr + 2 * torch.finfo(torch.bfloat16).eps
+                        * y.abs()).all())
+        worst = max(worst, float(d.max()))
+    cvh = {"depth": LM_CHECK_DEPTH, "shape": list(TRAIN_CHECK_SHAPE),
+           "loss": [float(c_met["loss"]), float(h_met["loss"])],
+           "grad_norm": [float(c_met["grad_norm"]),
+                         float(h_met["grad_norm"])],
+           "lr": lr, "param_max_abs_diff": worst,
+           "params_within": within}
+    ok = (abs(cvh["loss"][0] - cvh["loss"][1]) <= 0.05 + 0.05
+          * abs(cvh["loss"][1]) and abs(cvh["grad_norm"][0]
+                                        - cvh["grad_norm"][1])
+          <= 0.05 * cvh["grad_norm"][1] and within)
+    def poison(_, x):                       # tests/test_train.py's poison
+        x = x.clone()
+        x[(0,) * x.dim()] = float("nan")
+        return x
+    poisoned = dataclasses.replace(card, params=map_tree(poison,
+                                                         card.params))
+    p_new, p_met = step2(poisoned, {"tokens": tok1.to(dev)})
+    cvh["poisoned_skipped"] = int(p_met["skipped"])
+    cvh["poisoned_step_kept"] = int(p_new.opt.step) == int(card.opt.step)
+    report["card_vs_cpu"] = cvh
+    print(f"train: depth {LM_CHECK_DEPTH}, {cb} x {cs}, card against CPU: "
+          f"loss {cvh['loss']}, grad norm {cvh['grad_norm']}, params max "
+          f"abs diff {worst:.6g} at lr {lr:.6g} (within 2·lr + 2 ulp: "
+          f"{within}); a poisoned step skipped {cvh['poisoned_skipped']}, "
+          f"step kept {cvh['poisoned_step_kept']}")
+    del card, host, c_new, h_new, poisoned, p_new
+    torch.cuda.empty_cache()
+    add_launches("card against CPU")
+    if not ok:
+        fail("train: the card's step disagrees with the CPU's")
+    if cvh["poisoned_skipped"] != 1 or not cvh["poisoned_step_kept"]:
+        fail("train: a poisoned step was not skipped")
+    del corpus
+
+    # ---- 13g. the example ------------------------------------------------
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm", ROOT / "examples" / "torch_train_lm.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with tempfile.TemporaryDirectory() as ckpt:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        hist = mod.main(["--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt])
+        torch.cuda.synchronize()
+        example_s = time.perf_counter() - t0
+    launches = add_launches("examples/torch_train_lm.py")
+    report["example"] = {"s": example_s, "loss": [hist[0]["loss"],
+                                                  hist[-1]["loss"]],
+                         "launches": launches}
+    print(f"train: examples/torch_train_lm.py --steps {TRAIN_STEPS}: "
+          f"{example_s:.3f} s, loss {hist[0]['loss']:.4f} -> "
+          f"{hist[-1]['loss']:.4f}")
+    if not all(launches[k] > 0 for k in ("wm_level_step",
+                                         "rank_build_levels")):
+        fail("train: the example's store build launched no kernel")
+
+    missing = [k for k in TRAIN_KERNELS if total[k] <= 0]
+    if missing:
+        fail(f"kernels not launched in step 13: {missing}")
+    report["launches"] = total
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"train: step 13 took {report['phase_s']:.3f} s on the host clock")
+    return report, total
+
+
 def check_frontend_answers(full, seq: torch.Tensor, trace: list,
                            results: list) -> dict:
     """Hold the front-end's answers against the card: up to FE_SAMPLE
@@ -3214,6 +3611,9 @@ def main() -> None:
 
     # ---- 12. the examples and the LM serving path ----------------------
     lm_report, lm_launches = lm_phase(dev)
+
+    # ---- 13. the LM training half, fed from the store ------------------
+    train_report, train_launches = train_phase(dev, toks)
     for row in kernels:
         row["construction_launches"] = phase_launches[row["name"]]
         row["index_launches"] = index_launches[row["name"]]
@@ -3222,6 +3622,7 @@ def main() -> None:
         row["serving_launches"] = serving_launches[row["name"]]
         row["obs_launches"] = obs_launches[row["name"]]
         row["lm_launches"] = lm_launches[row["name"]]
+        row["train_launches"] = train_launches[row["name"]]
 
     print(json.dumps({"construction": construction}))
     print(json.dumps({"index": index}))
@@ -3230,6 +3631,7 @@ def main() -> None:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"obs": obs_report}))
     print(json.dumps({"lm": lm_report}))
+    print(json.dumps({"train": train_report}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": kernels}))
     if any(row["check"] != "pass" for row in kernels):

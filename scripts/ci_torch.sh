@@ -4,7 +4,8 @@
 # time-source lint, the index and analytics smokes, the obs export checks
 # and the SLO gate's exit codes, the chaos smoke, the front-end at 5×
 # overload behind its p99 gate, the fused tree-family equality smoke, and
-# the model-serving smoke.
+# the model-serving smoke; then a model-training smoke fed from the store,
+# which the reference's script lacks.
 #
 #   bash scripts/ci_torch.sh                  # on the card (the default)
 #   bash scripts/ci_torch.sh --device cpu     # the plain versions, no card
@@ -134,3 +135,7 @@ PY
 echo "== model serving smoke =="
 python -m repro_torch.launch.serve --arch qwen2_0_5b --smoke \
     --device "$DEVICE"
+
+echo "== model training smoke =="
+python -m repro_torch.launch.train --arch qwen2_0_5b --smoke \
+    --device "$DEVICE" --steps 20 --compressed-corpus

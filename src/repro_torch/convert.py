@@ -25,8 +25,12 @@ A model's params (``repro.models`` ↔ ``repro_torch.models``) are nested
 dicts of arrays with the same paths and shapes on both sides
 (:func:`params_from_reference`, :func:`params_to_reference`); their bf16
 leaves arrive as ml_dtypes ``bfloat16`` or a 2-byte ``V2`` view and are
-read by their bits, so no ``ml_dtypes`` is needed here. No JAX is imported
-here: callers flatten the reference pytree to numpy themselves.
+read by their bits, so no ``ml_dtypes`` is needed here. A training state
+(``repro.train.TrainState`` ↔ ``repro_torch.train.TrainState``) is its
+params, AdamW moments (f32) and step (int32) and error-feedback residuals
+(f32), the same trees (:func:`train_state_from_reference`,
+:func:`train_state_to_reference`). No JAX is imported here: callers
+flatten the reference pytree to numpy themselves.
 """
 from __future__ import annotations
 
@@ -309,3 +313,31 @@ def params_to_reference(params: dict) -> dict:
     if isinstance(params, dict):
         return {k: params_to_reference(v) for k, v in params.items()}
     return host_array(params)
+
+
+def train_state_from_reference(state, device: str | torch.device = "cuda"):
+    """The port's ``TrainState`` on ``device`` from the reference's: any
+    object with ``params``, ``opt.m``, ``opt.v``, ``opt.step`` and ``ef``
+    whose leaves numpy can read (``np.asarray``)."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.trainer import TrainState
+    dev = resolve_device(device)
+
+    def tree(t):
+        return params_from_reference(t, dev)
+    step = torch.from_numpy(np.asarray(state.opt.step, np.int32).copy())
+    return TrainState(params=tree(state.params),
+                      opt=AdamWState(m=tree(state.opt.m),
+                                     v=tree(state.opt.v), step=step.to(dev)),
+                      ef=tree(state.ef))
+
+
+def train_state_to_reference(state) -> dict:
+    """``{"params", "opt": {"m", "v", "step"}, "ef"}`` of host numpy arrays
+    of a port ``TrainState``, the reference's paths, shapes and dtypes
+    (bf16 leaves as their bits in a ``V2`` view)."""
+    return {"params": params_to_reference(state.params),
+            "opt": {"m": params_to_reference(state.opt.m),
+                    "v": params_to_reference(state.opt.v),
+                    "step": host_array(state.opt.step)},
+            "ef": params_to_reference(state.ef)}

@@ -20,9 +20,11 @@ from repro_torch.analytics.engine import (sharded_range_count,
                                           sharded_range_histogram,
                                           sharded_range_quantile,
                                           sharded_range_topk)
+from repro_torch.core import bitops
+from repro_torch.core.rank_select import rank1_rows
 from repro_torch.core.wavelet_matrix import (WaveletMatrix,
                                              build_wavelet_matrix,
-                                             num_levels, wm_access, wm_rank,
+                                             num_levels, wm_rank,
                                              wm_select)
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves, tree_map
@@ -75,13 +77,28 @@ class CompressedCorpus:
         return out
 
     def access(self, pos) -> torch.Tensor:
-        """Decode the tokens at arbitrary positions."""
+        """Decode the tokens at arbitrary positions: every position walks
+        its own shard's levels at once (a lane names its (shard, level)
+        row of the stacked directories, as the reference's gathers do;
+        shard ids clamped into range), so a batch over many shards costs
+        one pass of the levels and no host round trip."""
         pos = self._arg(pos)
         flat = pos.reshape(-1)
-        off = flat & (self.shard_size - 1)
-        out = self._per_shard(flat >> self.shard_bits,
-                              lambda s, m: wm_access(self.shard(s), off[m]))
-        return out.reshape(pos.shape).to(torch.int32)
+        sid = (flat >> self.shard_bits).clamp(0, self.num_shards - 1)
+        p = flat & (self.shard_size - 1)
+        rs = self.shards.bitvectors.rank          # leaves (S, L, ·)
+        levels = self.nbits
+        words = rs.words.reshape(-1)
+        width = rs.words.shape[-1]
+        zeros = self.shards.zeros.reshape(-1)
+        c = torch.zeros_like(p)
+        for l in range(levels):
+            row = sid * levels + l
+            bit = (bitops.u32(words[row * width + (p >> 5)]) >> (p & 31)) & 1
+            ones = rank1_rows(rs, row, p)
+            p = torch.where(bit == 0, p - ones, zeros[row].long() + ones)
+            c = (c << 1) | bit
+        return c.reshape(pos.shape).to(torch.int32)
 
     def decode_slice(self, start, length: int) -> torch.Tensor:
         """Decode the contiguous span [start, start + length) (a scalar

@@ -1,5 +1,6 @@
 """Model assembly on torch tensors (port of ``repro.models.model``): param
-and cache shapes, init, and the prefill and decode forward passes.
+and cache shapes, init, the prefill and decode forward passes, and the
+training loss.
 
 All families share one structure: token embedding → a loop over a stack of
 identical *blocks* (the smallest repeating layer pattern) → final norm →
@@ -18,8 +19,14 @@ Families:
   vlm     — period-5 block: 4 self layers + 1 image-cross layer
             (llama-vision)
 
-Forward passes only: the serve path runs them under
-``torch.inference_mode``. The decode cache is updated in place.
+The serve path runs the forward passes under ``torch.inference_mode``;
+the decode cache is updated in place. Training differentiates
+:meth:`Model.loss_fn` with autograd: each block (and each encoder block)
+is rematerialized in the backward pass by ``torch.utils.checkpoint``, as
+the reference's ``jax.checkpoint`` scans are, and the stacked block params
+are unbound once, so the gradient of a stacked leaf is one ``stack`` of its
+blocks' gradients (bf16, as the reference's ``value_and_grad`` of bf16
+params gives them).
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -62,6 +70,25 @@ def tree_paths(tree, path: tuple = ()):
 def _index(tree, i: int):
     """Slice ``i`` of the leading axis of every leaf."""
     return map_tree(lambda _, a: a[i], tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """The n slices of the leading axis of every leaf, one ``unbind`` a
+    leaf: autograd then stacks the slices' gradients in one pass, where n
+    selects would each add a zero-filled full-size gradient."""
+    parts = map_tree(lambda _, a: a.unbind(0), tree)
+    return [map_tree(lambda _, a: a[i], parts) for i in range(n)]
+
+
+def _remat(fn: Callable, *args):
+    """``fn(*args)``; with grad enabled its activations are recomputed in
+    the backward pass instead of kept (the reference's
+    ``jax.checkpoint``). The model draws no random numbers, so no RNG
+    state is kept."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def _norm(x, scale, cfg):
@@ -317,15 +344,18 @@ def _encoder(params, cfg, frames):
     positions, bidirectional self-attention without RoPE."""
     x = frames + params["enc_pos"][None].to(frames.dtype)
     groups = cfg.num_heads // cfg.num_kv_heads
-    for i in range(cfg.encoder_layers):
-        bp = _index(params["enc_blocks"], i)
+
+    def body(x, bp):
         hn = _norm(x, bp["ln1"], cfg)
         q = L._project(hn, bp["attn"]["wq"])
         k = L._repeat_kv(L._project(hn, bp["attn"]["wk"]), groups)
         v = L._repeat_kv(L._project(hn, bp["attn"]["wv"]), groups)
         o = L.full_attention(q, k, v, causal=False)
         x = x + L._out_project(o, bp["attn"]["wo"])
-        x = x + _mlp(_norm(x, bp["ln2"], cfg), bp["mlp"], cfg)
+        return x + _mlp(_norm(x, bp["ln2"], cfg), bp["mlp"], cfg)
+
+    for bp in _unstack(params["enc_blocks"], cfg.encoder_layers):
+        x = _remat(body, x, bp)
     return _norm(x, params["enc_final_norm"], cfg)
 
 
@@ -343,7 +373,7 @@ def forward_train(params: Params, cfg, tokens: torch.Tensor,
                   q_chunk: Optional[int] = 512,
                   logits_mode: str = "all") -> torch.Tensor:
     """tokens: (B, S) → logits (B, S, V) (or (B, V) for logits_mode="last"),
-    f32."""
+    f32. With grad enabled every block is rematerialized (:func:`_remat`)."""
     b, s = tokens.shape
     x = params["embed"].to(ACT_DTYPE)[tokens]
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
@@ -352,9 +382,12 @@ def forward_train(params: Params, cfg, tokens: torch.Tensor,
         memory = _encoder(params, cfg, extras["frames"].to(ACT_DTYPE))
     elif cfg.family == "vlm":
         memory = extras["image_embeds"].to(ACT_DTYPE)
-    for i in range(cfg.num_blocks):
-        x = _block_train(x, _index(params["blocks"], i), cfg, positions,
-                         memory, q_chunk)
+
+    def body(x, bp, memory):
+        return _block_train(x, bp, cfg, positions, memory, q_chunk)
+
+    for bp in _unstack(params["blocks"], cfg.num_blocks):
+        x = _remat(body, x, bp, memory)
     x = _norm(x, params["final_norm"], cfg)
     if logits_mode == "last":
         x = x[:, -1:]
@@ -497,6 +530,22 @@ class Model:
             return {"image_embeds": (batch, cfg.num_image_tokens,
                                      cfg.d_model)}
         return {}
+
+    def loss_fn(self, params, tokens, extras=None, q_chunk=512):
+        """tokens: (B, S+1). Mean next-token cross-entropy in f32: the
+        reference's ``logsumexp − gold`` over the padded vocabulary, pad
+        slots masked to ``NEG_BIAS``, the logsumexp as ``jax.nn`` writes it
+        (its max held constant)."""
+        inp, labels = tokens[:, :-1], tokens[:, 1:]
+        logits = _mask_padded_vocab(
+            forward_train(params, self.cfg, inp, extras, q_chunk=q_chunk),
+            self.cfg)
+        amax = logits.detach().amax(-1, keepdim=True)
+        amax = torch.where(torch.isfinite(amax), amax, 0.0)
+        logz = torch.log(torch.exp(logits - amax).sum(-1)) + amax[..., 0]
+        gold = torch.take_along_dim(logits, labels[..., None].long(),
+                                    dim=-1)[..., 0]
+        return (logz - gold).mean()
 
     def prefill(self, params, tokens, extras=None, q_chunk=512):
         """Forward pass returning last-position logits only."""

@@ -24,15 +24,40 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Inclusive prefix sum accumulated in x's dtype, one element after
-    another (bf16 rounding at every step), as the reference's
-    ``jnp.cumsum`` computes it on the CPU; ``torch.cumsum`` accumulates in
-    f32 and rounds once."""
-    out = list(x.unbind(dim))
+#: XLA rewrites a cumulative sum longer than this into blocks of it
+#: (``ReduceWindowRewriter``): a sequential sum within each block, plus the
+#: exclusive prefix of the block totals, scanned the same way
+_SCAN_BLOCK = 16
+
+
+def _sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis in x's dtype, one element
+    after another (rounded at every step)."""
+    out = list(x.unbind(-1))
     for i in range(1, len(out)):
         out[i] = out[i - 1] + out[i]
-    return torch.stack(out, dim)
+    return torch.stack(out, -1)
+
+
+def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive prefix sum accumulated in x's dtype as the reference's
+    ``jnp.cumsum`` computes it on the CPU: sequential within blocks of 16,
+    each block then offset by the exclusive prefix of the block totals
+    (itself summed so), every add rounded to x's dtype; ``torch.cumsum``
+    accumulates in f32 and rounds once."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        out = _sequential_cumsum(x)
+    else:
+        nb = -(-n // _SCAN_BLOCK)
+        blocks = F.pad(x, (0, nb * _SCAN_BLOCK - n)).unflatten(
+            -1, (nb, _SCAN_BLOCK))
+        inner = _sequential_cumsum(blocks)
+        totals = cumsum(inner[..., -1], -1)
+        out = (inner + F.pad(totals[..., :-1], (1, 0))[..., None]).flatten(
+            -2)[..., :n]
+    return out.movedim(-1, dim)
 
 
 def _ssd_chunked(x, dt, A, Bm, Cm, chunk: int):

@@ -1445,3 +1445,149 @@ def test_example_on_the_card(name, n, capsys):
     spec.loader.exec_module(mod)
     mod.main(device="cuda", n=n)
     assert capsys.readouterr().out.strip().splitlines()[-1].endswith("✓")
+
+
+# ---- the LM training half: a train step, compressed grads through the
+# ---- bitpack kernel, replay and resume, a store-fed batch ----------------
+
+TRAIN_ARCHS = ("qwen2_0_5b", "dbrx_132b", "mamba2_370m", "whisper_medium")
+TRAIN_KW = dict(base_lr=1e-3, warmup=1, total_steps=10)
+
+
+def _train_batch(cfg, model, seed: int, dev) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 33),
+                                     generator=g)}
+    for k, s in model.extras_shapes(4).items():
+        batch[k] = torch.randn(s, generator=g).to(torch.bfloat16)
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _leaves_close_to_a_step(got, want, lr: float) -> None:
+    """Params within 2·lr plus 2 bf16 ulp (a grad whose sign differs moves
+    an Adam step by at most about 2·lr more)."""
+    from repro_torch.models.model import tree_paths
+    want = dict(tree_paths(want))
+    for path, a in tree_paths(got):
+        a, b = a.float().cpu(), want[path].float().cpu()
+        ulp = torch.finfo(torch.bfloat16).eps * b.abs()
+        assert bool(((a - b).abs() <= 2 * lr + 2 * ulp).all()), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_matches_the_cpu(arch):
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build_model, map_tree
+    from repro_torch.train import init_train_state, make_train_step
+    dev = _card()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    cpu = init_train_state(model, 0, compress_bits=6, device="cpu")
+    card = dataclasses.replace(
+        cpu, params=map_tree(lambda _, a: a.to(dev), cpu.params),
+        opt=dataclasses.replace(
+            cpu.opt, m=map_tree(lambda _, a: a.to(dev), cpu.opt.m),
+            v=map_tree(lambda _, a: a.to(dev), cpu.opt.v),
+            step=cpu.opt.step.to(dev)),
+        ef=map_tree(lambda _, a: a.to(dev), cpu.ef))
+    step = make_train_step(model, **TRAIN_KW)
+    c_state, c_met = step(card, _train_batch(cfg, model, 0, dev))
+    h_state, h_met = step(cpu, _train_batch(cfg, model, 0, "cpu"))
+    assert int(c_met["skipped"]) == 0 and int(c_state.opt.step) == 1
+    torch.testing.assert_close(c_met["loss"].cpu(), h_met["loss"],
+                               rtol=0.05, atol=0.05)
+    torch.testing.assert_close(c_met["grad_norm"].cpu(), h_met["grad_norm"],
+                               rtol=0.05, atol=0)
+    _leaves_close_to_a_step(c_state.params, h_state.params,
+                            float(h_met["lr"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 6, 8])
+def test_compressed_grads_go_through_bitpack(bits):
+    from repro_torch.optim.grad_compress import (dequantize_bitplanes,
+                                                 ef_compress_tree,
+                                                 quantize_bitplanes,
+                                                 zero_residuals)
+    dev = _card()
+    g = torch.Generator().manual_seed(bits)
+    x = torch.randn(70_001, generator=g) * 3
+    build.reset_launches()
+    words, scale = quantize_bitplanes(x.to(dev), bits)
+    torch.cuda.synchronize()
+    assert build.launches["bitpack"] == 1
+    want_w, want_s = quantize_bitplanes(x, bits)
+    assert torch.equal(words.cpu(), want_w)
+    assert torch.equal(scale.cpu(), want_s)
+    assert torch.equal(dequantize_bitplanes(words, scale, bits, (70_001,),
+                                            keep_planes=2).cpu(),
+                       dequantize_bitplanes(want_w, want_s, bits,
+                                            (70_001,), keep_planes=2))
+    tree = {"a": torch.randn((33, 17), generator=g).to(torch.bfloat16),
+            "b": {"c": torch.randn(1000, generator=g).to(torch.bfloat16),
+                  "d": torch.zeros(5, dtype=torch.bfloat16)}}
+    res = zero_residuals(tree)
+    build.reset_launches()
+    on_card = ef_compress_tree({"a": tree["a"].to(dev),
+                                "b": {k: v.to(dev)
+                                      for k, v in tree["b"].items()}},
+                               {"a": res["a"].to(dev),
+                                "b": {k: v.to(dev)
+                                      for k, v in res["b"].items()}}, bits)
+    torch.cuda.synchronize()
+    assert build.launches["bitpack"] == 3            # one a leaf
+    on_cpu = ef_compress_tree(tree, res, bits)
+    for got, want in zip(on_card, on_cpu):
+        assert torch.equal(got["a"].cpu(), want["a"])
+        for k in ("c", "d"):
+            assert torch.equal(got["b"][k].cpu(), want["b"][k])
+
+
+@pytest.mark.cuda
+def test_training_on_the_card_replays_and_resumes(tmp_path):
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import TokenBatcher, make_corpus
+    from repro_torch.models.model import build_model, tree_paths
+    from repro_torch.train import Trainer
+    _card()
+    cfg = get_config("qwen2_0_5b", smoke=True)
+    model = build_model(cfg)
+    toks = make_corpus(1 << 16, cfg.vocab_size, seed=0)
+
+    def trainer(ckpt=None):
+        return Trainer(model, TokenBatcher(tokens=toks, batch=4, seq_len=64,
+                                           seed=5),
+                       log_every=1, ckpt_dir=ckpt, ckpt_every=5,
+                       device="cuda", compress_bits=6, **TRAIN_KW)
+    a, b = trainer(), trainer(str(tmp_path))
+    ha, hb = a.run(10), b.run(5)
+    assert [h["loss"] for h in ha[:5]] == [h["loss"] for h in hb]
+    c = trainer(str(tmp_path))
+    assert c.maybe_resume() == 5
+    hc = c.run(5)
+    assert [h["loss"] for h in ha[5:]] == [h["loss"] for h in hc]
+    for (path, x), (_, y) in zip(tree_paths(a.state.params),
+                                 tree_paths(c.state.params)):
+        assert torch.equal(x, y), path
+
+
+@pytest.mark.cuda
+def test_store_fed_batch_on_the_card():
+    from repro_torch.data import (TokenBatcher, build_compressed_corpus,
+                                  make_corpus)
+    dev = _card()
+    toks = make_corpus(1 << 18, 151_936, seed=0)
+    build.reset_launches()
+    corpus = build_compressed_corpus(toks, 151_936, shard_bits=16,
+                                     device=dev)
+    torch.cuda.synchronize()
+    assert build.launches["wm_level_step"] == 19
+    assert build.launches["rank_build_levels"] == 1
+    b = TokenBatcher(corpus=corpus, batch=8, seq_len=256, seed=0)
+    for step in (0, 1, 77):
+        got = b.batch_at(step)
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, toks[b.positions(step)])

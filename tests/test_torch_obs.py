@@ -427,9 +427,10 @@ def test_quantile_work_counts_the_bound_s_sectors():
 
 def test_no_jax_or_reference_import():
     """Every module of repro_torch.obs, the port's CLIs, its LM serving path
-    (configs, models, ``convert``), the port's examples and
-    ``chip_smoke.py`` import in a process where importing ``jax``,
-    ``ml_dtypes`` or ``repro`` raises."""
+    (configs, models, ``convert``), its training half (``optim``,
+    ``train``, ``data.pipeline``, ``launch.train``, ``launch.profile_train``),
+    the port's examples and ``chip_smoke.py`` import in a process where
+    importing ``jax``, ``ml_dtypes`` or ``repro`` raises."""
     code = textwrap.dedent("""
         import importlib, importlib.util, sys
         from pathlib import Path
@@ -456,6 +457,13 @@ def test_no_jax_or_reference_import():
                   "repro_torch.configs", "repro_torch.models",
                   "repro_torch.models.layers", "repro_torch.models.ssm",
                   "repro_torch.models.moe", "repro_torch.models.model",
+                  "repro_torch.optim", "repro_torch.optim.adamw",
+                  "repro_torch.optim.schedule",
+                  "repro_torch.optim.grad_compress", "repro_torch.train",
+                  "repro_torch.train.trainer", "repro_torch.data.pipeline",
+                  "repro_torch.launch.train",
+                  "repro_torch.launch.profile_train",
+                  "repro_torch.launch.profile_serve",
                   *(f"repro_torch.configs.{a}" for a in ARCHITECTURES)):
             importlib.import_module(m)
         root = Path(sys.argv[1])
