@@ -227,6 +227,26 @@
    20`` on the card. Prints the ``train`` JSON line; each kernel row
    gains ``train_launches``, the step's launches without its checks'.
 
+14. The XLA tools' port. (a) At the start, beside steps 1–13 and at the
+   lowest priority, two processes run the dry run on the CPU only
+   (``python -m repro_torch.launch.dryrun``): ``qwen2_0_5b`` at its full
+   config in train_4k, prefill_32k and decode_32k (and the long_500k skip
+   record) on both production meshes (16×16 and 2×16×16 fake ranks), and
+   ``dbrx_132b`` × decode_32k × 16×16 (its MoE pins run). Each cell must
+   be ``ok``; its ``argument_bytes`` must equal the local shard bytes
+   counted in numpy from the spec tuples and the shapes; a train cell's
+   FLOPs a device × devices must reach 6·(N − N_embed)·tokens; collectives
+   are counted under the reference's five kinds only. Prints each cell's
+   ``lower_s``, ``compile_s``, per-device peak against the card's memory
+   and collective bytes by kind. (b) The analytics cell on the card: its
+   four-op batch and the fused quantile kernel each launch
+   ``wm_quantile_sharded`` exactly once. (c) ``--mesh host``: Qwen2-0.5B
+   at full width trained 5 steps from step 13's store (batch 8 × 256,
+   seed 0) on a 1×1 DTensor mesh, and without a mesh: losses, grad norms
+   and every param leaf bit for bit equal; s a step and peak memory of
+   both. Prints the ``dryrun`` JSON line; each kernel row gains
+   ``dryrun_launches`` (steps 14b and 14c).
+
 Exits non-zero on any failure; prints no result without a CUDA device or
 outside a checkout. The last line is the ``{"ok": true, ...}`` object.
 """
@@ -234,8 +254,10 @@ from __future__ import annotations
 
 import ctypes
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -332,6 +354,12 @@ TRAIN_WORDS_CHECK = 1 << 22       # leading elements of a vocabulary-sized
 BF16_DENSE_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 #                                   (NVIDIA H100 Tensor Core GPU datasheet)
 TRAIN_KERNELS = ("wm_level_step", "rank_build_levels", "bitpack")
+DRYRUN_CELLS = (("qwen2_0_5b", "--both-meshes"),   # its four shapes
+                ("dbrx_132b", "--shape", "decode_32k"))
+DRYRUN_QWEN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_TIMEOUT_S = 900           # the dry run's processes, from their start
+MESH_HOST_STEPS = 5
+DRYRUN_KERNELS = ("wm_level_step", "rank_build_levels", "wm_quantile_sharded")
 PART_KERNELS = {"ingest": ("wm_level_step", "rank_build_levels",
                            "radix_rank", "bitpack"),
                 "serving": ("wm_level_step", "rank_build_levels",
@@ -2298,10 +2326,10 @@ def teacher_forced(model, params, dev, prompts: np.ndarray, forced):
             "tokens": torch.stack(gen, dim=1)}
 
 
-def train_phase(dev, toks: np.ndarray) -> tuple[dict, dict]:
+def train_phase(dev, toks: np.ndarray) -> tuple[dict, dict, object]:
     """Step 13: the LM training half at Qwen2-0.5B's full width, fed from
     the wavelet-matrix store of the stream. Returns (report, the step's
-    launches, the checks' own left out)."""
+    launches, the checks' own left out, the store for step 14)."""
     import dataclasses
     import importlib.util
     import tempfile
@@ -2622,7 +2650,6 @@ def train_phase(dev, toks: np.ndarray) -> tuple[dict, dict]:
         fail("train: the card's step disagrees with the CPU's")
     if cvh["poisoned_skipped"] != 1 or not cvh["poisoned_step_kept"]:
         fail("train: a poisoned step was not skipped")
-    del corpus
 
     # ---- 13g. the example ------------------------------------------------
     spec = importlib.util.spec_from_file_location(
@@ -2653,7 +2680,236 @@ def train_phase(dev, toks: np.ndarray) -> tuple[dict, dict]:
     report["launches"] = total
     report["phase_s"] = time.perf_counter() - t_phase
     print(f"train: step 13 took {report['phase_s']:.3f} s on the host clock")
-    return report, total
+    return report, total, corpus
+
+
+def start_dryrun(out_dir: Path) -> list:
+    """Start the dry run of step 14a: one process a line of
+    ``DRYRUN_CELLS``, on the CPU only (no card is visible to them), at the
+    lowest priority, so they run beside steps 1–13 on the host's idle cores
+    (the 2×16×16 train cell records for minutes). Output goes to
+    ``out_dir``."""
+    import atexit
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = []
+
+    def stop():
+        for proc, log, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    atexit.register(stop)
+    for i, args in enumerate(DRYRUN_CELLS):
+        log = open(out_dir / f"dryrun_{i}.log", "w")
+        procs.append((subprocess.Popen(
+            ["nice", "-n", "19", sys.executable, "-m",
+             "repro_torch.launch.dryrun", "--arch", *args, "--out",
+             str(out_dir), "--force"], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT), log, time.perf_counter()))
+    return procs
+
+
+def cell_argument_bytes(cfg, shape, sizes: dict) -> int:
+    """The local shard bytes of a dry-run step's arguments, counted in
+    numpy from the spec tuples and the shapes: params (bf16); for train
+    the f32 moments, the int32 step and the int32 batch; for decode the
+    bf16 cache, the int32 tokens and pos."""
+    from repro_torch.models.model import (abstract_params, cache_shapes,
+                                          cache_specs, fit_spec, param_specs,
+                                          tree_paths)
+
+    def local(shape_, spec, itemsize):
+        n = 1
+        for dim, ax in zip(shape_, tuple(spec) + (None,) * len(shape_)):
+            axes = (() if ax is None else ax if isinstance(ax, tuple)
+                    else (ax,))
+            n *= dim // int(np.prod([sizes[a] for a in axes], dtype=np.int64))
+        return n * itemsize
+
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+    b, s = shape.global_batch, shape.seq_len
+    mode = "decode" if shape.kind == "decode" else "train"
+    shapes = dict(tree_paths(abstract_params(cfg)))
+    pbytes = sum(local(shapes[p].shape, sp, 2)
+                 for p, sp in tree_paths(param_specs(cfg, sizes, mode)))
+    if shape.kind == "train":
+        return pbytes + 2 * 2 * pbytes + 4 + local(
+            (b, s + 1), fit_spec((dp, None), (b, s + 1), sizes), 4)
+    if shape.kind == "prefill":
+        return pbytes + local((b, s), fit_spec((dp, None), (b, s), sizes), 4)
+    cshapes = dict(tree_paths(cache_shapes(cfg, b, s)))
+    return (pbytes + sum(local(cshapes[p], sp, 2) for p, sp in tree_paths(
+        cache_specs(cfg, dp, b, s, sizes)))
+        + local((b, 1), fit_spec((dp, None), (b, 1), sizes), 4)
+        + local((b,), fit_spec((dp,), (b,), sizes), 4))
+
+
+def dryrun_phase(dev, corpus, procs, out_dir: Path) -> tuple[dict, dict]:
+    """Step 14: the XLA tools' port. (a) Reads the dry-run cells started at
+    the beginning (``start_dryrun``); (b) the analytics cell on the card;
+    (c) ``--mesh host`` training at Qwen2-0.5B's full width against
+    ``--mesh none``. Returns (report, the phase's launches)."""
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.data import TokenBatcher
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model, count_params, tree_paths
+    from repro_torch.train import Trainer
+
+    report = {}
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    build.reset_launches()
+
+    # ---- 14b. the analytics cell on the card ---------------------------
+    cell = dryrun.run_analytics_cell(out_dir, device=str(dev))
+    report["analytics"] = cell
+    for part in ("serve_4op_batch", "fused_quantile_kernel"):
+        c = cell[part]
+        print(f"dryrun: analytics {part}: {c['s']:.4f} s on the host clock, "
+              f"work {c['bytes_accessed']:.0f} B, {c['int_ops']:.0f} int32 "
+              f"ops, launches {json.dumps(c['launches'])}, peak rise "
+              f"{c.get('peak_rise_bytes', float('nan')) / 2**20:.3f} MiB")
+        if c["launches"].get("wm_quantile_sharded") != 1:
+            fail(f"dryrun: the analytics cell's {part} launched "
+                 f"wm_quantile_sharded {c['launches']}, not once (one batch)")
+
+    # ---- 14c. --mesh host at full width against --mesh none -----------
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    runs = {}
+    for mesh_name in ("none", "host"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_host_mesh(dev) if mesh_name == "host" else None
+        t = Trainer(model, TokenBatcher(corpus=corpus, batch=TRAIN_BATCH,
+                                        seq_len=TRAIN_SEQ, seed=0),
+                    log_every=1, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                    total_steps=TRAIN_STEPS, device=dev, mesh=mesh)
+        step_s = []
+        for _ in range(MESH_HOST_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.run(1)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        params = {p: (x.full_tensor() if hasattr(x, "full_tensor") else x)
+                  for p, x in tree_paths(t.state.params)}
+        runs[mesh_name] = {
+            "loss": [h["loss"] for h in t.history],
+            "grad_norm": [h["grad_norm"] for h in t.history],
+            "step_s": step_s, "first_step_s": step_s[0],
+            "median_step_s": float(np.median(step_s[1:])),
+            "peak_gib": peak / 2**30, "peak_rise_gib": (peak - base) / 2**30,
+            "params": params}
+        del t
+    same = all(torch.equal(x, runs["none"]["params"][p])
+               for p, x in runs["host"]["params"].items())
+    mh = {"steps": MESH_HOST_STEPS, "params_equal": same,
+          "loss_equal": runs["host"]["loss"] == runs["none"]["loss"],
+          "grad_norm_equal": (runs["host"]["grad_norm"]
+                              == runs["none"]["grad_norm"])}
+    for name, r in runs.items():
+        del r["params"]
+        mh[name] = r
+        print(f"dryrun: --mesh {name}, {LM_ARCH} full width, batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} from the store: first step "
+              f"{r['first_step_s']:.3f} s, then median "
+              f"{r['median_step_s']:.4f} s a step ({r['step_s']}); peak "
+              f"{r['peak_gib']:.3f} GiB (rise {r['peak_rise_gib']:.3f} GiB); "
+              f"losses {r['loss']}")
+    report["mesh_host"] = mh
+    del runs
+    torch.cuda.empty_cache()
+    print(f"dryrun: --mesh host against --mesh none over {MESH_HOST_STEPS} "
+          f"steps: losses equal {mh['loss_equal']}, grad norms equal "
+          f"{mh['grad_norm_equal']}, params bit for bit {same}")
+    if not (same and mh["loss_equal"] and mh["grad_norm_equal"]):
+        fail("dryrun: --mesh host training is not bit-identical to "
+             "--mesh none")
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+
+    # ---- 14a. the dry-run cells ----------------------------------------
+    for proc, log, t0 in procs:
+        try:
+            proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                  - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for p, _, _ in procs:
+                p.kill()
+                p.wait()
+            fail(f"dryrun: the dry run did not finish in "
+                 f"{DRYRUN_TIMEOUT_S} s")
+        log.close()
+        if proc.returncode != 0:
+            fail(f"dryrun: a dry-run process exited {proc.returncode}: "
+                 f"{Path(log.name).read_text()[-2000:]}")
+    card_memory = torch.cuda.get_device_properties(dev).total_memory
+    cells = [(LM_ARCH, s, mp) for s in DRYRUN_QWEN_SHAPES
+             for mp in (False, True)] + [("dbrx_132b", "decode_32k", False)]
+    report["cells"] = []
+    for arch, shape_name, mp in cells:
+        cid = dryrun.cell_id(arch, shape_name, mp)
+        res = json.loads((out_dir / f"{cid}.json").read_text())
+        report["cells"].append(res)
+        if not res.get("ok"):
+            fail(f"dryrun: cell {cid} failed: {res.get('error')}")
+        cfg = get_config(arch)
+        shape = SHAPES[shape_name]
+        sizes = ({"pod": 2, "data": 16, "model": 16} if mp
+                 else {"data": 16, "model": 16})
+        want = cell_argument_bytes(cfg, shape, sizes)
+        mem = res["memory"]
+        coll = res["collective_bytes_per_device"]
+        line = (f"dryrun: {cid}: lower {res['lower_s']} s, analysis "
+                f"{res['compile_s']} s; per device {res['flops_per_device']:.4g}"
+                f" FLOP, peak {mem['peak_bytes'] / 1e9:.3f} GB of the card's "
+                f"{card_memory / 1e9:.3f} GB "
+                f"({100 * mem['peak_bytes'] / card_memory:.2f}%), arguments "
+                f"{mem['argument_bytes']:.0f} B (counted {want}); collective "
+                f"GB " + json.dumps({k: round(v / 1e9, 4)
+                                     for k, v in sorted(coll.items())}))
+        if shape.kind == "train":
+            n = count_params(cfg)
+            n_embed = cfg.padded_vocab * cfg.d_model
+            tokens = shape.global_batch * shape.seq_len
+            total = res["flops_per_device"] * res["devices"]
+            res["matmul_floor_ratio"] = total / (6 * (n - n_embed) * tokens)
+            res["ratio_to_6nt"] = total / (6 * n * tokens)
+            line += (f"; FLOPs x devices / 6·N·tokens "
+                     f"{res['ratio_to_6nt']:.3f} (floor 6·(N − N_embed)"
+                     f"·tokens: {res['matmul_floor_ratio']:.3f})")
+            if res["matmul_floor_ratio"] < 1:
+                fail(f"dryrun: {cid} counts fewer FLOPs than the matmul "
+                     f"floor")
+        print(line)
+        if mem["argument_bytes"] != want:
+            fail(f"dryrun: {cid} argument bytes {mem['argument_bytes']} "
+                 f"differ from the spec count {want}")
+        if not set(coll) <= {"all-gather", "all-reduce", "reduce-scatter",
+                             "all-to-all", "collective-permute"}:
+            fail(f"dryrun: {cid} counts collectives {sorted(coll)}")
+    skip_id = dryrun.cell_id(LM_ARCH, "long_500k", False)
+    skip = json.loads((out_dir / f"{skip_id}.json").read_text())
+    if "skipped" not in skip:
+        fail("dryrun: long_500k of a full-attention arch is not skipped")
+
+    missing = [k for k in DRYRUN_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"kernels not launched in step 14: {missing}")
+    report["launches"] = launches
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"dryrun: step 14 took {report['phase_s']:.3f} s on the host clock "
+          f"(the dry-run cells ran beside steps 1-13)")
+    return report, launches
 
 
 def check_frontend_answers(full, seq: torch.Tensor, trace: list,
@@ -2765,6 +3021,8 @@ def main() -> None:
     print(f"device: {kind} (count {count}); torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     print(f"nvidia-smi name, power.limit: {smi}")
+    dryrun_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    dryrun_procs = start_dryrun(dryrun_dir)
 
     # ---- 2. build the kernels ------------------------------------------
     t0 = time.perf_counter()
@@ -3613,7 +3871,13 @@ def main() -> None:
     lm_report, lm_launches = lm_phase(dev)
 
     # ---- 13. the LM training half, fed from the store ------------------
-    train_report, train_launches = train_phase(dev, toks)
+    train_report, train_launches, corpus = train_phase(dev, toks)
+
+    # ---- 14. the XLA tools: dry run, analytics cell, --mesh host -------
+    dryrun_report, dryrun_launches = dryrun_phase(dev, corpus, dryrun_procs,
+                                                  dryrun_dir)
+    del corpus
+    shutil.rmtree(dryrun_dir, ignore_errors=True)
     for row in kernels:
         row["construction_launches"] = phase_launches[row["name"]]
         row["index_launches"] = index_launches[row["name"]]
@@ -3623,6 +3887,7 @@ def main() -> None:
         row["obs_launches"] = obs_launches[row["name"]]
         row["lm_launches"] = lm_launches[row["name"]]
         row["train_launches"] = train_launches[row["name"]]
+        row["dryrun_launches"] = dryrun_launches[row["name"]]
 
     print(json.dumps({"construction": construction}))
     print(json.dumps({"index": index}))
@@ -3632,6 +3897,7 @@ def main() -> None:
     print(json.dumps({"obs": obs_report}))
     print(json.dumps({"lm": lm_report}))
     print(json.dumps({"train": train_report}))
+    print(json.dumps({"dryrun": dryrun_report}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": kernels}))
     if any(row["check"] != "pass" for row in kernels):

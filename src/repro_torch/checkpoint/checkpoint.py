@@ -27,7 +27,10 @@ loads a corrupt state for repair). A structure is a tensor, a dict of
 structures or a dataclass whose tensor and dataclass fields are its
 children. The restore target is a structure of tensors (``device="meta"``
 ones will do) that gives every leaf's path, shape and dtype; ``device``
-says where the leaves go, in place of the reference's shardings.
+says where the leaves go, in place of the reference's shardings. A DTensor
+leaf (``train.Trainer`` on a mesh) is saved whole and restored into a
+DTensor target with the target's placements, so a sharded state's
+checkpoint is the same file as an unsharded one's.
 """
 from __future__ import annotations
 
@@ -83,6 +86,8 @@ def host_array(leaf: torch.Tensor, view=None) -> np.ndarray:
     """The bytes of a tensor as the reference stores them: a numpy array of
     the reference's dtype (``view``), a ``V2`` view for bfloat16."""
     t = leaf.detach()
+    if hasattr(t, "full_tensor"):           # a DTensor: saved whole
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).cpu().numpy().view(np.dtype("V2"))
     arr = t.cpu().numpy()
@@ -217,7 +222,11 @@ def _rebuild(tree, path: tuple, stored: dict, dtypes: dict, device):
         key = _SEP.join(path)
         if key not in stored:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        return _to_tensor(stored[key], dtypes.get(key), tree, key, device)
+        t = _to_tensor(stored[key], dtypes.get(key), tree, key, device)
+        if hasattr(tree, "device_mesh"):    # a DTensor target: re-placed
+            from repro_torch.models.shard_ctx import distribute
+            t = distribute(t, tree.device_mesh, tree.placements)
+        return t
     if isinstance(tree, dict):
         return {k: _rebuild(v, path + (str(k),), stored, dtypes, device)
                 for k, v in tree.items()}

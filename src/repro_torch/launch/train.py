@@ -7,9 +7,12 @@ PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b  # card
 The flags and printed lines are the reference's, plus ``--device``
 (``cuda`` by default; it raises when no card is present). Batches come
 from ``make_corpus``'s tokens, raw or (``--compressed-corpus``) decoded
-from the wavelet-matrix store built on the device. ``--mesh host`` waits
-for the port of the XLA tools (``launch/mesh.py``, the sharding specs);
-only ``--mesh none`` runs.
+from the wavelet-matrix store built on the device. ``--mesh host`` places
+params and optimizer state as DTensors with the shardings the dry run
+lowers (``param_specs``) on a 1×1 mesh of the device
+(``launch.mesh.make_host_mesh``), so the sharded code path runs end to end
+on one card (or the CPU); its losses, grad norms and params are the
+``--mesh none`` run's bit for bit, and its checkpoints the same files.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import argparse
 from repro_torch.configs.base import get_config
 from repro_torch.data import TokenBatcher, build_compressed_corpus, make_corpus
 from repro_torch.device import resolve_device
-from repro_torch.models.model import build_model, count_params
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.model import build_model, tree_paths
 from repro_torch.train import Trainer
 
 
@@ -43,21 +47,15 @@ def main(argv=None) -> Trainer:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--mesh", choices=["none", "host"], default="none",
-                    help="'host' waits for the port of the XLA tools "
-                         "(launch/mesh.py and the sharding specs); only "
-                         "'none' runs")
+    ap.add_argument("--mesh", choices=["none", "host"], default="none")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        ap.error("--mesh host needs the XLA tools, which are not ported "
-                 "yet; run with --mesh none")
     dev = resolve_device(args.device)
 
     cfg = get_config(args.arch, smoke=args.smoke)
     model = build_model(cfg)
     print(f"arch={cfg.name} family={cfg.family} "
-          f"params={count_params(cfg):,}")
+          f"params={model_param_count(model):,}")
 
     toks = make_corpus(args.corpus_tokens, cfg.vocab_size, seed=args.seed)
     if args.compressed_corpus:
@@ -70,12 +68,13 @@ def main(argv=None) -> Trainer:
         batcher = TokenBatcher(tokens=toks, batch=args.batch,
                                seq_len=args.seq, seed=args.seed)
 
+    mesh = make_host_mesh(dev) if args.mesh == "host" else None
     trainer = Trainer(
         model, batcher, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, seed=args.seed,
         log_every=args.log_every, grad_accum=args.grad_accum,
         base_lr=args.lr, warmup=args.warmup, total_steps=args.steps,
-        compress_bits=args.compress_bits, device=dev)
+        compress_bits=args.compress_bits, device=dev, mesh=mesh)
     if args.resume:
         start = trainer.maybe_resume()
         print(f"resumed at step {start}")
@@ -85,6 +84,10 @@ def main(argv=None) -> Trainer:
         print(f"loss {first['loss']:.4f} -> {last['loss']:.4f} over "
               f"{last['step'] - trainer.history[0]['step'] + trainer.log_every} steps")
     return trainer
+
+
+def model_param_count(model) -> int:
+    return sum(p.numel() for _, p in tree_paths(model.abstract_params()))
 
 
 if __name__ == "__main__":

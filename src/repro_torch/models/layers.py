@@ -21,6 +21,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .shard_ctx import constrain, fit_dim, reduce_partial
+
 NEG_BIAS = -1e30
 
 
@@ -79,25 +81,36 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")``: one matmul over the flattened heads."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    w = fit_dim(w.reshape(d, h * k), -1, h)
+    return fit_dim(x @ w, -1, h).unflatten(-1, (h, k))
 
 
 def _out_project(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd")``."""
     h, k, d = w.shape
-    return o.flatten(-2) @ w.reshape(h * k, d)
+    return reduce_partial(fit_dim(o.flatten(-2), -1, h)
+                          @ fit_dim(w.reshape(h * k, d), 0, h))
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """bf16 ``bqhd,bkhd->bhqk`` product, cast to f32 after, scaled (a
-    batched matmul: the bits of ``torch.einsum``, at half its host cost)."""
+    batched matmul: the bits of ``torch.einsum``, at half its host cost).
+
+    On DTensors (decode: training and prefill attend per shard,
+    :func:`_per_shard`) the heads are replicated first: the product folds
+    (b, h) into one batch dim, which DTensor cannot do with h sharded
+    (torch 2.11 refuses; 2.13 plans it through strided shards at a far
+    higher cost)."""
+    q, k = fit_dim(q, 2, 1), fit_dim(k, 2, 1)
     return ((q.transpose(1, 2) @ k.permute(0, 2, 3, 1)).float()
             / math.sqrt(q.shape[-1]))
 
 
 def _weighted(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``bhqk,bkhd->bqhd``."""
-    return (probs @ v.transpose(1, 2)).transpose(1, 2)
+    """``bhqk,bkhd->bqhd`` (heads replicated on DTensors, as in
+    :func:`_scores`)."""
+    return (fit_dim(probs, 1, 1) @ fit_dim(v, 2, 1).transpose(1, 2)
+            ).transpose(1, 2)
 
 
 def _causal_bias(qpos: torch.Tensor, kpos: torch.Tensor) -> torch.Tensor:
@@ -117,6 +130,11 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                torch.arange(sk, device=dev))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return _weighted(probs, v)
+
+
+def bidirectional_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor) -> torch.Tensor:
+    return full_attention(q, k, v, causal=False)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -156,6 +174,41 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return _weighted(probs, v_cache)
 
 
+def _per_shard(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """``fn(q, k, v)`` for (B, S, H, hd) operands. On DTensors each device
+    attends over its own batch rows and heads (``local_map``; the
+    sequence dims gathered, k and v laid out as q): attention needs no
+    collective then, where DTensor's own strategies gather the scores."""
+    if not hasattr(q, "device_mesh"):
+        return fn(q, k, v)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+          for p in q.placements]
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    # contiguous shards both ways: the output and the operands' gradients
+    # are transposed views, which DTensor's later views of a shard (the
+    # projections' folds) cannot take
+
+    def local(*t):
+        return fn(*(_ContiguousGrad.apply(x) for x in t)).contiguous()
+    return local_map(local, out_placements=pl, in_placements=(pl, pl, pl),
+                     device_mesh=mesh)(q, k, v)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, its gradient made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
 def _qkv(x: torch.Tensor, p: dict, cfg):
     q, k, v = (_project(x, p[w]) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
@@ -178,9 +231,11 @@ def gqa_attention_train(x: torch.Tensor, p: dict, cfg,
     k = _repeat_kv(k, groups)
     v = _repeat_kv(v, groups)
     if q_chunk is not None and s > q_chunk:
-        o = chunked_attention(q, k, v, q_chunk=q_chunk)
+        o = _per_shard(lambda q, k, v: chunked_attention(q, k, v,
+                                                         q_chunk=q_chunk),
+                       q, k, v)
     else:
-        o = full_attention(q, k, v)
+        o = _per_shard(full_attention, q, k, v)
     return _out_project(o, p["wo"])
 
 
@@ -236,16 +291,20 @@ def cross_attention(x: torch.Tensor, memory: torch.Tensor, p: dict,
     groups = cfg.num_heads // cfg.num_kv_heads
     k = _repeat_kv(k, groups)
     v = _repeat_kv(v, groups)
-    o = full_attention(q, k, v, causal=False)
+    o = _per_shard(bidirectional_attention, q, k, v)
     return _out_project(o, p["wo"])
 
 
 def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
     h = silu(x @ p["w1"])
     h = h * (x @ p["w3"])
+    # pin the hidden f-sharding so the w2 product partial-sums (one small
+    # activation all-reduce) instead of gathering the w2 shard
+    h = constrain(h, "dp", None, "model")
     return h @ p["w2"]
 
 
 def gelu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
     h = gelu(x @ p["w1"])
+    h = constrain(h, "dp", None, "model")
     return h @ p["w2"]

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -41,6 +41,7 @@ from repro_torch.device import resolve_device
 
 from . import layers as L
 from .moe import moe_layer, moe_param_shapes
+from .shard_ctx import constrain, gather_dp
 from .ssm import CONV_K, mamba2_block, mamba2_decode, mamba2_param_shapes
 
 Params = Dict[str, Any]
@@ -89,6 +90,16 @@ def _remat(fn: Callable, *args):
         return checkpoint(fn, *args, use_reentrant=False,
                           preserve_rng_state=False)
     return fn(*args)
+
+
+def _fsdp(tree):
+    """The block's weights with their data-parallel shards gathered
+    (``shard_ctx.gather_dp``), inside the remat so the backward gathers
+    again; the MoE expert banks keep theirs (their data axis shards f, not
+    a contraction dim)."""
+    return map_tree(lambda path, w: w if path[-2:-1] == ("moe",)
+                    and path[-1] in ("w1", "w2", "w3") else gather_dp(w),
+                    tree)
 
 
 def _norm(x, scale, cfg):
@@ -242,6 +253,205 @@ def init_params(cfg, seed: int = 0,
     return map_tree(lambda path, _: leaves[path], shapes)
 
 
+def abstract_params(cfg) -> Params:
+    """The params as ``meta`` tensors: the reference's shapes and bf16
+    dtype, no storage (the dry run's stand-ins)."""
+    return map_tree(lambda _, s: torch.empty(s, dtype=PARAM_DTYPE,
+                                             device="meta"),
+                    param_shapes(cfg))
+
+
+def count_expert_params(cfg) -> int:
+    """Parameters in MoE expert banks (2D-shardable at decode)."""
+    return sum(math.prod(shp) for path, shp in tree_paths(param_shapes(cfg))
+               if "moe" in path and path[-1] in ("w1", "w2", "w3"))
+
+
+# ==========================================================================
+# Sharding rules
+# ==========================================================================
+#
+# A spec is a tuple with one entry per tensor dim (trailing ``None``s may be
+# left off), each entry ``None`` (replicated), a mesh axis name, or a tuple
+# of names that shards one dim over several mesh axes, major first: the
+# reference's ``PartitionSpec`` as a plain tuple. ``shard_ctx.placements``
+# turns one into DTensor placements on a mesh.
+
+Spec = Tuple[Any, ...]
+
+
+def _canon(spec) -> Spec:
+    """A one-name tuple entry stands as the name, as ``PartitionSpec``
+    writes it."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                 for e in spec)
+
+
+# spec for the TRAILING dims of each named leaf; leading stack axes get None
+_PARAM_RULES = {
+    "embed": ("model", "data"),
+    "lm_head": ("data", "model"),
+    "enc_pos": (None, None),
+    "wq": ("data", "model", None),
+    "wk": ("data", "model", None),
+    "wv": ("data", "model", None),
+    "wo": ("model", None, "data"),
+    "bq": ("model", None),
+    "bk": ("model", None),
+    "bv": ("model", None),
+    "w1": ("data", "model"),
+    "w3": ("data", "model"),
+    "w2": ("model", "data"),
+    "router": ("data", None),
+    "in_proj": ("data", "model"),
+    "out_proj": ("model", "data"),
+    "conv_w": (None, "model"),
+    "dt_bias": ("model",),
+    "A_log": ("model",),
+    "D_skip": ("model",),
+    "out_norm": ("model",),
+}
+
+# Expert banks are 2D-sharded on (experts × ff), never on the contraction
+# dim: contraction-dim (FSDP) sharding would gather a whole expert bank a
+# layer a microbatch under gradient accumulation, where ff-dim sharding
+# costs only small activation reshards around the grouped products.
+_MOE_RULES = {
+    "w1": ("model", None, "data"),
+    "w3": ("model", None, "data"),
+    "w2": ("model", None, "data"),
+}
+
+# Decode-mode rules: weights sharded on NON-contracting dims only (Megatron
+# TP), so a token step never gathers weight shards (FSDP's contraction-dim
+# sharding amortizes over a training batch but costs a full weight gather a
+# decode step). Expert banks keep their 2D (model × data) sharding.
+_PARAM_RULES_DECODE = {
+    "embed": ("model", None),
+    "lm_head": (None, "model"),
+    "enc_pos": (None, None),
+    "wq": (None, "model", None),
+    "wk": (None, "model", None),
+    "wv": (None, "model", None),
+    "wo": ("model", None, None),
+    "bq": ("model", None),
+    "bk": ("model", None),
+    "bv": ("model", None),
+    "w1": (None, "model"),
+    "w3": (None, "model"),
+    "w2": ("model", None),
+    "router": (None, None),
+    "in_proj": (None, "model"),
+    "out_proj": ("model", None),
+    "conv_w": (None, "model"),
+    "dt_bias": ("model",),
+    "A_log": ("model",),
+    "D_skip": ("model",),
+    "out_norm": ("model",),
+}
+
+_MOE_RULES_DECODE = {
+    "w1": ("model", None, "data"),
+    "w3": ("model", None, "data"),
+    # w2 sharded on its OUTPUT dim (d over data), contraction f unsharded:
+    # the reshard is then a small gather of h, not a gather of w2
+    "w2": ("model", None, "data"),
+}
+
+# TP-only dense shards above this many bytes a device keep the train-mode
+# FSDP rules at decode (capacity over collective cost): llama-3.2-vision's
+# 90B dense params would be 11.25 GB a device on a 16-way model axis, and
+# arctic's 56 attention heads (not divisible by 16) would replicate 8.2 GB
+# of attention weights.
+_DECODE_TP_BUDGET_BYTES = 4e9
+
+
+def fit_spec(spec: Spec, shape, axis_sizes: Optional[Dict[str, int]]
+             ) -> Spec:
+    """Drop sharded axes that do not divide the dimension evenly (qwen2's
+    kv=2 cannot shard over model=16; granite's odd vocabulary cannot shard
+    at all): the undivisible dims fall back to replication. The result has
+    one entry per dim of ``shape``; without ``axis_sizes`` ``spec`` comes
+    back as it is."""
+    if axis_sizes is None:
+        return _canon(spec)
+    new = []
+    for dim, ax in zip(shape, tuple(spec) + (None,) * (len(shape)
+                                                       - len(spec))):
+        if ax is None:
+            new.append(None)
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        size = math.prod(axis_sizes.get(a, 1) for a in axes)
+        new.append(ax if (size > 0 and dim % size == 0) else None)
+    return _canon(new)
+
+
+def param_specs(cfg, axis_sizes: Optional[Dict[str, int]] = None,
+                mode: str = "train") -> Params:
+    """Spec tree matching ``param_shapes(cfg)``.
+
+    ``axis_sizes`` (e.g. {"data": 16, "model": 16}) enables shape-aware
+    fitting; without it the raw logical rules are returned. ``mode``:
+    "train" = FSDP×TP (contraction dims sharded over data, weight gathers
+    amortized over the batch); "decode" = TP-only (no per-step weight
+    gathers; falls back to the train rules when the TP shard would not
+    fit the decode budget)."""
+    decode = mode == "decode"
+    if decode and axis_sizes:
+        tp = axis_sizes.get("model", 1)
+        dp = axis_sizes.get("data", 1)
+        # expert banks stay 2D-sharded at decode; only the dense remainder
+        # is TP-only. Gate on the per-device bytes the decode rules give.
+        n_moe = count_expert_params(cfg)
+        n_dense = count_params(cfg) - n_moe
+        per_dev = 2.0 * (n_dense / tp + n_moe / (tp * dp))
+        if per_dev > _DECODE_TP_BUDGET_BYTES:
+            decode = False      # capacity-forced FSDP (e.g. vlm-90b)
+    rules_main = _PARAM_RULES_DECODE if decode else _PARAM_RULES
+    rules_moe = _MOE_RULES_DECODE if decode else _MOE_RULES
+
+    def spec_for(path, shp):
+        name = path[-1]
+        rules = rules_moe if ("moe" in path and name in rules_moe) \
+            else rules_main
+        base = rules.get(name)
+        if base is None:
+            return ()           # norms, gates, scalars: replicated
+        pad = len(shp) - len(base)
+        if pad < 0:             # leaf smaller than its rule
+            return ()
+        return fit_spec((None,) * pad + base, shp, axis_sizes)
+
+    return map_tree(spec_for, param_shapes(cfg))
+
+
+def batch_spec(dp_axes) -> Spec:
+    return _canon((dp_axes, None))
+
+
+def cache_specs(cfg, dp_axes, batch: int, seq: int,
+                axis_sizes: Optional[Dict[str, int]] = None,
+                shard_seq: bool = True) -> Any:
+    """Spec tree matching ``cache_shapes(cfg, batch, seq)``."""
+    def spec_for(path, shp):
+        name = path[-1]
+        if name in ("k", "v"):
+            base = (dp_axes, "model" if shard_seq else None, None, None)
+        elif name in ("xk", "xv"):
+            base = (dp_axes, None, None, None)
+        elif name == "ssm":
+            base = (dp_axes, "model", None, None)
+        elif name == "conv":
+            base = (dp_axes, None, "model")
+        else:
+            return ()
+        return fit_spec((None,) * (len(shp) - len(base)) + base, shp,
+                        axis_sizes)
+
+    return map_tree(spec_for, cache_shapes(cfg, batch, seq))
+
+
 # ==========================================================================
 # Cache shapes
 # ==========================================================================
@@ -276,6 +486,13 @@ def cache_shapes(cfg, batch: int, seq: int) -> Dict[str, Any]:
                 "xk": (nb, batch, cfg.num_image_tokens, kv, hd),
                 "xv": (nb, batch, cfg.num_image_tokens, kv, hd)}
     raise ValueError(cfg.family)
+
+
+def abstract_cache(cfg, batch: int, seq: int):
+    """The decode cache as bf16 ``meta`` tensors."""
+    return map_tree(lambda _, s: torch.empty(s, dtype=ACT_DTYPE,
+                                             device="meta"),
+                    cache_shapes(cfg, batch, seq))
 
 
 def zero_cache(cfg, batch: int, seq: int,
@@ -346,11 +563,12 @@ def _encoder(params, cfg, frames):
     groups = cfg.num_heads // cfg.num_kv_heads
 
     def body(x, bp):
+        bp = _fsdp(bp)
         hn = _norm(x, bp["ln1"], cfg)
         q = L._project(hn, bp["attn"]["wq"])
         k = L._repeat_kv(L._project(hn, bp["attn"]["wk"]), groups)
         v = L._repeat_kv(L._project(hn, bp["attn"]["wv"]), groups)
-        o = L.full_attention(q, k, v, causal=False)
+        o = L._per_shard(L.bidirectional_attention, q, k, v)
         x = x + L._out_project(o, bp["attn"]["wo"])
         return x + _mlp(_norm(x, bp["ln2"], cfg), bp["mlp"], cfg)
 
@@ -368,6 +586,88 @@ def _mask_padded_vocab(logits: torch.Tensor, cfg) -> torch.Tensor:
     return torch.where(valid, logits, L.NEG_BIAS)
 
 
+def _vocab_shard(t: torch.Tensor, vdim: int):
+    """(offset, width) of this device's slice of dim ``vdim`` of a DTensor:
+    its vocabulary shard (mesh axes major first)."""
+    from torch.distributed.tensor import Shard
+    mesh = t.device_mesh
+    offset, width = 0, t.shape[vdim]
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim == vdim:
+            width //= mesh.size(i)
+            offset = offset * mesh.size(i) + mesh.get_local_rank(i)
+    return offset * width, width
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. On a DTensor table sharded over the vocabulary each
+    device looks up the tokens in its own rows (0 elsewhere) and the
+    partial sums reduce over the vocabulary's mesh axes (a vocabulary-
+    parallel embedding); the model dim is gathered first. DTensor's own
+    strategies for this gather and its backward scatter do not cover a
+    sharded table on every torch (2.11 has none)."""
+    if not hasattr(table, "device_mesh"):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    tab_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+              for p in table.placements]
+    table = table.redistribute(mesh, tab_pl)
+    vocab = [isinstance(p, Shard) for p in tab_pl]
+    tok_pl = [Replicate() if v else p
+              for v, p in zip(vocab, tokens.placements)]
+    tokens = tokens.redistribute(mesh, tok_pl)
+    out_pl = [Partial() if v else p for v, p in zip(vocab, tok_pl)]
+    offset, width = _vocab_shard(table, 0)
+
+    def lookup(tab, tok):
+        ids = tok.long() - offset
+        mine = (ids >= 0) & (ids < width)
+        return torch.where(mine[..., None], tab[ids.clamp(0, width - 1)], 0)
+    return local_map(lookup, out_placements=out_pl,
+                     in_placements=(tab_pl, tok_pl),
+                     device_mesh=mesh)(table, tokens)
+
+
+def _gold_local(logits: torch.Tensor, labels: torch.Tensor,
+                offset: int = 0) -> torch.Tensor:
+    """``logits[..., labels]`` as a masked sum over the vocabulary slots
+    ``offset`` + [0, V): exact (one term, the rest +0.0), and 0 where the
+    label lies outside the slots."""
+    vocab = torch.arange(offset, offset + logits.shape[-1],
+                         device=logits.device)
+    return torch.where(vocab == labels[..., None], logits, 0.0).sum(-1)
+
+
+def _gold_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The logit of each label, (B, S). On a vocabulary-sharded DTensor each
+    device sums its own slots (``local_map``) and the partial sums reduce
+    over the vocabulary's mesh axes: DTensor has no sharded strategy for a
+    gather, and a masked sum on the global layout would build the mask and
+    the gradient at the full vocabulary on every device."""
+    if not hasattr(logits, "device_mesh"):
+        return _gold_local(logits, labels)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    vdim = logits.dim() - 1
+    lab_pl, out_pl = [], []
+    for p in logits.placements:
+        if isinstance(p, Shard) and p.dim == vdim:
+            lab_pl.append(Replicate())
+            out_pl.append(Partial())
+        else:
+            lab_pl.append(p)
+            out_pl.append(p)
+    labels = labels.redistribute(mesh, lab_pl)
+    offset, _ = _vocab_shard(logits, vdim)
+    return local_map(lambda lg, lb: _gold_local(lg, lb, offset),
+                     out_placements=out_pl,
+                     in_placements=(logits.placements, lab_pl),
+                     device_mesh=mesh)(logits, labels)
+
+
 def forward_train(params: Params, cfg, tokens: torch.Tensor,
                   extras: Optional[Dict[str, torch.Tensor]] = None,
                   q_chunk: Optional[int] = 512,
@@ -375,7 +675,8 @@ def forward_train(params: Params, cfg, tokens: torch.Tensor,
     """tokens: (B, S) → logits (B, S, V) (or (B, V) for logits_mode="last"),
     f32. With grad enabled every block is rematerialized (:func:`_remat`)."""
     b, s = tokens.shape
-    x = params["embed"].to(ACT_DTYPE)[tokens]
+    x = constrain(_embed(params["embed"].to(ACT_DTYPE), tokens), "dp", None,
+                  None)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     memory = None
     if cfg.family == "encdec":
@@ -384,7 +685,8 @@ def forward_train(params: Params, cfg, tokens: torch.Tensor,
         memory = extras["image_embeds"].to(ACT_DTYPE)
 
     def body(x, bp, memory):
-        return _block_train(x, bp, cfg, positions, memory, q_chunk)
+        return constrain(_block_train(x, _fsdp(bp), cfg, positions, memory,
+                                      q_chunk), "dp", None, None)
 
     for bp in _unstack(params["blocks"], cfg.num_blocks):
         x = _remat(body, x, bp, memory)
@@ -392,7 +694,8 @@ def forward_train(params: Params, cfg, tokens: torch.Tensor,
     if logits_mode == "last":
         x = x[:, -1:]
     # bf16 product, cast to f32 after it
-    logits = (x @ params["lm_head"].to(ACT_DTYPE)).float()
+    logits = constrain(x @ gather_dp(params["lm_head"]).to(ACT_DTYPE), "dp",
+                       None, "model").float()
     return logits[:, 0] if logits_mode == "last" else logits
 
 
@@ -491,23 +794,27 @@ def forward_decode(params: Params, cfg, tokens: torch.Tensor, cache,
     row writes its cache slot at pos[0]).
 
     ``pos`` may live on the host, which spares the card a synchronize: the
-    slot is read from it as a host int. ``cache`` is updated in place and
-    returned. Returns (logits (B, V) f32, cache)."""
+    slot is read from it as a host int (a ``meta`` pos, the dry run's, has
+    no value: its slot is taken as 0, which the step's cost does not
+    depend on). ``cache`` is updated in place and returned. Returns
+    (logits (B, V) f32, cache)."""
     step = None
     if "k" in cache:
         step = L.decode_step_tables(
-            cfg, pos.to(tokens.device, non_blocking=True), int(pos[0]),
-            cache["k"].shape[-3])
-    x = params["embed"].to(ACT_DTYPE)[tokens]
+            cfg, pos.to(tokens.device, non_blocking=True),
+            0 if pos.is_meta else int(pos[0]), cache["k"].shape[-3])
+    x = constrain(_embed(params["embed"].to(ACT_DTYPE), tokens), "dp", None,
+                  None)
     for i in range(cfg.num_blocks):
         cb = _index(cache, i)
-        x, new_cb = _block_decode(x, _index(params["blocks"], i), cfg, cb,
-                                  step)
+        x, new_cb = _block_decode(x, _fsdp(_index(params["blocks"], i)),
+                                  cfg, cb, step)
+        x = constrain(x, "dp", None, None)
         for name, leaf in new_cb.items():
             if leaf is not cb[name]:
                 cb[name].copy_(leaf)
     x = _norm(x, params["final_norm"], cfg)
-    logits = (x @ params["lm_head"].to(ACT_DTYPE)).float()
+    logits = (x @ gather_dp(params["lm_head"]).to(ACT_DTYPE)).float()
     return _mask_padded_vocab(logits, cfg)[:, 0], cache
 
 
@@ -518,6 +825,12 @@ def forward_decode(params: Params, cfg, tokens: torch.Tensor, cache,
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: Any
+
+    def abstract_params(self):
+        return abstract_params(self.cfg)
+
+    def param_specs(self):
+        return param_specs(self.cfg)
 
     def init(self, seed: int = 0, device: str | torch.device = "cuda"):
         return init_params(self.cfg, seed, device)
@@ -543,9 +856,7 @@ class Model:
         amax = logits.detach().amax(-1, keepdim=True)
         amax = torch.where(torch.isfinite(amax), amax, 0.0)
         logz = torch.log(torch.exp(logits - amax).sum(-1)) + amax[..., 0]
-        gold = torch.take_along_dim(logits, labels[..., None].long(),
-                                    dim=-1)[..., 0]
-        return (logz - gold).mean()
+        return (logz - _gold_logits(logits, labels)).mean()
 
     def prefill(self, params, tokens, extras=None, q_chunk=512):
         """Forward pass returning last-position logits only."""

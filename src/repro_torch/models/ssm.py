@@ -12,9 +12,9 @@ across heads (G=1), dt (B, S, H), A (H,) negative decay rates.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from .layers import rms_norm, silu
+from .shard_ctx import fit_dim
 
 CONV_K = 4   # causal depthwise conv width (Mamba standard)
 
@@ -51,13 +51,25 @@ def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
         out = _sequential_cumsum(x)
     else:
         nb = -(-n // _SCAN_BLOCK)
-        blocks = F.pad(x, (0, nb * _SCAN_BLOCK - n)).unflatten(
+        blocks = _zero_pad(x, 0, nb * _SCAN_BLOCK - n).unflatten(
             -1, (nb, _SCAN_BLOCK))
         inner = _sequential_cumsum(blocks)
         totals = cumsum(inner[..., -1], -1)
-        out = (inner + F.pad(totals[..., :-1], (1, 0))[..., None]).flatten(
+        out = (inner + _zero_pad(totals[..., :-1], 1, 0)[..., None]).flatten(
             -2)[..., :n]
     return out.movedim(-1, dim)
+
+
+def _zero_pad(x: torch.Tensor, before: int, after: int,
+              dim: int = -1) -> torch.Tensor:
+    """x with zeros before and after along ``dim``, as a concatenation
+    (``F.pad``'s values; torch 2.11's DTensor cannot plan a
+    ``constant_pad_nd``)."""
+    def zeros(k):
+        shape = list(x.shape)
+        shape[dim] = k
+        return x.new_zeros(shape)
+    return torch.cat([zeros(before), x, zeros(after)], dim=dim)
 
 
 def _ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
@@ -113,8 +125,11 @@ def _ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
 
 
 def _causal_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv. u: (B, S, C); w: (K, C)."""
-    pads = F.pad(u, (0, 0, CONV_K - 1, 0))
+    """Depthwise causal conv. u: (B, S, C); w: (K, C). A DTensor's S is
+    gathered first where it is sharded (the shifted windows cross shard
+    borders), and padded by :func:`_zero_pad`."""
+    u = fit_dim(u, 1, 1)
+    pads = _zero_pad(u, CONV_K - 1, 0, dim=1)
     out = torch.zeros_like(u)
     for i in range(CONV_K):
         out = out + pads[:, i:i + u.shape[1]] * w[i]

@@ -21,8 +21,10 @@ reference's, so either package's ``launch.obs`` reads the other's capture.
   (rendered by ``python -m repro_torch.launch.obs``).
 * :mod:`repro_torch.obs.prof`    — the work model of the kernel wrappers,
   roofline-utilization and device-memory gauges (``prof.*``), opt-in
-  ``torch.profiler`` trace capture (``--profile-dir``). The reference's
-  ``analyze_hlo`` reads XLA's HLO text and is not ported.
+  ``torch.profiler`` trace capture (``--profile-dir``), and the program
+  analysis of the dry run: ``lower`` records the local ops one device runs
+  in a step on DTensors, ``compiled_cost``/``compiled_memory`` and
+  ``analyze_program`` (the reference's ``analyze_hlo``) read it.
 * :mod:`repro_torch.obs.history` — append-only per-commit bench history +
   noise-aware regression detection behind ``python -m
   repro_torch.launch.regress``.
@@ -48,8 +50,10 @@ from .html import render_html
 from .metrics import (REGISTRY, Counter, Gauge, Histogram, MetricsRegistry,
                       counter, disable, disabled, enable, enabled, gauge,
                       histogram, parse_key)
-from .prof import (hw_model, live_memory_stats, profile_op, profiled_op,
-                   record_memory_gauges, start_trace, stop_trace, trace)
+from .prof import (analyze_program, compiled_cost, compiled_memory,
+                   hw_model, live_memory_stats, lower, parse_program,
+                   profile_op, profiled_op, record_memory_gauges,
+                   start_trace, stop_trace, trace)
 from .spans import current_span, event, span
 from .timing import (Stopwatch, reset_shape_tracking, time_compiled,
                      timed_op, track_shapes)
@@ -66,6 +70,8 @@ __all__ = [
     "profile_op", "profiled_op", "record_memory_gauges",
     "live_memory_stats", "hw_model",
     "start_trace", "stop_trace", "trace",
+    "lower", "compiled_cost", "compiled_memory", "parse_program",
+    "analyze_program",
     "append_history", "read_history", "detect_regression",
     "regress_report", "render_html",
 ]

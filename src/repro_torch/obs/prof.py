@@ -42,16 +42,21 @@ Trace capture (``--profile-dir`` on the CLIs): ``start_trace``/``stop_trace``
 (or the ``trace`` context manager) wrap ``torch.profiler.profile`` over the
 CPU and CUDA activities and write its chrome trace into the directory, so
 the ``obs.span`` names (``record_function`` ranges) line up with the
-kernels on the device timeline. The reference's ``analyze_hlo`` (post-SPMD
-XLA HLO text) has no counterpart here.
+kernels on the device timeline.
+
+Program analysis (the dry run's): the counterpart of the reference's
+``compiled_cost``, ``compiled_memory`` and ``analyze_hlo`` over a program
+recorded by :func:`lower` (see its section below).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
+import re
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from .metrics import counter, gauge
 from .spans import tensor_leaves, wait_for
@@ -421,3 +426,464 @@ def trace(profile_dir):
     finally:
         if started:
             stop_trace()
+
+
+# ---------------------------------------------------------------------------
+# program analysis: the dry run's counterpart of a compiled executable
+# ---------------------------------------------------------------------------
+#
+# PyTorch compiles nothing ahead of time, so the counterpart of XLA's
+# post-SPMD HLO is a *program*: the local ops one device runs in one call
+# of a step on DTensors over a (fake) mesh, recorded by :func:`lower`. Its
+# text has one line per op,
+#
+#     %12 = bf16[4,4096,56] dot aten.mm(bf16[16384,896], bf16[896,56]) contract=896
+#     %13 = bf16[4,4096,896] all-gather _c10d_functional.all_gather_into_tensor(bf16[4,4096,56])
+#
+# giving the local result type, the op's kind (``dot``, one of the five
+# collective kinds, ``pointwise``, ``transcendental``, ``reduce``,
+# ``data`` or ``view``), the op and its local operand types, inside
+# ``computation <name> {`` ... ``}`` blocks. A body the step runs several
+# times is recorded once, in its own computation, and called with its trip
+# count (``call microbatch trip=4``), as an HLO while loop carries
+# ``known_trip_count``. A ``memory`` line in the header carries the
+# buffer sizes the recording measured. ``compiled_cost``,
+# ``compiled_memory`` and ``analyze_program`` read everything from the
+# text, so a saved program (``dryrun --save-hlo``) analyzes as the live
+# one does.
+#
+# Trap: a dispatch mode entered around DTensor code sees each op once, at
+# GLOBAL shapes, before DTensor picks its strategy. The recorder instead
+# returns ``NotImplemented`` for DTensor operands, so DTensor runs first
+# and the recorder sees the local ops it issues on each device's shard,
+# the redistributions' collectives among them. The sharding propagator's
+# own shape inference on fake tensors is not recorded.
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+_COLLECTIVE_OPS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",      # DTensor's own (namespace _dtensor)
+}
+_COLLECTIVE_NS = ("_c10d_functional", "c10d_functional", "_dtensor")
+#: ops that move no data: waiting on a collective, autograd wrapping
+_SILENT = ("wait_tensor", "_wrap_tensor_autograd")
+_DOT_OPS = {"mm": 1, "bmm": 1, "addmm": 2, "baddbmm": 2, "addbmm": 2,
+            "mv": 1, "addmv": 2, "dot": 1}   # op -> index of the lhs
+_TRANSCENDENTAL_OPS = {"exp", "exp2", "expm1", "log", "log1p", "log2",
+                       "tanh", "sigmoid", "rsqrt", "sqrt", "sin", "cos",
+                       "erf", "pow", "_softmax", "_log_softmax"}
+
+_DTYPE_NAMES = {"bool": "pred", "uint8": "u8", "int8": "s8",
+                "int16": "s16", "int32": "s32", "int64": "s64",
+                "float16": "f16", "bfloat16": "bf16", "float32": "f32",
+                "float64": "f64", "uint16": "u16", "uint32": "u32",
+                "uint64": "u64", "complex64": "c64"}
+_DTYPE_BYTES = {"pred": 1, "s8": 1, "u8": 1, "bf16": 2, "f16": 2, "u16": 2,
+                "s16": 2, "f32": 4, "s32": 4, "u32": 4, "f64": 8, "s64": 8,
+                "u64": 8, "c64": 8}
+
+_TYPE_RE = re.compile(r"([a-z0-9]+)\[([0-9,]*)\]")
+_LINE_RE = re.compile(r"^\s*%\d+ = (\(?[a-z0-9\[\],. ]*\)?) ([a-z\-]+) "
+                      r"([\w.]+)\((.*)\)(.*)$")
+_COMP_RE = re.compile(r"^computation ([\w.\-]+) \{$")
+_CALL_RE = re.compile(r"^\s*call ([\w.\-]+) trip=(\d+)$")
+_MEMORY_RE = re.compile(r"^memory (.*)$", re.M)
+_MEMORY_KEYS = ("argument_bytes", "output_bytes", "temp_bytes",
+                "alias_bytes")
+
+
+def _type_str(t) -> str:
+    name = _DTYPE_NAMES.get(str(t.dtype).replace("torch.", ""), "f32")
+    return f"{name}[{','.join(str(d) for d in t.shape)}]"
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _leaves(value) -> list:
+    """Tensor leaves of nested tuples, lists, dicts and dataclasses."""
+    import torch
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, (tuple, list)):
+        return [t for v in value for t in _leaves(v)]
+    if isinstance(value, dict):
+        return [t for v in value.values() for t in _leaves(v)]
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return [t for f in dataclasses.fields(value)
+                for t in _leaves(getattr(value, f.name))]
+    return []
+
+
+def _local(t):
+    """A DTensor's shard on this device; a plain tensor itself."""
+    return getattr(t, "_local_tensor", t)
+
+
+def _op_kind(func) -> str:
+    """The kind of one op overload (see the section comment)."""
+    import torch
+    ns = func.namespace
+    name = func._schema.name.split("::")[-1]
+    if ns in _COLLECTIVE_NS:
+        if name in _SILENT:
+            return "silent"
+        if name in _COLLECTIVE_OPS:
+            return _COLLECTIVE_OPS[name]
+        raise ValueError(f"collective {func} has no kind of "
+                         f"{COLLECTIVES}")
+    if ns == "prim":
+        return "silent"
+    if name in _DOT_OPS:
+        return "dot"
+    rets = func._schema.returns
+    if rets and rets[0].alias_info is not None and \
+            not rets[0].alias_info.is_write:
+        return "view"
+    base = name.rstrip("_")
+    if base in _TRANSCENDENTAL_OPS:
+        return "transcendental"
+    tags = set(func.tags)
+    if base != name:                    # an in-place op: its functional form
+        packet = getattr(getattr(torch.ops, ns), base, None)
+        over = getattr(packet, func._overloadname, None) if packet else None
+        if over is not None:
+            tags |= set(over.tags)
+    if torch.Tag.pointwise in tags:
+        return "pointwise"
+    if torch.Tag.reduction in tags or base in ("cumsum", "cumprod"):
+        return "reduce"
+    return "data"
+
+
+class _Recorder:
+    """The TorchDispatchMode behind :func:`lower` (built lazily: this module
+    imports no torch at import time)."""
+
+    def __init__(self):
+        self.comps: Dict[str, List[str]] = {"main": []}
+        self.stack = ["main"]
+        self.n = 0
+        self.kinds: dict = {}
+        # storage key -> [bytes, first op, last op]; strong refs keep every
+        # storage's key unique for the recording's life
+        self.storages: Dict[int, list] = {}
+        self.keep: list = []
+
+    def _storage(self, t, create: bool):
+        try:
+            st = t.untyped_storage()
+        except (RuntimeError, NotImplementedError):
+            return
+        key = st._cdata
+        rec = self.storages.get(key)
+        if rec is None:
+            if not create:
+                return
+            self.storages[key] = [st.nbytes(), self.n, self.n]
+            self.keep.append(st)
+        else:
+            rec[2] = self.n
+
+    def register(self, tensors) -> set:
+        """Storages of tensors that exist before the call (its arguments)."""
+        keys = set()
+        for t in tensors:
+            t = _local(t)
+            self._storage(t, create=True)
+            keys.add(t.untyped_storage()._cdata)
+        return keys
+
+    def dispatch(self, func, args, kwargs):
+        from torch._subclasses.fake_tensor import FakeTensor
+        out = func(*args, **kwargs)
+        kind = self.kinds.get(func)
+        if kind is None:
+            kind = self.kinds[func] = _op_kind(func)
+        ins = _leaves((args, kwargs))
+        outs = _leaves(out)
+        if any(isinstance(t, FakeTensor) for t in ins + outs):
+            return out          # DTensor's own shape inference
+        self.n += 1
+        for t in ins:
+            self._storage(t, create=False)
+        for t in outs:
+            self._storage(t, create=True)
+        if kind == "silent" or not outs:
+            return out
+        res = ", ".join(_type_str(t) for t in outs)
+        if len(outs) > 1:
+            res = f"({res})"
+        line = (f"  %{self.n} = {res} {kind} {func._schema.name.replace('::', '.')}("
+                f"{', '.join(_type_str(t) for t in ins)})")
+        if kind == "dot":
+            lhs = ins[_DOT_OPS[func._schema.name.split('::')[-1]] - 1]
+            line += f" contract={lhs.shape[-1]}"
+        self.comps[self.stack[-1]].append(line)
+        return out
+
+
+_recorders = threading.local()
+
+
+def _mode_class():
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _Mode(TorchDispatchMode):
+        def __init__(self, rec):
+            super().__init__()
+            self.rec = rec
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented   # DTensor first: see its local ops
+            return self.rec.dispatch(func, args, kwargs or {})
+    return _Mode
+
+
+def loop(name: str, trip: int):
+    """``range(trip)``, except while :func:`lower` records: then it yields
+    only 0, and the ops of that one pass are recorded as computation
+    ``name``, called ``trip`` times (a microbatch loop traced once, as
+    ``lax.scan`` traces its body once)."""
+    rec = getattr(_recorders, "rec", None)
+    if rec is None:
+        yield from range(trip)
+        return
+    parent = rec.stack[-1]
+    if name in rec.comps:
+        raise ValueError(f"computation {name!r} recorded twice")
+    rec.comps[parent].append(f"  call {name} trip={int(trip)}")
+    rec.comps[name] = []
+    rec.stack.append(name)
+    try:
+        yield 0
+    finally:
+        rec.stack.pop()
+
+
+class Program:
+    """What :func:`lower` recorded: the program ``text`` and the call's
+    ``outputs`` (meta DTensors)."""
+
+    def __init__(self, text: str, outputs):
+        self.text = text
+        self.outputs = outputs
+
+
+def lower(fn, *args, donate: Tuple[int, ...] = (), name: str = "step",
+          mesh=None) -> Program:
+    """Run ``fn(*args)`` once, on DTensors of ``meta`` shards over ``mesh``
+    (or plain meta tensors), and record the program one device runs.
+
+    The call computes nothing: ``meta`` tensors carry shapes and dtypes
+    only, as the fake tensors of XLA's placeholder devices do (torch's
+    ``FakeTensorMode`` would do, but autograd over fake CUDA tensors needs a
+    CUDA build of torch, and DTensor moves no meta shard to the mesh's
+    device). ``donate``: indices of ``args`` whose buffers the outputs may
+    reuse, as ``jax.jit``'s ``donate_argnums``; an output of a donated
+    argument's shape and dtype aliases it.
+
+    Memory (per device, local shards): arguments and outputs are their
+    distinct storages; temporaries are the peak over the op stream of the
+    storages made inside the call that are neither, each live from the op
+    that makes it to the last op that reads it (the remat recompute's
+    included); peak = argument + output + temp − alias, as the reference
+    reads ``memory_analysis()``."""
+    rec = _Recorder()
+    arg_keys = rec.register(_leaves(args))
+    arg_bytes = sum(rec.storages[k][0] for k in arg_keys)
+    donated = [t for i in donate for t in _leaves(args[i])]
+    prev = getattr(_recorders, "rec", None)
+    _recorders.rec = rec
+    try:
+        with _mode_class()(rec):
+            out = fn(*args)
+    finally:
+        _recorders.rec = prev
+    outs = [_local(t) for t in _leaves(out)]
+    out_keys = {t.untyped_storage()._cdata for t in outs}
+    for k in out_keys:
+        if k not in rec.storages:           # a view the mode never saw
+            rec.storages[k] = [0, rec.n, rec.n]
+    out_bytes = sum(rec.storages[k][0] for k in out_keys)
+    # alias: outputs written into a donated buffer in place, then outputs
+    # of a donated argument's shape and dtype (buffer reuse)
+    alias = 0
+    free = {}
+    for t in donated:
+        lt = _local(t)
+        free.setdefault((tuple(lt.shape), lt.dtype), []).append(
+            lt.untyped_storage()._cdata)
+    taken = set()
+    for t in outs:
+        k = t.untyped_storage()._cdata
+        if k in arg_keys and any(k in v for v in free.values()):
+            taken.add(k)
+            alias += rec.storages[k][0]
+    for t in outs:
+        k = t.untyped_storage()._cdata
+        if k in arg_keys:
+            continue
+        cands = [c for c in free.get((tuple(t.shape), t.dtype), ())
+                 if c not in taken]
+        if cands:
+            taken.add(cands[0])
+            alias += _nbytes(t)
+    # temporaries: a sweep over the op stream
+    delta: Dict[int, int] = {}
+    for k, (nb, first, last) in rec.storages.items():
+        if k in arg_keys or k in out_keys or not nb:
+            continue
+        delta[first] = delta.get(first, 0) + nb
+        delta[last + 1] = delta.get(last + 1, 0) - nb
+    live = temp = 0
+    for i in sorted(delta):
+        live += delta[i]
+        temp = max(temp, live)
+    devices = mesh.size() if mesh is not None else 1
+    axes = (",".join(f"{a}:{s}" for a, s in zip(mesh.mesh_dim_names,
+                                                 mesh.shape))
+            if mesh is not None else "none")
+    lines = [f"program {name} devices={devices} mesh={axes}",
+             f"memory argument_bytes={arg_bytes} output_bytes={out_bytes} "
+             f"temp_bytes={temp} alias_bytes={alias}"]
+    for cname, body in rec.comps.items():
+        lines.append(f"computation {cname} {{")
+        lines.extend(body)
+        lines.append("}")
+    return Program("\n".join(lines) + "\n", out)
+
+
+def _text(program) -> str:
+    return getattr(program, "text", program)
+
+
+def parse_program(text: str) -> Dict[str, List[str]]:
+    """computation name -> its lines (ops and calls)."""
+    comps: Dict[str, List[str]] = {}
+    cur = None
+    for line in _text(text).splitlines():
+        m = _COMP_RE.match(line)
+        if m:
+            cur = m.group(1)
+            comps[cur] = []
+        elif line.startswith("}"):
+            cur = None
+        elif cur is not None and line.strip():
+            comps[cur].append(line)
+    return comps
+
+
+def _multipliers(comps: Dict[str, List[str]]) -> Dict[str, float]:
+    """How many times each computation runs in one call of ``main``."""
+    mult: Dict[str, float] = {}
+
+    def visit(name: str, m: float):
+        mult[name] = mult.get(name, 0.0) + m
+        for line in comps.get(name, ()):
+            c = _CALL_RE.match(line)
+            if c:
+                visit(c.group(1), m * int(c.group(2)))
+
+    visit("main" if "main" in comps else next(iter(comps)), 1.0)
+    return mult
+
+
+def _ops(text: str):
+    """(multiplier, result types, kind, op, operand types, attrs) of every
+    op line, each weighted by how often its computation runs."""
+    comps = parse_program(text)
+    for cname, m in _multipliers(comps).items():
+        for line in comps.get(cname, ()):
+            mo = _LINE_RE.match(line)
+            if mo:
+                res, kind, op, operands, attrs = mo.groups()
+                yield (m, _TYPE_RE.findall(res), kind, op,
+                       _TYPE_RE.findall(operands), attrs)
+
+
+def _numel(dims: str) -> int:
+    n = 1
+    for d in dims.split(","):
+        if d:
+            n *= int(d)
+    return n
+
+
+def _bytes_of(types) -> int:
+    return sum(_numel(d) * _DTYPE_BYTES.get(dt, 4) for dt, d in types)
+
+
+def _dot_flops(res, attrs: str) -> float:
+    mc = re.search(r"contract=(\d+)", attrs)
+    return 2.0 * _numel(res[0][1]) * (int(mc.group(1)) if mc else 1)
+
+
+def analyze_program(text) -> Dict:
+    """Per-device dot FLOPs (2·numel(local result)·local contraction) and
+    collective bytes (result bytes) of a program, weighted by trip count:
+    the port's ``analyze_hlo``, with the reference's keys."""
+    flops = 0.0
+    coll: Dict[str, float] = {}
+    for m, res, kind, _, _, attrs in _ops(_text(text)):
+        if kind == "dot":
+            flops += m * _dot_flops(res, attrs)
+        elif kind in COLLECTIVES:
+            coll[kind] = coll.get(kind, 0.0) + m * _bytes_of(res)
+    return {"dot_flops_per_device": flops,
+            "collective_bytes_per_device": coll,
+            "num_computations": len(parse_program(_text(text)))}
+
+
+def compiled_cost(program) -> Dict[str, float]:
+    """FLOPs, bytes accessed and transcendentals per device of a program,
+    weighted by trip count (XLA's ``cost_analysis`` counts a while loop's
+    body once; a program carries its trip counts). A dot is 2·M·N·K; a
+    pointwise op one FLOP an output element; a reduction one an input
+    element; a transcendental op (exp, log, tanh, rsqrt, pow, softmax …)
+    one transcendental an output element. Every op but a view reads its
+    operands once and writes its results once."""
+    flops = nbytes = trans = 0.0
+    for m, res, kind, _, operands, attrs in _ops(_text(program)):
+        if kind == "view":
+            continue
+        nbytes += m * (_bytes_of(res) + _bytes_of(operands))
+        if kind == "dot":
+            flops += m * _dot_flops(res, attrs)
+        elif kind == "pointwise":
+            flops += m * _numel(res[0][1])
+        elif kind == "reduce" and operands:
+            flops += m * _numel(operands[0][1])
+        elif kind == "transcendental":
+            trans += m * _numel(res[0][1])
+    return {"flops": flops, "bytes_accessed": nbytes,
+            "transcendentals": trans}
+
+
+def compiled_memory(program) -> Dict[str, float]:
+    """Argument, output, temp and alias bytes per device from the program's
+    ``memory`` line, plus ``peak_bytes`` = argument + output + temp − alias
+    (the executable's working set, as the reference computes it)."""
+    m = _MEMORY_RE.search(_text(program))
+    if not m:
+        return {}
+    vals = dict(kv.split("=") for kv in m.group(1).split())
+    out = {k: float(vals[k]) for k in _MEMORY_KEYS if k in vals}
+    out["peak_bytes"] = (out.get("argument_bytes", 0.0)
+                         + out.get("output_bytes", 0.0)
+                         + out.get("temp_bytes", 0.0)
+                         - out.get("alias_bytes", 0.0))
+    return out

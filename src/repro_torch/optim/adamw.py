@@ -34,6 +34,16 @@ def adamw_init(params) -> AdamWState:
                                        device=step_dev))
 
 
+def abstract_opt_state(abstract_params) -> AdamWState:
+    """The optimizer state of ``abstract_params`` as ``meta`` tensors: f32
+    moments of the params' shapes and an int32 step."""
+    def f32(_, p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return AdamWState(m=map_tree(f32, abstract_params),
+                      v=map_tree(f32, abstract_params),
+                      step=torch.empty((), dtype=torch.int32, device="meta"))
+
+
 def leaves(tree) -> list[torch.Tensor]:
     """The tensor leaves of a nested dict, keys sorted."""
     return [leaf for _, leaf in tree_paths(tree)]

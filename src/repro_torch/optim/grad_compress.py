@@ -80,6 +80,14 @@ def ef_compress_tree(grads: Any, residuals: Any, bits: int
     Returns (decompressed grads as seen after the wire, new residuals);
     the caller feeds the grads to the optimizer and keeps the residuals."""
     def one(g, r):
+        if hasattr(g, "device_mesh"):
+            # a DTensor leaf: the round trip runs on the whole gradient
+            # (on a 1×1 mesh its local tensor), so the planes, the scale
+            # and the words are the unsharded leaf's
+            from repro_torch.models.shard_ctx import distribute
+            dq, res = one(g.full_tensor(), r.full_tensor())
+            return (distribute(dq, g.device_mesh, g.placements),
+                    distribute(res, r.device_mesh, r.placements))
         corrected = g.to(torch.float32) + r
         words, scale = quantize_bitplanes(corrected, bits)
         dq = dequantize_bitplanes(words, scale, bits, tuple(g.shape))

@@ -30,7 +30,9 @@ import torch
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.device import resolve_device
-from repro_torch.models.model import map_tree, tree_paths
+from repro_torch.models.model import (batch_spec, fit_spec, map_tree,
+                                      param_specs, tree_paths)
+from repro_torch.models.shard_ctx import axis_sizes, distribute, placements
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 from repro_torch.optim.grad_compress import ef_compress_tree, zero_residuals
 from repro_torch.optim.schedule import cosine_schedule
@@ -49,6 +51,27 @@ def init_train_state(model, seed: int = 0, compress_bits: int = 0,
     return TrainState(
         params=params, opt=adamw_init(params),
         ef=zero_residuals(params) if compress_bits else {})
+
+
+def shard_train_state(state: TrainState, cfg, mesh) -> TrainState:
+    """``state`` as DTensors on ``mesh``: params, moments and residuals laid
+    out by ``param_specs(cfg)`` fitted to the mesh (the dry run's
+    shardings), the step replicated."""
+    specs = dict(tree_paths(param_specs(cfg, axis_sizes(mesh), "train")))
+
+    def place(tree):
+        return map_tree(lambda path, x: distribute(
+            x, mesh, placements(specs[path], mesh)), tree)
+    return TrainState(
+        params=place(state.params),
+        opt=AdamWState(m=place(state.opt.m), v=place(state.opt.v),
+                       step=distribute(state.opt.step, mesh,
+                                       placements((), mesh))),
+        ef=place(state.ef))
+
+
+def _host_float(x: torch.Tensor) -> float:
+    return float(x.full_tensor() if hasattr(x, "full_tensor") else x)
 
 
 def _map2(fn: Callable, a, b):
@@ -134,13 +157,20 @@ def make_train_step(model, *, grad_accum: int = 1, base_lr: float = 3e-4,
 
 class Trainer:
     """Fault-tolerant training loop over a deterministic batcher, on
-    ``device`` (``"cuda"`` by default; raises without a card)."""
+    ``device`` (``"cuda"`` by default; raises without a card).
+
+    With a ``mesh`` (``launch.mesh.make_host_mesh``), the state is placed
+    as DTensors by :func:`shard_train_state`, every batch by the batch
+    spec, and each step runs under ``launch.mesh.set_mesh`` (the
+    activations' ``shard_ctx`` hints on); checkpoints hold whole tensors,
+    the same file as without a mesh."""
 
     def __init__(self, model, batcher, *, ckpt_dir: Optional[str] = None,
                  ckpt_every: int = 100, keep: int = 3, seed: int = 0,
                  log_every: int = 10, step_fn: Optional[Callable] = None,
                  compress_bits: int = 0,
-                 device: str | torch.device = "cuda", **step_kwargs):
+                 device: str | torch.device = "cuda", mesh=None,
+                 **step_kwargs):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # bf16 products accumulate in f32, as the reference's do
@@ -155,8 +185,11 @@ class Trainer:
         self.compress_bits = compress_bits
         self.step_fn = step_fn or make_train_step(
             model, compress_bits=compress_bits, **step_kwargs)
+        self.mesh = mesh
         self.state = init_train_state(model, seed, compress_bits,
                                       self.device)
+        if mesh is not None:
+            self.state = shard_train_state(self.state, model.cfg, mesh)
         self.start_step = 0
         self.history: list[dict] = []
 
@@ -184,12 +217,15 @@ class Trainer:
                     batch_np.shape[0]).items():
                 batch[k] = torch.zeros(shp, dtype=torch.bfloat16,
                                        device=self.device)
-            self.state, metrics = self.step_fn(self.state, batch)
+            if self.mesh is None:
+                self.state, metrics = self.step_fn(self.state, batch)
+            else:
+                self.state, metrics = self._mesh_step(batch)
             step += 1
             if step % self.log_every == 0 or step == end:
                 rec = {"step": step,
-                       "loss": float(metrics["loss"]),
-                       "grad_norm": float(metrics["grad_norm"]),
+                       "loss": _host_float(metrics["loss"]),
+                       "grad_norm": _host_float(metrics["grad_norm"]),
                        "elapsed_s": round(time.time() - t0, 2)}
                 self.history.append(rec)
                 print(f"step {rec['step']:6d}  loss {rec['loss']:.4f}  "
@@ -201,3 +237,13 @@ class Trainer:
                                 keep=self.keep)
         self.start_step = step
         return self.history
+
+    def _mesh_step(self, batch):
+        """One step on the mesh: the batch over its data-parallel axes."""
+        from repro_torch.launch.mesh import dp_axes, set_mesh
+        sizes = axis_sizes(self.mesh)
+        batch = {k: distribute(v, self.mesh, placements(fit_spec(
+            batch_spec(dp_axes(self.mesh)), tuple(v.shape), sizes),
+            self.mesh)) for k, v in batch.items()}
+        with set_mesh(self.mesh):
+            return self.step_fn(self.state, batch)

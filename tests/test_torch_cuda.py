@@ -1591,3 +1591,72 @@ def test_store_fed_batch_on_the_card():
         got = b.batch_at(step)
         assert got.dtype == np.int32
         np.testing.assert_array_equal(got, toks[b.positions(step)])
+
+
+# ---- the XLA tools' port: --mesh host, the analytics cell, the fake group -
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "dbrx_132b"])
+def test_host_mesh_train_steps_on_the_card_are_bit_identical(arch):
+    """Two train steps on a 1×1 DTensor mesh of the card (nccl) equal the
+    same steps without a mesh bit for bit: losses, grad norms, params."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import TokenBatcher, make_corpus
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model, tree_paths
+    from repro_torch.train import Trainer
+    dev = _card()
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    toks = make_corpus(1 << 16, cfg.vocab_size, seed=0)
+    runs = {}
+    try:
+        for name in ("none", "host"):
+            t = Trainer(model, TokenBatcher(tokens=toks, batch=4, seq_len=64,
+                                            seed=0),
+                        log_every=1, device=dev,
+                        mesh=make_host_mesh(dev) if name == "host" else None,
+                        **TRAIN_KW)
+            t.run(2)
+            runs[name] = ([(h["loss"], h["grad_norm"]) for h in t.history],
+                          {p: (x.full_tensor() if hasattr(x, "full_tensor")
+                               else x) for p, x in tree_paths(t.state.params)})
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert runs["host"][0] == runs["none"][0]
+    for path, x in runs["host"][1].items():
+        assert torch.equal(x, runs["none"][1][path]), path
+
+
+@pytest.mark.cuda
+def test_analytics_cell_launches_the_quantile_kernel(tmp_path):
+    from repro_torch.launch import dryrun
+    _card()
+    res = dryrun.run_analytics_cell(tmp_path, device="cuda")
+    assert res["ok"] and res["device"].startswith("cuda")
+    for part in ("serve_4op_batch", "fused_quantile_kernel"):
+        cell = res[part]
+        assert cell["launches"].get("wm_quantile_sharded") == 1, cell
+        assert cell["bytes_accessed"] > 0 and cell["peak_rise_bytes"] >= 0
+
+
+@pytest.mark.cuda
+def test_fake_process_group_is_available():
+    """The dry run's fake world (``torch.testing._internal.distributed.
+    fake_pg``) exists in this torch: 512 ranks start in one process."""
+    import subprocess
+    import sys
+    _card()
+    code = ("import torch.distributed as dist\n"
+            "from torch.testing._internal.distributed.fake_pg import "
+            "FakeStore\n"
+            "dist.init_process_group('fake', store=FakeStore(), rank=0, "
+            "world_size=512)\n"
+            "print(dist.get_world_size())\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "512", (
+        f"the fake process group is missing on torch {torch.__version__}: "
+        f"{out.stderr[-2000:]}")

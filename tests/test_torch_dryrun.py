@@ -1,0 +1,301 @@
+"""The port's dry run (``repro_torch.launch.dryrun``, ``launch.mesh``) and
+program analysis (``repro_torch.obs.prof``: ``lower``, ``compiled_cost``,
+``compiled_memory``, ``analyze_program``), checked by hand and against the
+reference's ``analyze_hlo``.
+
+* ``analyze_program`` of a hand-written program with a loop of known trip
+  count: dot FLOPs and collective bytes exact; the ``hlo_analysis`` shim
+  prints the same for a saved program.
+* ``compiled_cost`` of a 64×64 f32 matmul is 2·64³ FLOPs, and
+  ``compiled_memory``'s peak is argument + output + temp − alias.
+* On a fake 16×16 mesh (a subprocess: one process holds one default
+  process group), ``x @ w`` with x (64, 512) as [Shard(0), Replicate()]
+  and w (512, 1024) as [Shard(0), Shard(1)] costs exactly the local
+  product's 2·64·64·32 FLOPs a device, where a dispatch mode around the
+  DTensor code would see one global (64, 512) @ (512, 1024); DTensor's
+  all-to-all of x counts as an all-to-all, not as an all-gather.
+* Two dry-run cells of ``qwen2_0_5b``'s smoke config in that subprocess,
+  a train cell (batch 32 × 16 tokens, grad_accum 2) on 16×16 and a decode
+  cell (batch 32 against 64 cache slots) on 2×16×16 (``lower_cell`` and
+  ``cell_result``, which
+  ``run_cell`` composes at the full config): ``ok``, with the reference's
+  keys, and
+  ``argument_bytes`` equal to the local shard bytes counted here in numpy
+  from the spec tuples and the shapes.
+* At a 1×1 mesh and ``qwen2_0_5b``'s smoke config, the train step's
+  ``dot_flops_per_device`` against the reference's ``analyze_hlo`` of its
+  compiled step: within 5% (measured: equal; both count the forward, the
+  rematerialized forward and the backward products), and neither counts a
+  collective byte.
+* Shape gating and ``input_specs`` (``tests/test_launch.py``).
+"""
+import json
+import runpy
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as rbase
+from repro.launch.hlo_analysis import analyze_hlo
+from repro.models import model as rmodel
+from repro.optim import adamw as radamw
+from repro.optim.schedule import cosine_schedule as rcosine
+from repro_torch.configs.base import (ARCHITECTURES, SHAPES, ShapeConfig,
+                                      get_config, smoke_shape,
+                                      supports_shape)
+from repro_torch.launch import dryrun
+from repro_torch.models.model import (abstract_params, cache_specs,
+                                      fit_spec, param_specs, tree_paths)
+from repro_torch.obs import prof
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+PROGRAM = """\
+program hand devices=4 mesh=data:2,model:2
+memory argument_bytes=100 output_bytes=40 temp_bytes=30 alias_bytes=20
+computation main {
+  %1 = bf16[8,16] dot aten.mm(bf16[8,32], bf16[32,16]) contract=32
+  %2 = f32[64] all-reduce _c10d_functional.all_reduce(f32[64])
+  call microbatch trip=10
+}
+computation microbatch {
+  %3 = f32[4,8] dot aten.bmm(f32[2,4,3], f32[2,3,8]) contract=3
+  %4 = bf16[128,256] all-gather _c10d_functional.all_gather_into_tensor(bf16[8,256])
+  %5 = f32[4,8] pointwise aten.add(f32[4,8], f32[4,8])
+  %6 = f32[4,8] view aten.view(f32[4,8])
+}
+"""
+
+
+def test_analyze_program_by_hand(tmp_path, monkeypatch, capsys):
+    res = prof.analyze_program(PROGRAM)
+    # 2·8·16·32 once; 2·4·8·3 ten times
+    assert res["dot_flops_per_device"] == 2 * 8 * 16 * 32 + 10 * 2 * 4 * 8 * 3
+    assert res["collective_bytes_per_device"] == {
+        "all-reduce": 64 * 4, "all-gather": 10 * 128 * 256 * 2}
+    assert res["num_computations"] == 2
+    assert dryrun.collective_bytes_per_device(PROGRAM) == \
+        res["collective_bytes_per_device"]
+    cost = prof.compiled_cost(PROGRAM)
+    assert cost["flops"] == res["dot_flops_per_device"] + 10 * 32
+    # every op but the view reads its operands and writes its result once
+    assert cost["bytes_accessed"] == (
+        (8 * 32 + 32 * 16 + 8 * 16) * 2 + 2 * 64 * 4
+        + 10 * ((2 * 4 * 3 + 2 * 3 * 8 + 4 * 8) * 4
+                + (8 * 256 + 128 * 256) * 2 + 3 * 4 * 8 * 4))
+    mem = prof.compiled_memory(PROGRAM)
+    assert mem == {"argument_bytes": 100, "output_bytes": 40,
+                   "temp_bytes": 30, "alias_bytes": 20, "peak_bytes": 150}
+    f = tmp_path / "cell.program.txt"
+    f.write_text(PROGRAM)
+    monkeypatch.setattr(sys, "argv", ["hlo_analysis", str(f)])
+    runpy.run_module("repro_torch.launch.hlo_analysis", run_name="__main__")
+    assert json.loads(capsys.readouterr().out) == json.loads(json.dumps(res))
+
+
+def test_compiled_cost_and_memory_of_a_matmul():
+    a = torch.empty(64, 64, device="meta")
+    program = prof.lower(lambda x, y: x @ y, a, a.clone())
+    assert prof.compiled_cost(program)["flops"] == 2 * 64 ** 3
+    mem = prof.compiled_memory(program)
+    assert mem["argument_bytes"] == 2 * 64 * 64 * 4
+    assert mem["output_bytes"] == 64 * 64 * 4
+    assert mem["peak_bytes"] == (mem["argument_bytes"] + mem["output_bytes"]
+                                 + mem["temp_bytes"] - mem["alias_bytes"])
+    # a donated argument the output may reuse; a temporary in between
+    program = prof.lower(lambda x: (x * 2).exp(), a, donate=(0,))
+    mem = prof.compiled_memory(program)
+    assert mem["alias_bytes"] == 64 * 64 * 4
+    assert mem["temp_bytes"] == 64 * 64 * 4
+    assert mem["peak_bytes"] == 2 * 64 * 64 * 4
+    assert prof.compiled_cost(program)["transcendentals"] == 64 * 64
+    # a loop traced once, weighted by its trip count
+    def body(x):
+        for _ in prof.loop("microbatch", 3):
+            x = x @ x
+        return x
+    program = prof.lower(body, a)
+    assert "call microbatch trip=3" in program.text
+    assert prof.analyze_program(program)["dot_flops_per_device"] == \
+        3 * 2 * 64 ** 3
+    assert list(prof.loop("microbatch", 3)) == [0, 1, 2]
+
+
+FAKE_MESH = textwrap.dedent("""
+    import json, sys
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.obs import prof
+
+    mesh = make_production_mesh()
+    x = DTensor.from_local(torch.empty(4, 512, device="meta"), mesh,
+                           [Shard(0), Replicate()], run_check=False)
+    w = DTensor.from_local(torch.empty(32, 64, device="meta"), mesh,
+                           [Shard(0), Shard(1)], run_check=False)
+    matmul = prof.lower(lambda a, b: a @ b, x, w, mesh=mesh)
+    cfg = get_config("qwen2_0_5b", smoke=True)
+    cells = []
+    for name, kind, multi_pod, seq in (("train_4k", "train", False, 16),
+                                       ("decode_32k", "decode", True, 64)):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        program = dryrun.lower_cell(cfg, ShapeConfig(name, seq, 32, kind),
+                                    mesh, grad_accum=2)
+        cells.append(dryrun.cell_result("qwen2_0_5b", name, mesh, program,
+                                        0.0))
+    print(json.dumps({"matmul": prof.analyze_program(matmul),
+                      "matmul_text": matmul.text, "cells": cells}))
+""")
+
+
+@pytest.fixture(scope="module")
+def fake_mesh_run():
+    out = subprocess.run([sys.executable, "-c", FAKE_MESH],
+                         capture_output=True, text=True,
+                         env={"PYTHONPATH": str(SRC),
+                              "PATH": "/usr/bin:/bin"}, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_local_flops_on_a_fake_mesh(fake_mesh_run):
+    res = fake_mesh_run["matmul"]
+    assert res["dot_flops_per_device"] == 2 * 64 * 512 * 1024 / 256
+    assert res["dot_flops_per_device"] == 2 * 64 * 64 * 32
+    assert set(res["collective_bytes_per_device"]) == {"all-to-all"}
+    assert "devices=256 mesh=data:16,model:16" in fake_mesh_run["matmul_text"]
+
+
+def _local_bytes(shape, spec, itemsize, sizes):
+    n = 1
+    for dim, ax in zip(shape, tuple(spec) + (None,) * len(shape)):
+        axes = () if ax is None else ax if isinstance(ax, tuple) else (ax,)
+        n *= dim // int(np.prod([sizes[a] for a in axes], dtype=np.int64))
+    return n * itemsize
+
+
+def _argument_bytes(cfg, shape, sizes):
+    """The step's arguments' local shard bytes, from the spec tuples."""
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+    b, s = shape.global_batch, shape.seq_len
+    mode = "decode" if shape.kind == "decode" else "train"
+    specs = dict(tree_paths(param_specs(cfg, sizes, mode)))
+    shapes = dict(tree_paths(abstract_params(cfg)))
+    pbytes = sum(_local_bytes(shapes[p].shape, specs[p], 2, sizes)
+                 for p in specs)
+    if shape.kind == "train":
+        return (pbytes + 2 * pbytes * 2 + 4
+                + _local_bytes((b, s + 1), fit_spec((dp, None), (b, s + 1),
+                                                    sizes), 4, sizes))
+    cshapes = dict(tree_paths(dryrun.input_specs(cfg, shape)["cache"]))
+    cbytes = sum(_local_bytes(cshapes[p].shape, sp, 2, sizes)
+                 for p, sp in tree_paths(cache_specs(cfg, dp, b, s, sizes)))
+    return (pbytes + cbytes
+            + _local_bytes((b, 1), fit_spec((dp, None), (b, 1), sizes), 4,
+                           sizes)
+            + _local_bytes((b,), fit_spec((dp,), (b,), sizes), 4, sizes))
+
+
+def test_dryrun_cells_on_a_fake_mesh(fake_mesh_run):
+    cfg = get_config("qwen2_0_5b", smoke=True)
+    keys = {"arch", "shape", "mesh", "devices", "ok", "lower_s", "compile_s",
+            "flops_per_device", "bytes_accessed_per_device",
+            "collective_bytes_per_device", "memory"}
+    for cell, kind, seq, sizes in zip(
+            fake_mesh_run["cells"], ("train", "decode"), (16, 64),
+            ({"data": 16, "model": 16},
+             {"pod": 2, "data": 16, "model": 16})):
+        assert cell["ok"] and keys <= set(cell), cell
+        assert cell["devices"] == int(np.prod(list(sizes.values())))
+        assert cell["memory"]["argument_bytes"] == _argument_bytes(
+            cfg, ShapeConfig(cell["shape"], seq, 32, kind), sizes)
+        assert cell["memory"]["peak_bytes"] == (
+            cell["memory"]["argument_bytes"] + cell["memory"]["output_bytes"]
+            + cell["memory"]["temp_bytes"] - cell["memory"]["alias_bytes"])
+        assert set(cell["collective_bytes_per_device"]) <= set(
+            prof.COLLECTIVES)
+        assert cell["flops_per_device"] > 0
+
+
+def _reference_dot_flops(shape) -> float:
+    """``analyze_hlo`` of the reference's train step (the dry run's, one
+    microbatch) compiled on the CPU for the smoke config."""
+    cfg = rbase.get_config("qwen2_0_5b", smoke=True)
+    model = rmodel.build_model(cfg)
+
+    def step(params, opt, tokens):
+        loss, grads = jax.value_and_grad(model.loss_fn)(params, tokens, None)
+        lr = rcosine(opt.step, 3e-4, 2000, 100_000)
+        return radamw.adamw_update(params, grads, opt, lr)
+
+    params = rmodel.abstract_params(cfg)
+    tokens = jax.ShapeDtypeStruct((shape.global_batch, shape.seq_len + 1),
+                                  jnp.int32)
+    compiled = jax.jit(step).lower(
+        params, radamw.abstract_opt_state(params), tokens).compile(
+        {"xla_backend_optimization_level": 0})
+    res = analyze_hlo(compiled.as_text())
+    assert not res["collective_bytes_per_device"]
+    return res["dot_flops_per_device"]
+
+
+def test_dot_flops_against_the_reference_on_a_1x1_mesh():
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_config("qwen2_0_5b", smoke=True)
+    shape = smoke_shape("train")
+    try:
+        program = dryrun.lower_cell(cfg, shape, make_host_mesh("cpu"))
+    finally:
+        dist.destroy_process_group()
+    port = prof.analyze_program(program)
+    assert not port["collective_bytes_per_device"]
+    ref = _reference_dot_flops(shape)
+    assert abs(port["dot_flops_per_device"] - ref) <= 0.05 * ref, (
+        port["dot_flops_per_device"], ref)
+
+
+def test_shape_gating():
+    assert supports_shape("mamba2_370m", "long_500k")
+    assert supports_shape("jamba_v0_1_52b", "long_500k")
+    for arch in ARCHITECTURES:
+        if arch not in ("mamba2_370m", "jamba_v0_1_52b"):
+            assert not supports_shape(arch, "long_500k"), arch
+        for shp in ("train_4k", "prefill_32k", "decode_32k"):
+            assert supports_shape(arch, shp)
+
+
+@pytest.mark.parametrize("arch", ARCHITECTURES)
+def test_input_specs_abstract(arch):
+    """input_specs gives meta tensors only (no storage), of the
+    reference's shapes and dtypes."""
+    cfg, rcfg = get_config(arch), rbase.get_config(arch)
+    for shape_name, shape in SHAPES.items():
+        if not supports_shape(arch, shape_name):
+            continue
+        specs = dryrun.input_specs(cfg, shape)
+        assert all(t.is_meta for _, t in tree_paths(specs)), shape_name
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            assert specs["tokens"].shape == (b, 1)
+            assert specs["pos"].shape == (b,)
+            want = rmodel.cache_shapes(rcfg, b, s)
+            for p, t in tree_paths(specs["cache"]):
+                assert tuple(t.shape) == tuple(want[p[0]]), p
+            continue
+        assert specs["batch"]["tokens"].shape == \
+            (b, s + 1 if shape.kind == "train" else s)
+        assert specs["batch"]["tokens"].dtype == torch.int32
+        for k, shp in rmodel.build_model(rcfg).extras_shapes(b).items():
+            assert tuple(specs["batch"][k].shape) == shp
+            assert specs["batch"][k].dtype == torch.bfloat16

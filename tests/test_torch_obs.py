@@ -429,7 +429,9 @@ def test_no_jax_or_reference_import():
     """Every module of repro_torch.obs, the port's CLIs, its LM serving path
     (configs, models, ``convert``), its training half (``optim``,
     ``train``, ``data.pipeline``, ``launch.train``, ``launch.profile_train``),
-    the port's examples and ``chip_smoke.py`` import in a process where
+    its dry run (``launch.mesh``, ``launch.dryrun``, ``launch.hlo_analysis``,
+    ``models.shard_ctx``), the port's examples and ``chip_smoke.py`` import
+    in a process where
     importing ``jax``, ``ml_dtypes`` or ``repro`` raises."""
     code = textwrap.dedent("""
         import importlib, importlib.util, sys
@@ -464,6 +466,9 @@ def test_no_jax_or_reference_import():
                   "repro_torch.launch.train",
                   "repro_torch.launch.profile_train",
                   "repro_torch.launch.profile_serve",
+                  "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+                  "repro_torch.launch.hlo_analysis",
+                  "repro_torch.models.shard_ctx",
                   *(f"repro_torch.configs.{a}" for a in ARCHITECTURES)):
             importlib.import_module(m)
         root = Path(sys.argv[1])

@@ -537,9 +537,23 @@ def rtrain_cli_param_count(arch: str) -> int:
 
 
 def test_train_cli_mesh_waits_for_the_xla_tools(capsys):
-    with pytest.raises(SystemExit):
-        ttrain_cli.main(["--smoke", "--device", "cpu", "--mesh", "host"])
-    assert "XLA tools" in capsys.readouterr().err
+    """The XLA tools are ported: ``--mesh host`` trains on a 1×1 DTensor
+    mesh and prints the reference's lines (bit for bit against ``--mesh
+    none``: tests/test_torch_sharding.py)."""
+    import torch.distributed as dist
+    try:
+        trainer = ttrain_cli.main(["--smoke", "--device", "cpu", "--mesh",
+                                   "host", "--steps", "2", "--log-every",
+                                   "1"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("arch=qwen2_0_5b_smoke family=dense params=")
+    assert re.fullmatch(r"loss \d+\.\d{4} -> \d+\.\d{4} over 2 steps",
+                        out[-1])
+    assert all(type(p).__name__ == "DTensor"
+               for _, p in tmodel.tree_paths(trainer.state.params))
 
 
 def test_train_cli_without_a_card_raises():

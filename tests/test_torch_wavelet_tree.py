@@ -45,12 +45,28 @@ def _seq(sigma: int, n: int, seed: int, present: int | None = None):
     return alphabet[rng.integers(0, present, n)].astype(np.int32)
 
 
+# the reference's queries, jitted once for the module (a ``jax.jit`` made in
+# a test compiles again at every call)
+_WT_ACCESS = jax.jit(jwt.wt_access)
+_WT_RANK = jax.jit(jwt.wt_rank)
+_SEGMENTED_GATHER = jax.jit(jrs.segmented_partition_gather,
+                            static_argnums=(3,))
+
+
+def _O0(fn, *args):
+    """``fn(*args)`` jitted whole and compiled with LLVM at -O0: the eager
+    reference builds dispatch op by op and take several times longer."""
+    return jax.jit(fn).lower(*args).compile(
+        {"xla_backend_optimization_level": 0})(*args)
+
+
 @functools.lru_cache(maxsize=None)
 def _case(sigma: int, tau: int, n: int, present: int | None = None):
+    """One reference tree a case, built once (:func:`_O0`)."""
     seq = _seq(sigma, n, sigma + tau + n, present)
-    ref_tree = jwt.build_wavelet_tree(jnp.asarray(seq.astype(np.uint32)),
-                                      sigma, tau=tau, sample_rate=128,
-                                      use_kernels=False)
+    ref_tree = _O0(functools.partial(
+        jwt.build_wavelet_tree, sigma=sigma, tau=tau, sample_rate=128,
+        use_kernels=False), jnp.asarray(seq.astype(np.uint32)))
     return seq, ref_tree, _flat(ref_tree)
 
 
@@ -97,15 +113,14 @@ def test_queries_match_reference_and_numpy(present):
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), seq)
     assert np.array_equal(got.numpy(), np.asarray(
-        jax.jit(jwt.wt_access)(ref_tree, pos)))
+        _WT_ACCESS(ref_tree, pos)))
     c = rng.integers(0, sigma, 64).astype(np.int32)   # mostly absent symbols
     c[:8] = seq[rng.integers(0, n, 8)]
     c[8:10] = [0, sigma - 1]
     i = rng.integers(0, n + 1, 64).astype(np.int32)
     i[:2] = [0, n]
     got = twt.wt_rank(port, c, i).numpy()
-    assert np.array_equal(got, np.asarray(jax.jit(jwt.wt_rank)(ref_tree, c,
-                                                                i)))
+    assert np.array_equal(got, np.asarray(_WT_RANK(ref_tree, c, i)))
     assert np.array_equal(got, [(seq[:b] == a).sum() for a, b in zip(c, i)])
     cc = seq[rng.integers(0, n, 64)]
     counts = np.bincount(seq, minlength=sigma)
@@ -171,7 +186,7 @@ def test_segmented_partition_gather_matches_reference(n, nodes):
     got = rank_select.segmented_partition_gather(
         words, torch.from_numpy(nid), torch.from_numpy(starts), n)
     jwords = jnp.asarray(words.numpy().view(np.uint32))
-    want = jrs.segmented_partition_gather(jwords, jnp.asarray(nid),
+    want = _SEGMENTED_GATHER(jwords, jnp.asarray(nid),
                                           jnp.asarray(starts), n)
     assert np.array_equal(got.numpy(), np.asarray(want))
     order = np.lexsort((bits, nid))                  # stable per-node split
@@ -280,9 +295,10 @@ def test_cpu_tree_build_never_launches_or_builds():
 def test_matrix_big_steps_match_reference_and_compose(sigma, tau, big_step):
     n = 3001
     seq = _seq(sigma, n, sigma)
-    want = _flat(jwm.build_wavelet_matrix(jnp.asarray(seq.astype(np.uint32)),
-                                          sigma, tau=tau, big_step=big_step,
-                                          sample_rate=128, use_kernels=False))
+    want = _flat(_O0(functools.partial(
+        jwm.build_wavelet_matrix, sigma=sigma, tau=tau, big_step=big_step,
+        sample_rate=128, use_kernels=False),
+        jnp.asarray(seq.astype(np.uint32))))
     compose = convert.to_reference(twm.build_wavelet_matrix(
         seq, sigma, tau=tau, sample_rate=128, device="cpu"))
     for use_kernels in (False, True):
