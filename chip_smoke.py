@@ -232,13 +232,17 @@
    (``python -m repro_torch.launch.dryrun``): ``qwen2_0_5b`` at its full
    config in train_4k, prefill_32k and decode_32k (and the long_500k skip
    record) on both production meshes (16×16 and 2×16×16 fake ranks), and
-   ``dbrx_132b`` × decode_32k × 16×16 (its MoE pins run). Each cell must
-   be ``ok``; its ``argument_bytes`` must equal the local shard bytes
-   counted in numpy from the spec tuples and the shapes; a train cell's
-   FLOPs a device × devices must reach 6·(N − N_embed)·tokens; collectives
-   are counted under the reference's five kinds only. Prints each cell's
+   ``dbrx_132b`` × decode_32k × 16×16 (its MoE pins run), and the MoE
+   prefills ``dbrx_132b`` and ``arctic_480b`` × prefill_32k × 16×16 (the
+   expert-parallel dispatch and combine). Each cell must be ``ok``; its
+   ``argument_bytes`` must equal the local shard bytes counted in numpy
+   from the spec tuples and the shapes; its per-device peak must lie under
+   the card's memory; a train cell's FLOPs a device × devices must reach
+   6·(N − N_embed)·tokens; collectives are counted under the reference's
+   five kinds only. The two MoE prefills' peaks must lie within 1.5× of
+   the reference's plan (``REFERENCE_PEAK_BYTES``). Prints each cell's
    ``lower_s``, ``compile_s``, per-device peak against the card's memory
-   and collective bytes by kind. (b) The analytics cell on the card: its
+   (and the reference's, where known) and collective bytes by kind. (b) The analytics cell on the card: its
    four-op batch and the fused quantile kernel each launch
    ``wm_quantile_sharded`` exactly once. (c) ``--mesh host``: Qwen2-0.5B
    at full width trained 5 steps from step 13's store (batch 8 × 256,
@@ -355,7 +359,16 @@ BF16_DENSE_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 #                                   (NVIDIA H100 Tensor Core GPU datasheet)
 TRAIN_KERNELS = ("wm_level_step", "rank_build_levels", "bitpack")
 DRYRUN_CELLS = (("qwen2_0_5b", "--both-meshes"),   # its four shapes
-                ("dbrx_132b", "--shape", "decode_32k"))
+                ("dbrx_132b", "--shape", "decode_32k"),
+                ("dbrx_132b", "--shape", "prefill_32k"),
+                ("arctic_480b", "--shape", "prefill_32k"))
+#: the reference's per-device peak (argument + temp bytes) of a dry-run
+#: cell: ``scripts/dryrun_reference_auto.py`` (``repro.launch.dryrun`` on
+#: mesh axes of type Auto) under jax 0.9.0 on 512 host devices of a CPU;
+#: the card's machine has no JAX to plan it again
+REFERENCE_PEAK_BYTES = {"dbrx_132b__prefill_32k__16x16": 34824435184,
+                        "arctic_480b__prefill_32k__16x16": 43545513208}
+REFERENCE_PEAK_RATIO = 1.5       # the port's peak at most this × the reference's
 DRYRUN_QWEN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 DRYRUN_TIMEOUT_S = 900           # the dry run's processes, from their start
 MESH_HOST_STEPS = 5
@@ -2747,17 +2760,93 @@ def cell_argument_bytes(cfg, shape, sizes: dict) -> int:
         + local((b,), fit_spec((dp,), (b,), sizes), 4))
 
 
+def check_dryrun_cells(out_dir: Path, card_memory: float) -> list:
+    """Step 14a's checks of the dry-run cells in ``out_dir`` (see the
+    module doc) against ``card_memory`` bytes a card; returns their
+    records."""
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import count_params
+
+    cells = [(LM_ARCH, s, mp) for s in DRYRUN_QWEN_SHAPES
+             for mp in (False, True)] + [
+        ("dbrx_132b", "decode_32k", False),
+        ("dbrx_132b", "prefill_32k", False),
+        ("arctic_480b", "prefill_32k", False)]
+    out = []
+    for arch, shape_name, mp in cells:
+        cid = dryrun.cell_id(arch, shape_name, mp)
+        res = json.loads((out_dir / f"{cid}.json").read_text())
+        out.append(res)
+        if not res.get("ok"):
+            fail(f"dryrun: cell {cid} failed: {res.get('error')}")
+        cfg = get_config(arch)
+        shape = SHAPES[shape_name]
+        sizes = ({"pod": 2, "data": 16, "model": 16} if mp
+                 else {"data": 16, "model": 16})
+        want = cell_argument_bytes(cfg, shape, sizes)
+        mem = res["memory"]
+        coll = res["collective_bytes_per_device"]
+        line = (f"dryrun: {cid}: lower {res['lower_s']} s, analysis "
+                f"{res['compile_s']} s; per device {res['flops_per_device']:.4g}"
+                f" FLOP, peak {mem['peak_bytes'] / 1e9:.3f} GB of the card's "
+                f"{card_memory / 1e9:.3f} GB "
+                f"({100 * mem['peak_bytes'] / card_memory:.2f}%), arguments "
+                f"{mem['argument_bytes']:.0f} B (counted {want}); collective "
+                f"GB " + json.dumps({k: round(v / 1e9, 4)
+                                     for k, v in sorted(coll.items())}))
+        if shape.kind == "train":
+            n = count_params(cfg)
+            n_embed = cfg.padded_vocab * cfg.d_model
+            tokens = shape.global_batch * shape.seq_len
+            total = res["flops_per_device"] * res["devices"]
+            res["matmul_floor_ratio"] = total / (6 * (n - n_embed) * tokens)
+            res["ratio_to_6nt"] = total / (6 * n * tokens)
+            line += (f"; FLOPs x devices / 6·N·tokens "
+                     f"{res['ratio_to_6nt']:.3f} (floor 6·(N − N_embed)"
+                     f"·tokens: {res['matmul_floor_ratio']:.3f})")
+            if res["matmul_floor_ratio"] < 1:
+                fail(f"dryrun: {cid} counts fewer FLOPs than the matmul "
+                     f"floor")
+        ref_peak = REFERENCE_PEAK_BYTES.get(cid)
+        if ref_peak is not None:
+            res["reference_peak_bytes"] = ref_peak
+            res["peak_to_reference"] = mem["peak_bytes"] / ref_peak
+            line += (f"; the reference's peak {ref_peak / 1e9:.3f} GB, the "
+                     f"port's {res['peak_to_reference']:.3f}x of it")
+        print(line)
+        if mem["peak_bytes"] >= card_memory:
+            fail(f"dryrun: {cid} needs {mem['peak_bytes'] / 1e9:.3f} GB a "
+                 f"device, over the card's {card_memory / 1e9:.3f} GB")
+        if ref_peak is not None and (mem["peak_bytes"]
+                                     > REFERENCE_PEAK_RATIO * ref_peak):
+            fail(f"dryrun: {cid} peak {mem['peak_bytes'] / 1e9:.3f} GB is "
+                 f"over {REFERENCE_PEAK_RATIO}x the reference's "
+                 f"{ref_peak / 1e9:.3f} GB")
+        if mem["argument_bytes"] != want:
+            fail(f"dryrun: {cid} argument bytes {mem['argument_bytes']} "
+                 f"differ from the spec count {want}")
+        if not set(coll) <= {"all-gather", "all-reduce", "reduce-scatter",
+                             "all-to-all", "collective-permute"}:
+            fail(f"dryrun: {cid} counts collectives {sorted(coll)}")
+    skip_id = dryrun.cell_id(LM_ARCH, "long_500k", False)
+    skip = json.loads((out_dir / f"{skip_id}.json").read_text())
+    if "skipped" not in skip:
+        fail("dryrun: long_500k of a full-attention arch is not skipped")
+    return out
+
+
 def dryrun_phase(dev, corpus, procs, out_dir: Path) -> tuple[dict, dict]:
     """Step 14: the XLA tools' port. (a) Reads the dry-run cells started at
     the beginning (``start_dryrun``); (b) the analytics cell on the card;
     (c) ``--mesh host`` training at Qwen2-0.5B's full width against
     ``--mesh none``. Returns (report, the phase's launches)."""
-    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.configs.base import get_config
     from repro_torch.data import TokenBatcher
     from repro_torch.kernels import build
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models.model import build_model, count_params, tree_paths
+    from repro_torch.models.model import build_model, tree_paths
     from repro_torch.train import Trainer
 
     report = {}
@@ -2852,55 +2941,8 @@ def dryrun_phase(dev, corpus, procs, out_dir: Path) -> tuple[dict, dict]:
         if proc.returncode != 0:
             fail(f"dryrun: a dry-run process exited {proc.returncode}: "
                  f"{Path(log.name).read_text()[-2000:]}")
-    card_memory = torch.cuda.get_device_properties(dev).total_memory
-    cells = [(LM_ARCH, s, mp) for s in DRYRUN_QWEN_SHAPES
-             for mp in (False, True)] + [("dbrx_132b", "decode_32k", False)]
-    report["cells"] = []
-    for arch, shape_name, mp in cells:
-        cid = dryrun.cell_id(arch, shape_name, mp)
-        res = json.loads((out_dir / f"{cid}.json").read_text())
-        report["cells"].append(res)
-        if not res.get("ok"):
-            fail(f"dryrun: cell {cid} failed: {res.get('error')}")
-        cfg = get_config(arch)
-        shape = SHAPES[shape_name]
-        sizes = ({"pod": 2, "data": 16, "model": 16} if mp
-                 else {"data": 16, "model": 16})
-        want = cell_argument_bytes(cfg, shape, sizes)
-        mem = res["memory"]
-        coll = res["collective_bytes_per_device"]
-        line = (f"dryrun: {cid}: lower {res['lower_s']} s, analysis "
-                f"{res['compile_s']} s; per device {res['flops_per_device']:.4g}"
-                f" FLOP, peak {mem['peak_bytes'] / 1e9:.3f} GB of the card's "
-                f"{card_memory / 1e9:.3f} GB "
-                f"({100 * mem['peak_bytes'] / card_memory:.2f}%), arguments "
-                f"{mem['argument_bytes']:.0f} B (counted {want}); collective "
-                f"GB " + json.dumps({k: round(v / 1e9, 4)
-                                     for k, v in sorted(coll.items())}))
-        if shape.kind == "train":
-            n = count_params(cfg)
-            n_embed = cfg.padded_vocab * cfg.d_model
-            tokens = shape.global_batch * shape.seq_len
-            total = res["flops_per_device"] * res["devices"]
-            res["matmul_floor_ratio"] = total / (6 * (n - n_embed) * tokens)
-            res["ratio_to_6nt"] = total / (6 * n * tokens)
-            line += (f"; FLOPs x devices / 6·N·tokens "
-                     f"{res['ratio_to_6nt']:.3f} (floor 6·(N − N_embed)"
-                     f"·tokens: {res['matmul_floor_ratio']:.3f})")
-            if res["matmul_floor_ratio"] < 1:
-                fail(f"dryrun: {cid} counts fewer FLOPs than the matmul "
-                     f"floor")
-        print(line)
-        if mem["argument_bytes"] != want:
-            fail(f"dryrun: {cid} argument bytes {mem['argument_bytes']} "
-                 f"differ from the spec count {want}")
-        if not set(coll) <= {"all-gather", "all-reduce", "reduce-scatter",
-                             "all-to-all", "collective-permute"}:
-            fail(f"dryrun: {cid} counts collectives {sorted(coll)}")
-    skip_id = dryrun.cell_id(LM_ARCH, "long_500k", False)
-    skip = json.loads((out_dir / f"{skip_id}.json").read_text())
-    if "skipped" not in skip:
-        fail("dryrun: long_500k of a full-attention arch is not skipped")
+    report["cells"] = check_dryrun_cells(
+        out_dir, torch.cuda.get_device_properties(dev).total_memory)
 
     missing = [k for k in DRYRUN_KERNELS if launches[k] <= 0]
     if missing:

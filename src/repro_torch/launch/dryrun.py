@@ -21,7 +21,9 @@ read it. One JSON a cell under ``results/dryrun_torch/`` (the reference's
 kinds of the reference, by result bytes) and ``memory`` per device, its
 ``peak_bytes`` = argument + output + temp − alias, set against
 ``device_memory_bytes``: the card's memory where one is present, else the
-80 GB that ``nvidia-smi`` names the H100 the meshes stand for by.
+80 GB that ``nvidia-smi`` names the H100 the meshes stand for by; and
+``peak_buffers``, the largest temporaries live at the peak, each as
+[bytes, the program line of the op that made it].
 
 ``--analytics`` runs the range-analytics cell on the card (``--device``,
 ``cuda`` by default): the reference's engine (2^14 tokens, vocabulary
@@ -52,6 +54,7 @@ from repro_torch.optim.schedule import cosine_schedule
 from repro_torch.train.trainer import _map2, value_and_grad
 
 RESULTS_DEFAULT = Path("results/dryrun_torch")
+PEAK_BUFFERS = 8          # temporaries a cell's record lists at its peak
 #: the memory of one card of the production meshes, as ``nvidia-smi``
 #: names it ("NVIDIA H100 80GB HBM3"), where no card is present to ask
 H100_MEMORY_BYTES = 80e9
@@ -72,9 +75,15 @@ GRAD_ACCUM = {
 
 def grad_accum_for(arch: str, shape, mesh) -> int:
     """The table's microbatch count, capped at one example a data shard:
-    the reference replicates a smaller microbatch over every device, and
-    DTensor mis-plans the products of such a fully replicated batch on a
-    3-D mesh (a local result of the wrong shape)."""
+    the reference replicates a smaller microbatch over every device. The
+    cap binds on 2×16×16 only (16 → 8 for arctic, dbrx, llama-vision),
+    and the MoE's expert-parallel dispatch does not lift it. At 16, torch
+    2.11 fails dbrx's train cell in the gradient of the attention
+    out-projection's head fold (``models.layers._out_project``,
+    ``o.flatten(-2)``: a (1, 2048, 6144) local shard viewed as
+    (1, 4096, 6144)); arctic's records, but at 189.5 GB a device against
+    75.0 GB capped: the replicated microbatch's attention scores (56
+    heads, replicated over ``model``) take 7.5 GB a layer."""
     dp = 1
     for a in dp_axes(mesh):
         dp *= mesh_axis_sizes(mesh)[a]
@@ -333,6 +342,8 @@ def cell_result(arch: str, shape_name: str, mesh, program, lower_s: float,
         "collective_bytes_per_device": analyzed["collective_bytes"],
         "memory": analyzed["memory"],
         "device_memory_bytes": device_memory_bytes(),
+        "peak_buffers": [list(b)
+                         for b in program.peak_live[:PEAK_BUFFERS]],
     }
 
 

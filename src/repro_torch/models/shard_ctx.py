@@ -199,11 +199,13 @@ def fit_dim(x: torch.Tensor, dim: int, parts: int):
 
 def replicated(fn, *args):
     """``fn(*args)`` on whole values, for an op DTensor has no sharded
-    strategy for (the MoE's routing ranks, scatter and gather): DTensor
-    arguments are gathered to ``Replicate`` first, as GSPMD gathers there,
-    and ``fn`` runs on their local tensors (``local_map``); its tensor
-    result comes back as a replicated DTensor. Without a DTensor argument
-    it is ``fn(*args)``."""
+    strategy for: DTensor arguments are gathered to ``Replicate`` first and
+    ``fn`` runs on their local tensors (``local_map``); its tensor result
+    comes back as a replicated DTensor. Every device then holds the whole
+    of each argument: the MoE takes this route only where its experts do
+    not divide the model axis (``models.moe``; where they do, its dispatch
+    and combine are expert-parallel, as the reference's plan places
+    them). Without a DTensor argument it is ``fn(*args)``."""
     from torch.distributed.tensor import DTensor, Replicate
     mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)),
                 None)

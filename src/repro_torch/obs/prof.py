@@ -675,12 +675,15 @@ def loop(name: str, trip: int):
 
 
 class Program:
-    """What :func:`lower` recorded: the program ``text`` and the call's
-    ``outputs`` (meta DTensors)."""
+    """What :func:`lower` recorded: the program ``text``, the call's
+    ``outputs`` (meta DTensors) and ``peak_live``: the temporaries live
+    where the temp bytes peak, as (bytes, the op line that made each),
+    largest first."""
 
-    def __init__(self, text: str, outputs):
+    def __init__(self, text: str, outputs, peak_live=()):
         self.text = text
         self.outputs = outputs
+        self.peak_live = list(peak_live)
 
 
 def lower(fn, *args, donate: Tuple[int, ...] = (), name: str = "step",
@@ -749,10 +752,11 @@ def lower(fn, *args, donate: Tuple[int, ...] = (), name: str = "step",
             continue
         delta[first] = delta.get(first, 0) + nb
         delta[last + 1] = delta.get(last + 1, 0) - nb
-    live = temp = 0
+    live = temp = peak_at = 0
     for i in sorted(delta):
         live += delta[i]
-        temp = max(temp, live)
+        if live > temp:
+            temp, peak_at = live, i
     devices = mesh.size() if mesh is not None else 1
     axes = (",".join(f"{a}:{s}" for a, s in zip(mesh.mesh_dim_names,
                                                  mesh.shape))
@@ -764,7 +768,15 @@ def lower(fn, *args, donate: Tuple[int, ...] = (), name: str = "step",
         lines.append(f"computation {cname} {{")
         lines.extend(body)
         lines.append("}")
-    return Program("\n".join(lines) + "\n", out)
+    made = {int(ln.split(" = ", 1)[0].strip()[1:]): ln.strip()
+            for body in rec.comps.values() for ln in body
+            if ln.lstrip().startswith("%")}
+    peak_live = sorted(
+        ((nb, made.get(first, f"%{first} (silent)"))
+         for k, (nb, first, last) in rec.storages.items()
+         if k not in arg_keys and k not in out_keys and nb
+         and first <= peak_at <= last), key=lambda b: -b[0])
+    return Program("\n".join(lines) + "\n", out, peak_live)
 
 
 def _text(program) -> str:

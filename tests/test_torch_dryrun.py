@@ -299,3 +299,54 @@ def test_input_specs_abstract(arch):
         for k, shp in rmodel.build_model(rcfg).extras_shapes(b).items():
             assert tuple(specs["batch"][k].shape) == shp
             assert specs["batch"][k].dtype == torch.bfloat16
+
+
+def test_dryrun_compare_rows_and_counts(tmp_path, capsys):
+    """``launch.dryrun_compare``: a row for each cell ``ok`` in both
+    directories, the peak ratio of the two packages' own peaks, and the
+    port's cells counted ok, failed and skipped."""
+    from repro_torch.launch import dryrun_compare
+    port, ref = tmp_path / "port", tmp_path / "ref"
+    port.mkdir()
+    ref.mkdir()
+
+    def cell(d, cid, ok=True, peak=0.0, coll=None, **extra):
+        (d / f"{cid}.json").write_text(json.dumps(
+            {"ok": ok, "memory": {"peak_bytes": peak},
+             "collective_bytes_per_device": coll or {}, **extra}))
+    cell(port, "a__train_4k__16x16", peak=3e9, coll={"all-gather": 2e9,
+                                                     "all-reduce": 1e9})
+    cell(ref, "a__train_4k__16x16", peak=2e9, coll={"all-reduce": 5e8})
+    cell(port, "a__long_500k__16x16", ok=False, skipped="full attention")
+    cell(port, "b__decode_32k__16x16", ok=False, error="boom")
+    cell(ref, "b__decode_32k__16x16", peak=1e9)
+    cell(port, "b__prefill_32k__16x16", peak=1e9)       # no reference cell
+    rows = dryrun_compare.rows(dryrun_compare._cells(port),
+                               dryrun_compare._cells(ref))
+    assert rows == [("a__train_4k__16x16", 3.0, 2.0, 1.5, 3.0, 0.5)]
+    assert dryrun_compare.counts(dryrun_compare._cells(port)) == {
+        "ok": 2, "fail": 1, "skip": 1}
+    dryrun_compare.main([str(port), str(ref), "--arch", "b"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "port cells ok=2 fail=1 skip=1"
+    assert len(out) == 3                         # no row of arch b
+
+
+def test_peak_live_names_the_temporaries_at_the_peak():
+    """``Program.peak_live``: the temporaries live where the temp bytes
+    peak, largest first, each with the program line of the op that made
+    it; their sum is the temp bytes."""
+    a = torch.empty(64, 64, device="meta")
+
+    def fn(x):
+        big = torch.cat([x, x, x, x])           # 4 × 16 KiB, the peak
+        small = (big * 2).sum(0)                 # big is live until here
+        return small.exp()
+    program = prof.lower(fn, a)
+    mem = prof.compiled_memory(program)
+    sizes = [nb for nb, _ in program.peak_live]
+    assert sizes == sorted(sizes, reverse=True)
+    assert sum(sizes) == mem["temp_bytes"]
+    assert sizes[:2] == [4 * 64 * 64 * 4] * 2
+    assert "aten.cat" in program.peak_live[0][1] or \
+        "aten.cat" in program.peak_live[1][1]

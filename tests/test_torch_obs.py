@@ -430,8 +430,8 @@ def test_no_jax_or_reference_import():
     (configs, models, ``convert``), its training half (``optim``,
     ``train``, ``data.pipeline``, ``launch.train``, ``launch.profile_train``),
     its dry run (``launch.mesh``, ``launch.dryrun``, ``launch.hlo_analysis``,
-    ``models.shard_ctx``), the port's examples and ``chip_smoke.py`` import
-    in a process where
+    ``models.shard_ctx``, ``launch.dryrun_compare``), ``data.shard_build``,
+    the port's examples and ``chip_smoke.py`` import in a process where
     importing ``jax``, ``ml_dtypes`` or ``repro`` raises."""
     code = textwrap.dedent("""
         import importlib, importlib.util, sys
@@ -469,6 +469,8 @@ def test_no_jax_or_reference_import():
                   "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
                   "repro_torch.launch.hlo_analysis",
                   "repro_torch.models.shard_ctx",
+                  "repro_torch.data.shard_build",
+                  "repro_torch.launch.dryrun_compare",
                   *(f"repro_torch.configs.{a}" for a in ARCHITECTURES)):
             importlib.import_module(m)
         root = Path(sys.argv[1])
