@@ -228,22 +228,29 @@
    gains ``train_launches``, the step's launches without its checks'.
 
 14. The XLA tools' port. (a) At the start, beside steps 1–13 and at the
-   lowest priority, two processes run the dry run on the CPU only
-   (``python -m repro_torch.launch.dryrun``): ``qwen2_0_5b`` at its full
-   config in train_4k, prefill_32k and decode_32k (and the long_500k skip
-   record) on both production meshes (16×16 and 2×16×16 fake ranks), and
-   ``dbrx_132b`` × decode_32k × 16×16 (its MoE pins run), and the MoE
-   prefills ``dbrx_132b`` and ``arctic_480b`` × prefill_32k × 16×16 (the
-   expert-parallel dispatch and combine). Each cell must be ``ok``; its
+   lowest priority, five processes (one a line of ``DRYRUN_CELLS``) run
+   the dry run on the CPU only (``python -m repro_torch.launch.dryrun``):
+   ``qwen2_0_5b`` at its full config in train_4k, prefill_32k and
+   decode_32k (and the long_500k skip record) on both production meshes
+   (16×16 and 2×16×16 fake ranks), ``dbrx_132b`` × decode_32k × 16×16
+   (its MoE pins run), the MoE prefills ``dbrx_132b`` and
+   ``arctic_480b`` × prefill_32k × 16×16 (the expert-parallel dispatch
+   and combine), and ``jamba_v0_1_52b`` × train_4k on both meshes (the
+   head-parallel Mamba mixer; qwen2's and jamba's train cells take the
+   vocabulary-parallel loss). Each cell must be ``ok``; its
    ``argument_bytes`` must equal the local shard bytes counted in numpy
    from the spec tuples and the shapes; its per-device peak must lie under
    the card's memory; a train cell's FLOPs a device × devices must reach
-   6·(N − N_embed)·tokens; collectives are counted under the reference's
-   five kinds only. The two MoE prefills' peaks must lie within 1.5× of
-   the reference's plan (``REFERENCE_PEAK_BYTES``). Prints each cell's
-   ``lower_s``, ``compile_s``, per-device peak against the card's memory
-   (and the reference's, where known) and collective bytes by kind. (b) The analytics cell on the card: its
-   four-op batch and the fused quantile kernel each launch
+   6·(N − N_embed)·tokens, N the parameters a token meets (an MoE's top k
+   of its experts); collectives are counted under the reference's
+   five kinds only. The peaks of the two MoE prefills and of qwen2's and
+   jamba's train_4k on both meshes must lie within 1.5× of the
+   reference's plan (``REFERENCE_PEAK_BYTES``: 34.82 and 43.55 GB; qwen2
+   4.181 and 2.191 GB, jamba 20.42 and 17.42 GB on 16×16 and 2×16×16).
+   Prints each cell's ``lower_s``, ``compile_s``, per-device peak against
+   the card's memory (and the reference's, where known) and collective
+   bytes by kind. (b) The analytics cell on the card: its four-op batch
+   and the fused quantile kernel each launch
    ``wm_quantile_sharded`` exactly once. (c) ``--mesh host``: Qwen2-0.5B
    at full width trained 5 steps from step 13's store (batch 8 × 256,
    seed 0) on a 1×1 DTensor mesh, and without a mesh: losses, grad norms
@@ -361,13 +368,18 @@ TRAIN_KERNELS = ("wm_level_step", "rank_build_levels", "bitpack")
 DRYRUN_CELLS = (("qwen2_0_5b", "--both-meshes"),   # its four shapes
                 ("dbrx_132b", "--shape", "decode_32k"),
                 ("dbrx_132b", "--shape", "prefill_32k"),
-                ("arctic_480b", "--shape", "prefill_32k"))
+                ("arctic_480b", "--shape", "prefill_32k"),
+                ("jamba_v0_1_52b", "--shape", "train_4k", "--both-meshes"))
 #: the reference's per-device peak (argument + temp bytes) of a dry-run
 #: cell: ``scripts/dryrun_reference_auto.py`` (``repro.launch.dryrun`` on
 #: mesh axes of type Auto) under jax 0.9.0 on 512 host devices of a CPU;
 #: the card's machine has no JAX to plan it again
 REFERENCE_PEAK_BYTES = {"dbrx_132b__prefill_32k__16x16": 34824435184,
-                        "arctic_480b__prefill_32k__16x16": 43545513208}
+                        "arctic_480b__prefill_32k__16x16": 43545513208,
+                        "qwen2_0_5b__train_4k__16x16": 4181040948,
+                        "qwen2_0_5b__train_4k__2x16x16": 2191033436,
+                        "jamba_v0_1_52b__train_4k__16x16": 20424699204,
+                        "jamba_v0_1_52b__train_4k__2x16x16": 17415621844}
 REFERENCE_PEAK_RATIO = 1.5       # the port's peak at most this × the reference's
 DRYRUN_QWEN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 DRYRUN_TIMEOUT_S = 900           # the dry run's processes, from their start
@@ -2772,7 +2784,9 @@ def check_dryrun_cells(out_dir: Path, card_memory: float) -> list:
              for mp in (False, True)] + [
         ("dbrx_132b", "decode_32k", False),
         ("dbrx_132b", "prefill_32k", False),
-        ("arctic_480b", "prefill_32k", False)]
+        ("arctic_480b", "prefill_32k", False),
+        ("jamba_v0_1_52b", "train_4k", False),
+        ("jamba_v0_1_52b", "train_4k", True)]
     out = []
     for arch, shape_name, mp in cells:
         cid = dryrun.cell_id(arch, shape_name, mp)
@@ -2796,7 +2810,8 @@ def check_dryrun_cells(out_dir: Path, card_memory: float) -> list:
                 f"GB " + json.dumps({k: round(v / 1e9, 4)
                                      for k, v in sorted(coll.items())}))
         if shape.kind == "train":
-            n = count_params(cfg)
+            # the parameters a token meets: an MoE's top k of its experts
+            n = count_params(cfg, active_only=True)
             n_embed = cfg.padded_vocab * cfg.d_model
             tokens = shape.global_batch * shape.seq_len
             total = res["flops_per_device"] * res["devices"]

@@ -17,13 +17,25 @@ routing.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .shard_ctx import constrain, fit_dim, reduce_partial
 
 NEG_BIAS = -1e30
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)``; with grad enabled its activations are recomputed in
+    the backward pass instead of kept (the reference's
+    ``jax.checkpoint``). The model draws no random numbers, so no RNG
+    state is kept."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -141,25 +153,30 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_chunk: int = 1024, causal: bool = True
                       ) -> torch.Tensor:
     """Attention one query chunk at a time: memory O(q_chunk · Sk) per head
-    instead of O(Sq · Sk). Each chunk is a full softmax over all keys, so
-    it equals :func:`full_attention` up to accumulation order."""
+    instead of O(Sq · Sk), in the backward pass too (each chunk is
+    rematerialized). Each chunk is a full softmax over all keys, so it
+    equals :func:`full_attention` up to accumulation order."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     if sq % q_chunk:
         raise ValueError(f"query length {sq} is not a multiple of the "
                          f"chunk {q_chunk}")
     kpos = torch.arange(sk, device=q.device)
-    outs = []
-    for ci in range(sq // q_chunk):
-        qc = q[:, ci * q_chunk:(ci + 1) * q_chunk]
+
+    def chunk_out(qc, k, v, ci):
         scores = _scores(qc, k)
         if causal:
             qpos = (ci * q_chunk + (sk - sq)
                     + torch.arange(q_chunk, device=q.device))
             scores += _causal_bias(qpos, kpos)
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
-        outs.append(_weighted(probs, v))
-    return torch.cat(outs, dim=1)
+        return _weighted(probs, v)
+    # each chunk rematerialized, as the reference's ``jax.checkpoint`` of
+    # its chunk: the backward keeps one chunk's (q_chunk × Sk) scores at a
+    # time instead of every chunk's
+    return torch.cat([remat(chunk_out, q[:, ci * q_chunk:(ci + 1) * q_chunk],
+                            k, v, ci) for ci in range(sq // q_chunk)],
+                     dim=1)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -35,13 +35,12 @@ import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
 from . import layers as L
 from .moe import moe_layer, moe_param_shapes
-from .shard_ctx import constrain, gather_dp
+from .shard_ctx import all_reduce, constrain, gather_dp
 from .ssm import CONV_K, mamba2_block, mamba2_decode, mamba2_param_shapes
 
 Params = Dict[str, Any]
@@ -81,15 +80,9 @@ def _unstack(tree, n: int) -> list:
     return [map_tree(lambda _, a: a[i], parts) for i in range(n)]
 
 
-def _remat(fn: Callable, *args):
-    """``fn(*args)``; with grad enabled its activations are recomputed in
-    the backward pass instead of kept (the reference's
-    ``jax.checkpoint``). The model draws no random numbers, so no RNG
-    state is kept."""
-    if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False)
-    return fn(*args)
+#: each block's remat unit (``layers.remat``, the reference's
+#: ``jax.checkpoint`` of its scanned block)
+_remat = L.remat
 
 
 def _fsdp(tree):
@@ -668,6 +661,73 @@ def _gold_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
                      device_mesh=mesh)(logits, labels)
 
 
+def _vocab_dims(logits: torch.Tensor) -> list:
+    """The mesh dims sharding a DTensor's last (vocabulary) dim; [] for a
+    plain tensor."""
+    if not hasattr(logits, "device_mesh"):
+        return []
+    from torch.distributed.tensor import Shard
+    vdim = logits.dim() - 1
+    return [i for i, p in enumerate(logits.placements)
+            if isinstance(p, Shard) and p.dim == vdim]
+
+
+class _ShardLogZ(torch.autograd.Function):
+    """The log-sum-exp over the whole vocabulary of a device's vocabulary
+    shard ``lg`` (``valid``: its non-padding slots, or None), reduced over
+    the mesh dims ``vdims``: the max (detached, as ``jax.nn.logsumexp``
+    holds it) and the sum of exponentials each in one all-reduce, the same
+    (B, S) result on every device of a vocabulary group. The gradient of a
+    shard needs no collective: the sum's gradient is its replicated
+    ``g / s`` times the shard's own exponentials (autograd's chain for
+    ``log(exp(lg − amax).sum(-1))``)."""
+
+    @staticmethod
+    def forward(ctx, lg, valid, mesh, vdims):
+        if valid is not None:
+            lg = torch.where(valid, lg, L.NEG_BIAS)
+        amax = lg.amax(-1, keepdim=True)
+        for i in vdims:
+            amax = all_reduce(amax, mesh, i, "max")
+        amax = torch.where(torch.isfinite(amax), amax, 0.0)
+        e = torch.exp(lg - amax)
+        tot = e.sum(-1)
+        for i in vdims:
+            tot = all_reduce(tot, mesh, i)
+        ctx.save_for_backward(e, tot)
+        return torch.log(tot) + amax[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        e, tot = ctx.saved_tensors
+        return (g / tot)[..., None] * e, None, None, None
+
+
+def _vocab_parallel_logz(logits: torch.Tensor, cfg) -> torch.Tensor:
+    """``logsumexp`` of the masked logits over the vocabulary, (B, S), for a
+    DTensor sharded on it: each device masks its own padding slots and
+    reduces its shard (:class:`_ShardLogZ` in a ``local_map``), so no
+    device holds the whole vocabulary. DTensor's own plan of the plain ops
+    gathers the logits' gradient at the full vocabulary."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    vdims = _vocab_dims(logits)
+    offset, width = _vocab_shard(logits, logits.dim() - 1)
+    out_pl = [Replicate() if i in vdims else p
+              for i, p in enumerate(logits.placements)]
+
+    def local(lg):
+        valid = None
+        if cfg.padded_vocab != cfg.vocab_size:
+            valid = torch.arange(offset, offset + width,
+                                 device=lg.device) < cfg.vocab_size
+        return _ShardLogZ.apply(lg, valid, mesh, vdims)
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(logits.placements,),
+                     device_mesh=mesh)(logits)
+
+
 def forward_train(params: Params, cfg, tokens: torch.Tensor,
                   extras: Optional[Dict[str, torch.Tensor]] = None,
                   q_chunk: Optional[int] = 512,
@@ -848,11 +908,18 @@ class Model:
         """tokens: (B, S+1). Mean next-token cross-entropy in f32: the
         reference's ``logsumexp − gold`` over the padded vocabulary, pad
         slots masked to ``NEG_BIAS``, the logsumexp as ``jax.nn`` writes it
-        (its max held constant)."""
+        (its max held constant). Logits sharded on the vocabulary (a
+        DTensor) take the vocabulary-parallel route
+        (:func:`_vocab_parallel_logz`, :func:`_gold_logits`)."""
         inp, labels = tokens[:, :-1], tokens[:, 1:]
-        logits = _mask_padded_vocab(
-            forward_train(params, self.cfg, inp, extras, q_chunk=q_chunk),
-            self.cfg)
+        logits = forward_train(params, self.cfg, inp, extras,
+                               q_chunk=q_chunk)
+        if _vocab_dims(logits):
+            # the labels lie in the vocabulary, so the gold logits need no
+            # mask
+            return (_vocab_parallel_logz(logits, self.cfg)
+                    - _gold_logits(logits, labels)).mean()
+        logits = _mask_padded_vocab(logits, self.cfg)
         amax = logits.detach().amax(-1, keepdim=True)
         amax = torch.where(torch.isfinite(amax), amax, 0.0)
         logz = torch.log(torch.exp(logits - amax).sum(-1)) + amax[..., 0]

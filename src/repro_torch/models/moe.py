@@ -26,7 +26,8 @@ import torch
 from repro_torch.core.sort import bucket_ranks
 
 from .layers import silu, swiglu_mlp
-from .shard_ctx import constrain, fit_dim, placements, replicated
+from .shard_ctx import (all_gather, all_reduce, constrain, fit_dim,
+                        placements, reduce_scatter, replicated)
 
 
 def top_k(logits: torch.Tensor, k: int):
@@ -142,33 +143,6 @@ def _moe_apply_global(xt: torch.Tensor, flat_e: torch.Tensor,
 #   the plain route's gate-weighted ``index_add_`` over the local tokens.
 
 
-def _collective(name: str, t: torch.Tensor, *args) -> torch.Tensor:
-    ops = torch.ops._c10d_functional
-    return ops.wait_tensor(getattr(ops, name)(t.contiguous(), *args))
-
-
-def _all_reduce(t, mesh, dim: int):
-    """The sum of ``t`` over mesh dim ``dim``."""
-    return _collective("all_reduce", t, "sum", mesh.get_group(dim).group_name)
-
-
-def _all_gather(t, mesh, dim: int, tdim: int):
-    """``t`` gathered over mesh dim ``dim`` along tensor dim ``tdim``."""
-    n = mesh.size(dim)
-    g = _collective("all_gather_into_tensor", t, n,
-                    mesh.get_group(dim).group_name)
-    return g if tdim == 0 else torch.cat(torch.chunk(g, n, 0), tdim)
-
-
-def _reduce_scatter(t, mesh, dim: int, tdim: int):
-    """The sum of ``t`` over mesh dim ``dim``, scattered along ``tdim``."""
-    n = mesh.size(dim)
-    if tdim:
-        t = torch.cat(torch.chunk(t, n, tdim), 0)
-    return _collective("reduce_scatter_tensor", t, "sum", n,
-                       mesh.get_group(dim).group_name)
-
-
 class _Dispatch(torch.autograd.Function):
     """(T_i, D) local tokens → the (E/m, cap, D) buffer of this device's
     experts, summed over the token axes. ``idx``: (T_i, k) flat slot of
@@ -184,7 +158,7 @@ class _Dispatch(torch.autograd.Function):
             buf.index_add_(0, idx[:, c], x)
         buf = buf[:-1].view(ep.epl, cap, d)
         for i in ep.tok_dims:
-            buf = _all_reduce(buf, ep.mesh, i)
+            buf = all_reduce(buf, ep.mesh, i)
         ctx.save_for_backward(idx, mine)
         ctx.ep = ep
         return buf
@@ -199,7 +173,7 @@ class _Dispatch(torch.autograd.Function):
         for c in range(idx.shape[1]):
             rows = torch.where(mine[:, c, None], flat[at[:, c]], 0)
             gx = rows if gx is None else gx + rows
-        return _all_reduce(gx, ep.mesh, ep.m), None, None, None, None
+        return all_reduce(gx, ep.mesh, ep.m), None, None, None, None
 
 
 class _Combine(torch.autograd.Function):
@@ -213,12 +187,12 @@ class _Combine(torch.autograd.Function):
     def forward(ctx, eo, idx, mine, ep, dshard):
         full = eo
         for i in reversed(dshard):
-            full = _all_gather(full, ep.mesh, i, 2)
+            full = all_gather(full, ep.mesh, i, 2)
         rows = full.reshape(-1, full.shape[-1])[torch.where(mine, idx, 0)]
         rows.masked_fill_(~mine[:, None], 0)
         ctx.save_for_backward(idx)
         ctx.ep, ctx.dshard, ctx.shape = ep, dshard, full.shape
-        return _all_reduce(rows, ep.mesh, ep.m)
+        return all_reduce(rows, ep.mesh, ep.m)
 
     @staticmethod
     def backward(ctx, g):
@@ -229,11 +203,11 @@ class _Combine(torch.autograd.Function):
         gb = gb[:-1].view(epl, cap, d)
         for i in ep.tok_dims:
             if i not in dshard:
-                gb = _all_reduce(gb, ep.mesh, i)
+                gb = all_reduce(gb, ep.mesh, i)
         coord = ep.mesh.get_coordinate()
         for i in dshard:
             if i in ep.tok_dims:
-                gb = _reduce_scatter(gb, ep.mesh, i, 2)
+                gb = reduce_scatter(gb, ep.mesh, i, 2)
             else:
                 gb = torch.chunk(gb, ep.mesh.size(i), 2)[coord[i]]
         return gb.contiguous(), None, None, None, None
@@ -309,7 +283,7 @@ class _ExpertParallel:
             table = table.scatter_add_(
                 0, fe, torch.ones_like(fe, dtype=torch.int32))[None]
             for i in reversed(self.tok_dims):
-                table = _all_gather(table, self.mesh, i, 0)
+                table = all_gather(table, self.mesh, i, 0)
             slot = rank + table[:self.shard].sum(0)[fe]
             keep = slot < cap
             return slot.clamp(max=cap - 1), keep

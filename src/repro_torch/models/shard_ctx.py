@@ -197,6 +197,37 @@ def fit_dim(x: torch.Tensor, dim: int, parts: int):
     return x
 
 
+# Explicit collectives on a mesh dim's process group, for the placements
+# DTensor cannot plan (the MoE's expert-parallel route, the vocabulary-
+# parallel loss): called on local tensors inside a ``local_map``.
+
+def _collective(name: str, t: torch.Tensor, *args) -> torch.Tensor:
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(getattr(ops, name)(t.contiguous(), *args))
+
+
+def all_reduce(t, mesh, dim: int, op: str = "sum"):
+    """``t`` reduced by ``op`` ("sum" or "max") over mesh dim ``dim``."""
+    return _collective("all_reduce", t, op, mesh.get_group(dim).group_name)
+
+
+def all_gather(t, mesh, dim: int, tdim: int):
+    """``t`` gathered over mesh dim ``dim`` along tensor dim ``tdim``."""
+    n = mesh.size(dim)
+    g = _collective("all_gather_into_tensor", t, n,
+                    mesh.get_group(dim).group_name)
+    return g if tdim == 0 else torch.cat(torch.chunk(g, n, 0), tdim)
+
+
+def reduce_scatter(t, mesh, dim: int, tdim: int):
+    """The sum of ``t`` over mesh dim ``dim``, scattered along ``tdim``."""
+    n = mesh.size(dim)
+    if tdim:
+        t = torch.cat(torch.chunk(t, n, tdim), 0)
+    return _collective("reduce_scatter_tensor", t, "sum", n,
+                       mesh.get_group(dim).group_name)
+
+
 def replicated(fn, *args):
     """``fn(*args)`` on whole values, for an op DTensor has no sharded
     strategy for: DTensor arguments are gathered to ``Replicate`` first and

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from .layers import rms_norm, silu
-from .shard_ctx import fit_dim
+from .shard_ctx import fit_dim, reduce_partial
 
 CONV_K = 4   # causal depthwise conv width (Mamba standard)
 
@@ -148,25 +148,111 @@ def _gated_out(y: torch.Tensor, z: torch.Tensor, p: dict, cfg):
     return y @ p["out_proj"]
 
 
+def _mixer(z, xin, Bm, Cm, dt, conv_w, dt_bias, A_log, D_skip,
+           chunk: int) -> torch.Tensor:
+    """The mixer between the projections for the heads of ``z``, ``xin``
+    (B, S, H·P) and ``dt`` (B, S, H), with B/C (B, S, N) and the conv
+    weights of those channels: the gated SSD output ``y · silu(z)``,
+    (B, S, H·P). Every op but the B/C product acts per head or per
+    channel, so a subset of the heads gets those heads' values of the
+    whole."""
+    b, s, dl = xin.shape
+    n = Bm.shape[-1]
+    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
+    conv_out = silu(_causal_conv(conv_in, conv_w))
+    xin, Bm, Cm = conv_out.split([dl, n, n], dim=-1)
+    dt = softplus(dt + dt_bias)                               # (B,S,H)
+    A = -torch.exp(A_log)                                     # (H,)
+    xh = xin.reshape(b, s, dt.shape[-1], dl // dt.shape[-1])
+    y = _ssd_chunked(xh, dt, A, Bm, Cm, chunk)
+    y = y + xh * D_skip[None, None, :, None]
+    return y.reshape(b, s, dl) * silu(z)
+
+
+def _head_parallel(zxbc: torch.Tensor, p: dict, cfg, chunk: int):
+    """:func:`_mixer` of a DTensor projection with the SSM heads sharded
+    over ``model`` (a ``local_map``), or None where that route does not
+    apply: a plain tensor, no ``model`` axis of more than one device, or a
+    head count it does not divide.
+
+    The projection's columns are gathered over ``model`` (its shards do
+    not fall on the z/x/B/C/dt boundaries), keeping the batch shards; each
+    device then takes the z, x and dt of its H/m heads and all of B and C
+    (N wide, shared by every head) and runs the conv, the chunked scan and
+    the gate on them alone. The output is sharded on H·P over ``model``.
+    Gradients: each device's share of the projection's (its heads'
+    columns, its part of B and C's) sums over ``model``, as do the conv
+    weights', and every parameter's over the batch shards."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(zxbc, DTensor):
+        return None
+    mesh = zxbc.device_mesh
+    names = list(mesh.mesh_dim_names or ())
+    if "model" not in names:
+        return None
+    m = names.index("model")
+    parts, h = mesh.size(m), cfg.ssm_heads
+    if parts == 1 or h % parts:
+        return None
+    din = h * cfg.ssm_headdim
+    dl, hl = din // parts, h // parts
+    j = mesh.get_local_rank(m)
+    pl = [Replicate() if i == m or not (isinstance(q, Shard) and q.dim == 0)
+          else q for i, q in enumerate(zxbc.placements)]
+    batch = [i for i, q in enumerate(pl) if isinstance(q, Shard)]
+
+    def grads(own):
+        """Gradient placements of a parameter laid out ``own`` on
+        ``model``: partial sums over the batch shards."""
+        return [Partial() if i in batch else own if i == m else Replicate()
+                for i in range(mesh.ndim)]
+    rep = [Replicate()] * mesh.ndim
+    heads = [Shard(0) if i == m else Replicate() for i in range(mesh.ndim)]
+    grad_x = list(pl)
+    grad_x[m] = Partial()
+    out_pl = list(pl)
+    out_pl[m] = Shard(2)
+    zxbc = zxbc.redistribute(mesh, pl)
+    conv_w = p["conv_w"].redistribute(mesh, rep)
+    per_head = [p[k].redistribute(mesh, heads)
+                for k in ("dt_bias", "A_log", "D_skip")]
+
+    def local(zx, cw, dt_bias, A_log, D_skip):
+        z, xin, Bm, Cm, dt = _split_in_proj(zx, cfg)
+        mine = slice(j * dl, (j + 1) * dl)
+        # contiguous copies: the gathered projection is not kept alive by
+        # views of it
+        z, xin, Bm, Cm = (t.contiguous() for t in (z[..., mine],
+                                                   xin[..., mine], Bm, Cm))
+        dt = dt[..., j * hl:(j + 1) * hl].contiguous()
+        cw = torch.cat([cw[:, mine], cw[:, din:]], dim=1)
+        return _mixer(z, xin, Bm, Cm, dt, cw, dt_bias, A_log, D_skip, chunk)
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(
+        local, out_placements=out_pl,
+        in_placements=(pl, rep, heads, heads, heads),
+        in_grad_placements=(grad_x, grads(Partial()), grads(Shard(0)),
+                            grads(Shard(0)), grads(Shard(0))),
+        device_mesh=mesh)(zxbc, conv_w, *per_head)
+
+
 def mamba2_block(x: torch.Tensor, p: dict, cfg,
                  chunk: int = 256) -> torch.Tensor:
-    """Full Mamba-2 mixer. x: (B, S, D) → (B, S, D)."""
+    """Full Mamba-2 mixer. x: (B, S, D) → (B, S, D). On DTensors whose
+    ``model`` axis divides the heads the mixer is head-parallel
+    (:func:`_head_parallel`); its output's pending sums over ``model`` (the
+    out-projection contracts the sharded H·P) are reduced."""
     b, s, _ = x.shape
     chunk = min(chunk, s)
     while s % chunk:
         chunk //= 2
-    h, pdim, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
-    din = h * pdim
-    z, xin, Bm, Cm, dt = _split_in_proj(x @ p["in_proj"], cfg)
-    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
-    conv_out = silu(_causal_conv(conv_in, p["conv_w"]))
-    xin, Bm, Cm = conv_out.split([din, n, n], dim=-1)
-    dt = softplus(dt + p["dt_bias"])                          # (B,S,H)
-    A = -torch.exp(p["A_log"])                                # (H,)
-    xh = xin.reshape(b, s, h, pdim)
-    y = _ssd_chunked(xh, dt, A, Bm, Cm, chunk)
-    y = y + xh * p["D_skip"][None, None, :, None]
-    return _gated_out(y.reshape(b, s, din), z, p, cfg)
+    zxbc = x @ p["in_proj"]
+    y = _head_parallel(zxbc, p, cfg, chunk)
+    if y is None:
+        y = _mixer(*_split_in_proj(zxbc, cfg), p["conv_w"], p["dt_bias"],
+                   p["A_log"], p["D_skip"], chunk)
+    return reduce_partial(rms_norm(y, p["out_norm"], cfg.norm_eps)
+                          @ p["out_proj"])
 
 
 def mamba2_decode(x: torch.Tensor, p: dict, cfg, ssm_state: torch.Tensor,
