@@ -13,7 +13,11 @@
    single-pass scan runs twice on the same inputs and must repeat itself.
    The quantile kernel is held against the plain descent on the
    directories and the dense reference at S = 1, S = 300 (past the first
-   kernel's cap of 256) and queries covering more than 32 shards.
+   kernel's cap of 256) and queries covering more than 32 shards. On the
+   same operands the front-end's count (``wm_count``) and greedy top-k
+   (``topk_greedy``) kernels are held against their plain versions, with
+   every shard and with a masked set, symbol bounds past both ends, and
+   the greedy at budgets of 6k and 3k pops with and without pruning.
 4. Runs the main path at full width: a 2^27-token Zipfian stream over
    Qwen2's vocabulary (σ = 151,936, 18 levels), 128 shards of 2^20,
    τ = 8, sample rate 512; the build through the kernels, checked leaf for
@@ -44,7 +48,10 @@
    sectors the batch's rank probes fall in (a sector holding a count and
    224 bits: one sector a probe, the least any layout needs) and which
    includes nbits dependent DRAM round trips, measured by a one-thread
-   pointer chase over a buffer the directories' size. Prints the ``phases`` JSON line (the single-row
+   pointer chase over a buffer the directories' size. The count and
+   greedy top-k rows take the front-end's widest bucket (128 queries over
+   the 128 full-width shards, every symbol, 6k pops): their launches are
+   step 10b's. Prints the ``phases`` JSON line (the single-row
    and single-shard forms, the totals count, the reference's two matrix
    phase kernels and the two-launch level they make, ``radix_rank``
    without the starts and its totals count, the reference's two radix
@@ -152,9 +159,23 @@
    the launches of the checks (oracles, identity quantiles, the reference
    index build; counted apart as ``check_launches``). The ingest must have
    launched ``wm_level_step``, ``rank_build_levels``, ``radix_rank`` and
-   ``bitpack``, serving ``wm_level_step``, ``rank_build_levels`` and
-   ``wm_quantile_sharded``.
-11. Drives ``repro_torch.obs`` through step 4's engine and queries, with
+   ``bitpack``, serving ``wm_level_step``, ``rank_build_levels``,
+   ``wm_quantile_sharded`` and ``wm_count``.
+10b. The front-end smoke of ``scripts/ci_torch.sh`` three times: ``launch.
+   frontend --smoke --overload 5`` (8,192 tokens, 8 shards, 300 requests,
+   buckets 8 and 32, the 250 ms deadline) through the CLI's own functions
+   (``launch.profile_frontend.run_trace``), each run captured with
+   metrics on and put through the gate ``launch.obs --slo
+   'frontend.*:p99_ms<=250'``; a run that misses the gate fails the
+   script. Prints each op's served count, p50, p99, median batch ms and
+   kernel launches a batch. Launch counts are zeroed before the three
+   runs and read after: ``wm_count``, ``topk_greedy`` and
+   ``wm_quantile_sharded`` must have launched. Prints the
+   ``frontend_gate`` JSON line; each kernel row gains
+   ``frontend_gate_launches``.
+11. Waits for the dry run's processes of step 14a to end (they share the
+   host's cores with its host-clock timings; prints how many still ran).
+   Drives ``repro_torch.obs`` through step 4's engine and queries, with
    metrics configured to a temporary directory (every count and the
    registry set to 0 first). ``profiled_op`` of the 4,096 kernel quantiles
    (20 repeats): the roofline must lie in (0, 1.05], the steady time
@@ -227,26 +248,34 @@
    20`` on the card. Prints the ``train`` JSON line; each kernel row
    gains ``train_launches``, the step's launches without its checks'.
 
-14. The XLA tools' port. (a) At the start, beside steps 1–13 and at the
-   lowest priority, five processes (one a line of ``DRYRUN_CELLS``) run
+14. The XLA tools' port. (a) At the start, beside steps 1–10b and at the
+   lowest priority (step 11 waits for them to end before it times), eight processes (one a line of ``DRYRUN_CELLS``) run
    the dry run on the CPU only (``python -m repro_torch.launch.dryrun``):
    ``qwen2_0_5b`` at its full config in train_4k, prefill_32k and
    decode_32k (and the long_500k skip record) on both production meshes
    (16×16 and 2×16×16 fake ranks), ``dbrx_132b`` × decode_32k × 16×16
    (its MoE pins run), the MoE prefills ``dbrx_132b`` and
    ``arctic_480b`` × prefill_32k × 16×16 (the expert-parallel dispatch
-   and combine), and ``jamba_v0_1_52b`` × train_4k on both meshes (the
+   and combine), ``jamba_v0_1_52b`` × train_4k on both meshes (the
    head-parallel Mamba mixer; qwen2's and jamba's train cells take the
-   vocabulary-parallel loss). Each cell must be ``ok``; its
+   vocabulary-parallel loss), ``arctic_480b`` × train_4k on both meshes
+   (its 56 heads sharded over ``model``, padded to 64; its expert banks'
+   gradients reduce-scattered a layer at a time) and ``dbrx_132b`` and
+   ``llama_3_2_vision_90b`` × train_4k × 2×16×16, which with arctic's
+   run the reference's 16 microbatches there (a microbatch of 16 sharded
+   over ``data``, replicated over ``pod``). Each cell must be ``ok``; its
    ``argument_bytes`` must equal the local shard bytes counted in numpy
    from the spec tuples and the shapes; its per-device peak must lie under
    the card's memory; a train cell's FLOPs a device × devices must reach
    6·(N − N_embed)·tokens, N the parameters a token meets (an MoE's top k
    of its experts); collectives are counted under the reference's
-   five kinds only. The peaks of the two MoE prefills and of qwen2's and
-   jamba's train_4k on both meshes must lie within 1.5× of the
+   five kinds only. The peaks of the two MoE prefills and of the train_4k
+   cells of qwen2, jamba and arctic (both meshes), dbrx and llama-vision
+   (2×16×16) must lie within 1.5× of the
    reference's plan (``REFERENCE_PEAK_BYTES``: 34.82 and 43.55 GB; qwen2
-   4.181 and 2.191 GB, jamba 20.42 and 17.42 GB on 16×16 and 2×16×16).
+   4.181 and 2.191 GB, jamba 20.42 and 17.42 GB, arctic 55.43 and 95.19 GB
+   on 16×16 and 2×16×16; dbrx 25.48 and llama-vision 32.96 GB on
+   2×16×16).
    Prints each cell's ``lower_s``, ``compile_s``, per-device peak against
    the card's memory (and the reference's, where known) and collective
    bytes by kind. (b) The analytics cell on the card: its four-op batch
@@ -336,8 +365,9 @@ BREAKER_SHARD = 2
 EXAMPLE_KERNELS = {
     "torch_quickstart": ("wt_level_step", "bitpack", "rank_build_levels",
                          "wm_level_step"),
+    # the store's range counts run the count kernel
     "torch_corpus_analytics": ("wm_level_step", "rank_build_levels",
-                               "wm_quantile_sharded"),
+                               "wm_quantile_sharded", "wm_count"),
     "torch_corpus_search": ("radix_rank", "wm_level_step",
                             "rank_build_levels", "bitpack"),
     "torch_serve_decode": ("wm_level_step", "rank_build_levels"),
@@ -369,7 +399,11 @@ DRYRUN_CELLS = (("qwen2_0_5b", "--both-meshes"),   # its four shapes
                 ("dbrx_132b", "--shape", "decode_32k"),
                 ("dbrx_132b", "--shape", "prefill_32k"),
                 ("arctic_480b", "--shape", "prefill_32k"),
-                ("jamba_v0_1_52b", "--shape", "train_4k", "--both-meshes"))
+                ("jamba_v0_1_52b", "--shape", "train_4k", "--both-meshes"),
+                ("arctic_480b", "--shape", "train_4k", "--both-meshes"),
+                ("dbrx_132b", "--shape", "train_4k", "--multi-pod"),
+                ("llama_3_2_vision_90b", "--shape", "train_4k",
+                 "--multi-pod"))
 #: the reference's per-device peak (argument + temp bytes) of a dry-run
 #: cell: ``scripts/dryrun_reference_auto.py`` (``repro.launch.dryrun`` on
 #: mesh axes of type Auto) under jax 0.9.0 on 512 host devices of a CPU;
@@ -379,7 +413,12 @@ REFERENCE_PEAK_BYTES = {"dbrx_132b__prefill_32k__16x16": 34824435184,
                         "qwen2_0_5b__train_4k__16x16": 4181040948,
                         "qwen2_0_5b__train_4k__2x16x16": 2191033436,
                         "jamba_v0_1_52b__train_4k__16x16": 20424699204,
-                        "jamba_v0_1_52b__train_4k__2x16x16": 17415621844}
+                        "jamba_v0_1_52b__train_4k__2x16x16": 17415621844,
+                        "arctic_480b__train_4k__16x16": 55431705396,
+                        "arctic_480b__train_4k__2x16x16": 95192942924,
+                        "dbrx_132b__train_4k__2x16x16": 25479634276,
+                        "llama_3_2_vision_90b__train_4k__2x16x16":
+                            32962499252}
 REFERENCE_PEAK_RATIO = 1.5       # the port's peak at most this × the reference's
 DRYRUN_QWEN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 DRYRUN_TIMEOUT_S = 900           # the dry run's processes, from their start
@@ -388,7 +427,7 @@ DRYRUN_KERNELS = ("wm_level_step", "rank_build_levels", "wm_quantile_sharded")
 PART_KERNELS = {"ingest": ("wm_level_step", "rank_build_levels",
                            "radix_rank", "bitpack"),
                 "serving": ("wm_level_step", "rank_build_levels",
-                            "wm_quantile_sharded")}
+                            "wm_quantile_sharded", "wm_count")}
 
 
 def fail(msg: str) -> None:
@@ -1782,13 +1821,106 @@ def ingest_serving_phase(dev, toks: np.ndarray, seq: torch.Tensor, eng,
 
 
 #: the __global__ functions each launch counter covers, as a trace names them
+FE_GATE_RUNS = 3
+FE_GATE_OVERLOAD = 5.0
+FE_GATE_SLO = "frontend.*:p99_ms<=250"   # scripts/ci_torch.sh's gate
+FE_GATE_KERNELS = ("wm_count", "topk_greedy", "wm_quantile_sharded")
+
+
+def frontend_gate_phase(dev) -> tuple[dict, dict]:
+    """Step 10b: ``launch.frontend --smoke --overload 5`` three times
+    through the CLI's own ``run`` (``launch.profile_frontend.run_trace``:
+    the CLI's engine, trace, warm-up, paced drive, answer and accounting
+    checks, its batches recorded), each captured with metrics on
+    (``--metrics-dir``) and put through ``scripts/ci_torch.sh``'s
+    gate (``launch.obs`` with ``--slo 'frontend.*:p99_ms<=250'``). Fails if
+    a run misses the gate. Prints each op's p50, p99, batch ms and the
+    port's kernel launches a batch. The launch counts are zeroed before the
+    three runs and read after: the count and greedy top-k kernels (and the
+    quantile's) must have launched."""
+    import contextlib
+    import io
+    from repro_torch import obs
+    from repro_torch.kernels import build
+    from repro_torch.launch import frontend as fe_cli
+    from repro_torch.launch import obs as obs_cli
+    from repro_torch.launch import profile_frontend as pf
+
+    args = pf.smoke_args(str(dev), FE_GATE_OVERLOAD)
+    toks, eng = fe_cli.build_engine(args)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_frontend_gate_"))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    runs = []
+    try:
+        for i in range(FE_GATE_RUNS):
+            args.metrics_dir = str(work / f"run{i + 1}")
+            obs.REGISTRY.reset()
+            try:
+                run = pf.run_trace(args, toks, eng)
+            finally:
+                obs.configure(None)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = obs_cli.main([args.metrics_dir, "--slo", FE_GATE_SLO])
+            table = pf._batch_table(run["batches"])
+            s = run["summary"]
+            per_op = {}
+            for op, o in s["per_op"].items():
+                rows = [r for r in table if r["op"] == op]
+                n_b = sum(r["batches"] for r in rows)
+                per_op[op] = {
+                    "served": o["served"], "p50_ms": o["p50_ms"],
+                    "p99_ms": o["p99_ms"],
+                    "batch_ms_median": (float(np.median(
+                        [b["batch_ms"] for b in run["batches"]
+                         if b["op"] == op and "batch_ms" in b]))
+                        if n_b else None),
+                    "kernel_launches_a_batch": (sum(
+                        r["kernel_launches_a_batch"] * r["batches"]
+                        for r in rows) / n_b if n_b else None)}
+            runs.append({"gate_rc": rc, "served": s["served"],
+                         "shed": run["shed"],
+                         "deadline_misses": s["deadline_misses"],
+                         "final_level": s["final_level"], "per_op": per_op,
+                         "by_op_level": table})
+            print(f"front-end gate run {i + 1}: {FE_GATE_SLO} "
+                  f"{'passed' if rc == 0 else 'FAILED'}; served "
+                  f"{s['served']}, shed {json.dumps(run['shed'])}, "
+                  f"{s['deadline_misses']} deadline misses, final level "
+                  f"{s['final_level']}")
+            for op, o in per_op.items():
+                bm = ("—" if o["batch_ms_median"] is None
+                      else f"{o['batch_ms_median']:.3f}")
+                kl = ("—" if o["kernel_launches_a_batch"] is None
+                      else f"{o['kernel_launches_a_batch']:.2f}")
+                print(f"  {op}: served {o['served']}, p50 {o['p50_ms']:.3f} "
+                      f"ms, p99 {o['p99_ms']:.3f} ms, batch {bm} ms "
+                      f"(median), {kl} kernel launches a batch")
+            if rc != 0:
+                print(buf.getvalue())
+                fail(f"front-end gate run {i + 1}: {FE_GATE_SLO} violated")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    missing = [k for k in FE_GATE_KERNELS if launches[k] <= 0]
+    print(f"front-end gate: launches over its {FE_GATE_RUNS} runs "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    if missing:
+        fail(f"front-end gate: {missing} never launched")
+    return {"runs": runs, "launches": launches}, launches
+
+
 KERNEL_SYMBOLS = {"wm_quantile_sharded": ("wm_quantile_kernel",),
                   "wm_level_step": ("wm_level_zeros_kernel",
                                     "zero_scan_kernel"),
                   "rank_build_levels": ("rank_build_levels_kernel",),
                   "wt_level_step": ("zero_scan_kernel",),
                   "radix_rank": ("radix_scan_kernel",),
-                  "bitpack": ("bitpack_kernel",)}
+                  "bitpack": ("bitpack_kernel",),
+                  "wm_count": ("wm_count_kernel",),
+                  "topk_greedy": ("topk_greedy_kernel",)}
 OBS_KERNELS = ("wm_level_step", "rank_build_levels", "wm_quantile_sharded")
 METRICS_COST_ROUNDS = 4          # (on, off, off, on) rounds of 11.6
 OBS_CLI_TIMEOUT_S = 300
@@ -1839,11 +1971,13 @@ def device_busy(trace_path: Path, span_names) -> dict:
 
 
 def obs_phase(dev, toks: np.ndarray, eng, queries, serve_batches,
-              wrapper_ms: float, batch_bytes: int):
+              wrapper_ms: float, batch_bytes: int, dryrun_procs):
     """Step 11: ``repro_torch.obs`` through step 4's engine ``eng`` and its
     queries at full width, metrics on; ``wrapper_ms`` is the quantile
     kernel's wrapper time of step 5, ``batch_bytes`` the bytes its bound
-    counts for the batch ``queries``. Returns (report, launches)."""
+    counts for the batch ``queries``. The dry run's processes
+    (``dryrun_procs``) end first: they share the host's cores with the
+    host clock's timings. Returns (report, launches)."""
     import contextlib
     import io
     import os
@@ -1861,6 +1995,12 @@ def obs_phase(dev, toks: np.ndarray, eng, queries, serve_batches,
     lo_t, hi_t, k_t = queries
     report = {}
     t_phase = time.perf_counter()
+    running = finish_dryrun(dryrun_procs)
+    report["dryrun_wait"] = {"running": running,
+                             "s": time.perf_counter() - t_phase}
+    print(f"obs: {running} of {len(dryrun_procs)} dry-run processes were "
+          f"still running; waited {report['dryrun_wait']['s']:.3f} s for "
+          f"them")
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_obs_")
     mdir = Path(work.name) / "metrics"
     obs.REGISTRY.reset()
@@ -2711,7 +2851,7 @@ def train_phase(dev, toks: np.ndarray) -> tuple[dict, dict, object]:
 def start_dryrun(out_dir: Path) -> list:
     """Start the dry run of step 14a: one process a line of
     ``DRYRUN_CELLS``, on the CPU only (no card is visible to them), at the
-    lowest priority, so they run beside steps 1–13 on the host's idle cores
+    lowest priority, so they run beside steps 1–10b on the host's idle cores
     (the 2×16×16 train cell records for minutes). Output goes to
     ``out_dir``."""
     import atexit
@@ -2737,14 +2877,37 @@ def start_dryrun(out_dir: Path) -> list:
     return procs
 
 
+def finish_dryrun(procs) -> int:
+    """Wait for the dry-run processes of ``start_dryrun`` (each within
+    ``DRYRUN_TIMEOUT_S`` of its start); fail if one runs over or exits
+    with an error. Returns how many were still running when called."""
+    running = sum(proc.poll() is None for proc, _, _ in procs)
+    for proc, log, t0 in procs:
+        try:
+            proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                  - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for p, _, _ in procs:
+                p.kill()
+                p.wait()
+            fail(f"dryrun: the dry run did not finish in "
+                 f"{DRYRUN_TIMEOUT_S} s")
+        log.close()
+        if proc.returncode != 0:
+            fail(f"dryrun: a dry-run process exited {proc.returncode}: "
+                 f"{Path(log.name).read_text()[-2000:]}")
+    return running
+
+
 def cell_argument_bytes(cfg, shape, sizes: dict) -> int:
     """The local shard bytes of a dry-run step's arguments, counted in
     numpy from the spec tuples and the shapes: params (bf16); for train
-    the f32 moments, the int32 step and the int32 batch; for decode the
-    bf16 cache, the int32 tokens and pos."""
-    from repro_torch.models.model import (abstract_params, cache_shapes,
-                                          cache_specs, fit_spec, param_specs,
-                                          tree_paths)
+    the f32 moments, the int32 step and the int32 batch, for train and
+    prefill with its bf16 extras (a VLM's image embeddings, an encoder's
+    frames); for decode the bf16 cache, the int32 tokens and pos."""
+    from repro_torch.models.model import (abstract_params, build_model,
+                                          cache_shapes, cache_specs,
+                                          fit_spec, param_specs, tree_paths)
 
     def local(shape_, spec, itemsize):
         n = 1
@@ -2760,11 +2923,15 @@ def cell_argument_bytes(cfg, shape, sizes: dict) -> int:
     shapes = dict(tree_paths(abstract_params(cfg)))
     pbytes = sum(local(shapes[p].shape, sp, 2)
                  for p, sp in tree_paths(param_specs(cfg, sizes, mode)))
+    extras = sum(local(shp, fit_spec((dp,) + (None,) * (len(shp) - 1),
+                                      shp, sizes), 2)
+                 for shp in build_model(cfg).extras_shapes(b).values())
     if shape.kind == "train":
-        return pbytes + 2 * 2 * pbytes + 4 + local(
+        return pbytes + 2 * 2 * pbytes + 4 + extras + local(
             (b, s + 1), fit_spec((dp, None), (b, s + 1), sizes), 4)
     if shape.kind == "prefill":
-        return pbytes + local((b, s), fit_spec((dp, None), (b, s), sizes), 4)
+        return pbytes + extras + local(
+            (b, s), fit_spec((dp, None), (b, s), sizes), 4)
     cshapes = dict(tree_paths(cache_shapes(cfg, b, s)))
     return (pbytes + sum(local(cshapes[p], sp, 2) for p, sp in tree_paths(
         cache_specs(cfg, dp, b, s, sizes)))
@@ -2786,7 +2953,11 @@ def check_dryrun_cells(out_dir: Path, card_memory: float) -> list:
         ("dbrx_132b", "prefill_32k", False),
         ("arctic_480b", "prefill_32k", False),
         ("jamba_v0_1_52b", "train_4k", False),
-        ("jamba_v0_1_52b", "train_4k", True)]
+        ("jamba_v0_1_52b", "train_4k", True),
+        ("arctic_480b", "train_4k", False),
+        ("arctic_480b", "train_4k", True),
+        ("dbrx_132b", "train_4k", True),
+        ("llama_3_2_vision_90b", "train_4k", True)]
     out = []
     for arch, shape_name, mp in cells:
         cid = dryrun.cell_id(arch, shape_name, mp)
@@ -2823,6 +2994,11 @@ def check_dryrun_cells(out_dir: Path, card_memory: float) -> list:
             if res["matmul_floor_ratio"] < 1:
                 fail(f"dryrun: {cid} counts fewer FLOPs than the matmul "
                      f"floor")
+            line += f"; grad_accum {res.get('grad_accum')}"
+            if res.get("grad_accum") != dryrun.GRAD_ACCUM.get(arch, 1):
+                fail(f"dryrun: {cid} ran {res.get('grad_accum')} "
+                     f"microbatches, not the reference's "
+                     f"{dryrun.GRAD_ACCUM.get(arch, 1)}")
         ref_peak = REFERENCE_PEAK_BYTES.get(cid)
         if ref_peak is not None:
             res["reference_peak_bytes"] = ref_peak
@@ -2942,20 +3118,7 @@ def dryrun_phase(dev, corpus, procs, out_dir: Path) -> tuple[dict, dict]:
     launches = dict(build.launches)
 
     # ---- 14a. the dry-run cells ----------------------------------------
-    for proc, log, t0 in procs:
-        try:
-            proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
-                                  - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            for p, _, _ in procs:
-                p.kill()
-                p.wait()
-            fail(f"dryrun: the dry run did not finish in "
-                 f"{DRYRUN_TIMEOUT_S} s")
-        log.close()
-        if proc.returncode != 0:
-            fail(f"dryrun: a dry-run process exited {proc.returncode}: "
-                 f"{Path(log.name).read_text()[-2000:]}")
+    finish_dryrun(procs)
     report["cells"] = check_dryrun_cells(
         out_dir, torch.cuda.get_device_properties(dev).total_memory)
 
@@ -2965,7 +3128,7 @@ def dryrun_phase(dev, corpus, procs, out_dir: Path) -> tuple[dict, dict]:
     report["launches"] = launches
     report["phase_s"] = time.perf_counter() - t_phase
     print(f"dryrun: step 14 took {report['phase_s']:.3f} s on the host clock "
-          f"(the dry-run cells ran beside steps 1-13)")
+          f"(the dry-run cells ran beside steps 1-10b)")
     return report, launches
 
 
@@ -3062,7 +3225,8 @@ def main() -> None:
                                                  wm_interval_zeros)
     from repro_torch.data import make_corpus
     from repro_torch.kernels import (bitpack, build, ops, radix_rank,
-                                     rank_build, ref, wm_level, wt_level)
+                                     rank_build, ref, topk_greedy, wm_count,
+                                     wm_level, wt_level)
     from repro_torch.kernels import wm_quantile
     from repro_torch.launch import sweep_quantile
     from repro_torch.launch.analytics import make_queries
@@ -3259,7 +3423,44 @@ def main() -> None:
                                        one.n, lo, hi, k)))
         ragged_err["wm_quantile_sharded"] = max(
             ragged_err["wm_quantile_sharded"], e)
-    del op
+        # the serving front-end's count and greedy top-k kernels on the
+        # same operands, every shard and a masked set: symbol bounds past
+        # both ends and reversed; the greedy at the front-end's budgets of
+        # 6k and 3k pops with pruning, and without it
+        los, his = (t.T.contiguous() for t in local_ranges(
+            shard_bits, num_shards, n, lo, hi, dev))
+        s0 = torch.randint(-3, sigma + 3, (lo.numel(),), generator=gen,
+                           device=dev)
+        s1 = torch.randint(-3, 2 * sigma, (lo.numel(),), generator=gen,
+                           device=dev)
+        mask = torch.rand(num_shards, generator=gen, device=dev) > 0.3
+        for his_m in (his, torch.where(mask[None], his, los)):
+            ragged_err["wm_count"] = max(ragged_err["wm_count"], max_abs_err(
+                wm_count.wm_count_sharded(op, los, his_m, s0, s1),
+                wm_count.wm_count_plain(op, los, his_m, s0, s1)))
+            for budget, prune in ((6 * FE_TOPK, True), (3 * FE_TOPK, True),
+                                  (6 * FE_TOPK, False)):
+                got = topk_greedy.topk_greedy(op, los[:129], his_m[:129],
+                                              FE_TOPK, budget, prune)
+                want = topk_greedy.topk_greedy_plain(
+                    op, los[:129], his_m[:129], FE_TOPK, budget, prune)
+                ragged_err["topk_greedy"] = max(
+                    ragged_err["topk_greedy"],
+                    *(max_abs_err(a, b) for a, b in zip(got, want)))
+        if shards.nbits == 18:
+            # budgets past a block's default 48 KB of shared memory: the
+            # default at k = 100, 2,000 pops (opted-in shared memory) and
+            # 9,000 (the slots in global scratch)
+            for kk, budget in ((100, None), (FE_TOPK, 2000),
+                               (FE_TOPK, 9000)):
+                got = topk_greedy.topk_greedy(op, los[:9], his[:9], kk,
+                                              budget)
+                want = topk_greedy.topk_greedy_plain(op, los[:9], his[:9],
+                                                     kk, budget)
+                ragged_err["topk_greedy"] = max(
+                    ragged_err["topk_greedy"],
+                    *(max_abs_err(a, b) for a, b in zip(got, want)))
+    del op, los, his, his_m
     for n in (1, 31, 1000, 1024, 1025, 70_001):
         for nb in (2, 33, 256, 512):
             d = torch.randint(0, nb, (3, n), generator=gen, device=dev,
@@ -3566,6 +3767,47 @@ def main() -> None:
            latency_ms=nbits * lat["dram_ns"] * 1e-6,
            extra=quantile_extra(op, cold_batches, probes, sectors, nbits,
                                 lat["dram_ns"]))
+
+    # the front-end's count and greedy top-k kernels at its widest bucket
+    # on the full-width engine (its counts span every symbol; its greedy
+    # top-k pops at most 6k nodes, ladder level 1); their launches are
+    # those of the front-end gate (step 10b), filled in there. The bounds
+    # count the ranges, bounds and answers (not the directory sectors)
+    # and the nbits (+ 1 for the greedy's leaf) dependent DRAM loads
+    fe_q = FE_BUCKETS[-1]
+    fe_los, fe_his = (t.T.contiguous() for t in local_ranges(
+        SHARD_BITS, eng.num_shards, N_TOKENS, lo_t[:fe_q], hi_t[:fe_q], dev))
+    fe_s0 = torch.zeros(fe_q, dtype=torch.int32, device=dev)
+    fe_s1 = torch.full((fe_q,), SIGMA, dtype=torch.int32, device=dev)
+    live = int((fe_his > fe_los).sum())
+    got = wm_count.wm_count_sharded(op, fe_los, fe_his, fe_s0, fe_s1)
+    report("wm_count", "src/repro_torch/kernels/csrc/wm_count.cu",
+           "src/repro/analytics/engine.py:97 sharded_range_count (XLA; no "
+           "Pallas kernel)", [], got,
+           wm_count.wm_count_plain(op, fe_los, fe_his, fe_s0, fe_s1),
+           cuda_ms(lambda: wm_count.wm_count_sharded(
+               op, fe_los, fe_his, fe_s0, fe_s1), 20),
+           cuda_ms(lambda: wm_count.wm_count_plain(
+               op, fe_los, fe_his, fe_s0, fe_s1), 3),
+           fe_los.numel() * 8 + fe_q * 12, live * 4 * nbits * 40,
+           path="frontend", path_launches={"wm_count": 0},
+           latency_ms=nbits * lat["dram_ns"] * 1e-6,
+           extra={"queries": fe_q, "live_pairs": live})
+    got = topk_greedy.topk_greedy(op, fe_los, fe_his, FE_TOPK, 6 * FE_TOPK)
+    report("topk_greedy", "src/repro_torch/kernels/csrc/topk_greedy.cu",
+           "src/repro/analytics/range_ops.py:198 _topk_frontier (XLA loop; "
+           "no Pallas kernel)", [], got,
+           topk_greedy.topk_greedy_plain(op, fe_los, fe_his, FE_TOPK,
+                                         6 * FE_TOPK),
+           cuda_ms(lambda: topk_greedy.topk_greedy(
+               op, fe_los, fe_his, FE_TOPK, 6 * FE_TOPK), 20),
+           cuda_ms(lambda: topk_greedy.topk_greedy_plain(
+               op, fe_los, fe_his, FE_TOPK, 6 * FE_TOPK), 2),
+           fe_los.numel() * 8 + fe_q * (2 * FE_TOPK + 1) * 4, 0,
+           path="frontend", path_launches={"topk_greedy": 0},
+           latency_ms=(nbits + 1) * lat["dram_ns"] * 1e-6,
+           extra={"queries": fe_q, "budget": 6 * FE_TOPK})
+    del fe_los, fe_his, fe_s0, fe_s1
 
     # the single-row and single-shard forms, and the two phases of each
     # two-launch kernel, each timed alone (they share the rows' launch
@@ -3916,12 +4158,18 @@ def main() -> None:
     ingest, serving, ingest_launches, serving_launches = ingest_serving_phase(
         dev, toks, seq, eng, (lo, hi, k), quant)
 
+    # ---- 10b. the front-end smoke at overload 5 behind its p99 gate ------
+    gate_report, gate_launches = frontend_gate_phase(dev)
+    for row in kernels:
+        if row["path"] == "frontend":
+            row["launches"] = gate_launches[row["name"]]
+
     # ---- 11. repro_torch.obs through the engine, the CLIs and chaos -----
     wrapper_ms = next(row["ms"] for row in kernels
                       if row["name"] == "wm_quantile_sharded")
     obs_report, obs_launches = obs_phase(
         dev, toks, eng, (lo_t, hi_t, k_t), serve_batches, wrapper_ms,
-        quantile_bytes(sectors))
+        quantile_bytes(sectors), dryrun_procs)
     del eng
 
     # ---- 12. the examples and the LM serving path ----------------------
@@ -3941,6 +4189,7 @@ def main() -> None:
         row["analytics_launches"] = analytics_launches[row["name"]]
         row["ingest_launches"] = ingest_launches[row["name"]]
         row["serving_launches"] = serving_launches[row["name"]]
+        row["frontend_gate_launches"] = gate_launches[row["name"]]
         row["obs_launches"] = obs_launches[row["name"]]
         row["lm_launches"] = lm_launches[row["name"]]
         row["train_launches"] = train_launches[row["name"]]
@@ -3951,6 +4200,7 @@ def main() -> None:
     print(json.dumps({"analytics": analytics}))
     print(json.dumps({"ingest": ingest}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"frontend_gate": gate_report}))
     print(json.dumps({"obs": obs_report}))
     print(json.dumps({"lm": lm_report}))
     print(json.dumps({"train": train_report}))

@@ -92,12 +92,22 @@ def _covered(shard_bits: int, num_shards: int, n: int, lo, hi, available,
 
 
 def sharded_range_count(shards: WaveletMatrix, shard_bits: int, n: int, lo,
-                        hi, sym_lo, sym_hi, available=None) -> torch.Tensor:
+                        hi, sym_lo, sym_hi, available=None,
+                        operands: QuantileOperands | None = None
+                        ) -> torch.Tensor:
     """Orthogonal range count over the whole corpus: per-shard counts sum.
-    int32."""
+    int32. Runs through ``ops.wm_count`` on the ``shards``' quantile
+    operands (an engine's ``quantile``; made here when not given): one
+    ``wm_count`` launch on the card, its plain version on the CPU."""
+    if operands is None:
+        operands = ops.quantile_operands(shards, shard_bits, n)
     los, his = _ranges(shards, shard_bits, n, lo, hi, available)
-    per = range_ops.range_count(shards, los, his, sym_lo, sym_hi)
-    return per.long().sum(0).to(torch.int32)
+    shape, S = los.shape[1:], los.shape[0]
+    q = los[0].numel()
+    sym_lo, sym_hi = (torch.as_tensor(x, device=los.device).broadcast_to(
+        shape).reshape(q) for x in (sym_lo, sym_hi))
+    return ops.wm_count(operands, los.reshape(S, q).T, his.reshape(S, q).T,
+                        sym_lo, sym_hi).reshape(shape)
 
 
 def sharded_coverage(shard_bits: int, num_shards: int, n: int, lo, hi,
@@ -110,13 +120,14 @@ def sharded_coverage(shard_bits: int, num_shards: int, n: int, lo, hi,
 
 def sharded_range_count_bounds(shards: WaveletMatrix, shard_bits: int,
                                n: int, lo, hi, sym_lo, sym_hi,
-                               available=None):
+                               available=None,
+                               operands: QuantileOperands | None = None):
     """(lower, upper, coverage) bracketing the full-corpus count: ``lower``
     counts the surviving shards, and every uncovered position could match,
     so ``upper = lower + uncovered``. Exact (lower == upper) with every
-    shard available."""
+    shard available. ``operands`` as for :func:`sharded_range_count`."""
     lower = sharded_range_count(shards, shard_bits, n, lo, hi, sym_lo,
-                                sym_hi, available)
+                                sym_hi, available, operands)
     total, covered, cov = _covered(shard_bits, _num_shards(shards), n, lo,
                                    hi, available, shards.zeros.device)
     return lower, (lower + (total - covered)).to(torch.int32), cov
@@ -221,16 +232,21 @@ def sharded_range_topk(shards: WaveletMatrix, shard_bits: int, n: int, lo,
 def sharded_range_topk_greedy(shards: WaveletMatrix, shard_bits: int,
                               n: int, lo, hi, k: int,
                               budget: int | None = None, prune: bool = True,
-                              available=None):
+                              available=None,
+                              operands: QuantileOperands | None = None):
     """Greedy global top-k: one frontier a query whose nodes carry a
     per-shard interval vector (weight = summed width), not a merge of
     per-shard lists; the budget and ``prune`` of
-    ``range_ops.range_topk_greedy``. (*Q, k) syms and counts."""
+    ``range_ops.range_topk_greedy``. (*Q, k) syms and counts. The
+    frontier runs through ``ops.topk_greedy`` on the ``shards``' quantile
+    operands (an engine's ``quantile``; made here when not given): one
+    ``topk_greedy`` launch on the card, its plain version on the CPU."""
+    if operands is None:
+        operands = ops.quantile_operands(shards, shard_bits, n)
+
     def greedy(lo_q, hi_q):
         los, his = _ranges(shards, shard_bits, n, lo_q, hi_q, available)
-        return range_ops.topk_frontier(
-            range_ops.level_rows(shards), shards.nbits, los.T, his.T, k,
-            budget, prune)[:2]
+        return ops.topk_greedy(operands, los.T, his.T, k, budget, prune)[:2]
     return _per_query(greedy, lo, hi)
 
 
@@ -419,14 +435,15 @@ class ShardedAnalytics:
     def range_count(self, lo, hi, sym_lo, sym_hi) -> torch.Tensor:
         obs.counter("analytics.op", op="count").inc()
         return sharded_range_count(self.shards, self.shard_bits, self.n, lo,
-                                   hi, sym_lo, sym_hi, self.available)
+                                   hi, sym_lo, sym_hi, self.available,
+                                   self.quantile)
 
     def range_count_bounds(self, lo, hi, sym_lo, sym_hi):
         """(lower, upper, coverage) bracketing the full-corpus count."""
         obs.counter("analytics.op", op="count_bounds").inc()
         return sharded_range_count_bounds(self.shards, self.shard_bits,
                                           self.n, lo, hi, sym_lo, sym_hi,
-                                          self.available)
+                                          self.available, self.quantile)
 
     def range_topk(self, lo, hi, k: int):
         obs.counter("analytics.op", op="topk").inc()
@@ -438,7 +455,7 @@ class ShardedAnalytics:
         obs.counter("analytics.op", op="topk_greedy").inc()
         return sharded_range_topk_greedy(self.shards, self.shard_bits,
                                          self.n, lo, hi, k, budget, prune,
-                                         self.available)
+                                         self.available, self.quantile)
 
     def range_distinct(self, lo, hi) -> torch.Tensor:
         obs.counter("analytics.op", op="distinct").inc()

@@ -40,7 +40,7 @@ def bitpack(bits: torch.Tensor, n: int) -> torch.Tensor:
     lib = build.library("bitpack")
     err = lib.bitpack(bits.data_ptr(), rows, n, bits.stride(0),
                       words.data_ptr(), W, words.stride(0),
-                      torch.cuda.current_stream(bits.device).cuda_stream)
+                      build.stream(bits.device))
     build.count_launch("bitpack")
     build.check(lib, err, "bitpack")
     return words

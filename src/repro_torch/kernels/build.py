@@ -67,6 +67,13 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "wt_level_scan_info": [_P]},
     "bitpack": {
         "bitpack": [_P, _I, _I, _L, _P, _I, _L, _P]},
+    "wm_count": {
+        "wm_count_sharded": ([_P] * 4 + [_I, _I] + [_P, _L] * 3 + [_I, _P,
+                                                                  _I, _P,
+                                                                  _P])},
+    "topk_greedy": {
+        "topk_greedy": ([_P, _P, _I, _I] + [_P, _L] * 3 + [_I, _P]
+                        + [_I] * 4 + [_P] * 5)},
 }
 SOURCES = tuple(SIGNATURES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -74,7 +81,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 launches: dict[str, int] = {"rank_build_levels": 0, "wm_level_step": 0,
                             "wm_quantile_sharded": 0, "radix_rank": 0,
-                            "wt_level_step": 0, "bitpack": 0}
+                            "wt_level_step": 0, "bitpack": 0,
+                            "wm_count": 0, "topk_greedy": 0}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -96,6 +104,15 @@ def reset_launches() -> None:
     with _lock:
         for name in launches:
             launches[name] = 0
+
+
+def stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, the last
+    argument of every C entry (without the ``torch.cuda.Stream`` object
+    that ``torch.cuda.current_stream`` builds on each call)."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def count_launch(name: str) -> None:

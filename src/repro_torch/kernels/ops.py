@@ -28,6 +28,8 @@ from repro_torch.tree import tree_map
 from . import bitpack as _bitpack
 from . import radix_rank as _radix_rank
 from . import rank_build as _rank_build
+from . import topk_greedy as _topk_greedy
+from . import wm_count as _wm_count
 from . import wm_level as _wm_level
 from . import wm_quantile as _wm_quantile
 from . import wt_level as _wt_level
@@ -48,7 +50,9 @@ TRACE_LAUNCHES = {"bitpack": ("bitpack", 1, 1),
                   "wt_level_step_fused": ("wt_level_step", 1, 1),
                   "radix_rank": ("radix_rank", 1, 2),
                   "wm_quantile_sharded_batch": ("wm_quantile_sharded", 1, 1),
-                  "wm_quantile_batch": ("wm_quantile_sharded", 1, 1)}
+                  "wm_quantile_batch": ("wm_quantile_sharded", 1, 1),
+                  "topk_greedy": ("topk_greedy", 1, 1),
+                  "wm_count": ("wm_count", 1, 1)}
 
 
 def _trace(op: str, x: torch.Tensor) -> None:
@@ -247,6 +251,37 @@ def wm_quantile(operands, lo, hi, k,
     _work_gauges(name, out.shape[0])
     if _prof.collecting():
         _prof.add_work(*_wm_quantile.quantile_work(operands, lo, hi, k))
+    return out
+
+
+def wm_count(operands, los: torch.Tensor, his: torch.Tensor, sym_lo,
+             sym_hi) -> torch.Tensor:
+    """Global range count on the quantile kernel's operands (the port's own
+    kernel; the reference counts through XLA): ``los``/``his`` (Q, S)
+    local ranges, ``sym_lo``/``sym_hi`` (Q,) symbol bounds, every shard of
+    every query in one launch. Returns (Q,) int32, the contract of
+    ``analytics.engine.sharded_range_count``."""
+    _trace("wm_count", operands.words)
+    out = _wm_count.wm_count_sharded(operands, los, his, sym_lo, sym_hi)
+    _work_gauges("wm_count", los.shape[0])
+    if _prof.collecting():
+        _prof.add_work(los.numel() * 8 + out.numel() * 12)
+    return out
+
+
+def topk_greedy(operands, los: torch.Tensor, his: torch.Tensor, k: int,
+                budget: int | None = None, prune: bool = True):
+    """Greedy global top-k on the quantile kernel's operands (the port's
+    own kernel; the reference runs the frontier as an XLA loop): ``los``/
+    ``his`` (Q, S) local ranges, every query's frontier in one launch.
+    Returns (syms (Q, k), counts (Q, k), found (Q,)) int32, the contract of
+    ``analytics.range_ops.topk_frontier``."""
+    _trace("topk_greedy", operands.words)
+    out = _topk_greedy.topk_greedy(operands, los, his, k, budget, prune)
+    _work_gauges("topk_greedy", los.shape[0])
+    if _prof.collecting():
+        _prof.add_work(los.numel() * 8 + out[0].numel() * 8
+                       + out[2].numel() * 4)
     return out
 
 

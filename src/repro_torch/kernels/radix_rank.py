@@ -175,7 +175,7 @@ def radix_hist(digits: torch.Tensor, num_buckets: int,
     lib = build.library("radix_rank")
     err = lib.radix_hist(digits.data_ptr(), rows, n, digits.stride(0),
                          num_buckets, hist.data_ptr(), nb,
-                         torch.cuda.current_stream(digits.device).cuda_stream)
+                         build.stream(digits.device))
     build.count_launch("radix_rank")
     build.check(lib, err, "radix_hist")
     return hist
@@ -198,7 +198,7 @@ def radix_apply(digits: torch.Tensor, offsets: torch.Tensor,
     err = lib.radix_apply(digits.data_ptr(), rows, n, digits.stride(0),
                           num_buckets, nb, offsets.data_ptr(),
                           dest.data_ptr(), dest.stride(0),
-                          torch.cuda.current_stream(digits.device).cuda_stream)
+                          build.stream(digits.device))
     build.count_launch("radix_rank")
     build.check(lib, err, "radix_apply")
     return dest
@@ -228,7 +228,7 @@ def radix_totals(digits: torch.Tensor, num_buckets: int,
     lib = build.library("radix_rank")
     err = lib.radix_totals(digits.data_ptr(), digits.shape[0], n,
                            digits.stride(0), num_buckets, totals.data_ptr(),
-                           torch.cuda.current_stream(digits.device).cuda_stream)
+                           build.stream(digits.device))
     build.count_launch("radix_rank")
     build.check(lib, err, "radix_totals")
     return totals
@@ -257,7 +257,7 @@ def radix_scan(digits: torch.Tensor, num_buckets: int, n: int,
                          num_buckets, bucket_starts.data_ptr(),
                          bucket_starts.stride(0), dest.data_ptr(),
                          dest.stride(0), status.data_ptr(),
-                         torch.cuda.current_stream(digits.device).cuda_stream)
+                         build.stream(digits.device))
     build.count_launch("radix_rank")
     build.check(lib, err, "radix_scan")
     return dest

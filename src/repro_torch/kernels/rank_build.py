@@ -54,7 +54,7 @@ def rank_build_levels(words: torch.Tensor, W: int):
     err = lib.rank_build_levels(
         words.data_ptr(), rows, W, words.stride(0), superblock.data_ptr(),
         nsb, block.data_ptr(), nblk, status.data_ptr(),
-        torch.cuda.current_stream(words.device).cuda_stream)
+        build.stream(words.device))
     build.count_launch("rank_build_levels")
     build.check(lib, err, "rank_build_levels")
     return superblock, block

@@ -114,7 +114,7 @@ def wm_counts(keys: torch.Tensor, shift: int, n: int) -> torch.Tensor:
     lib = build.library("wm_level")
     err = lib.wm_counts(keys.data_ptr(), rows, n, keys.stride(0), shift,
                         counts.data_ptr(), nb,
-                        torch.cuda.current_stream(keys.device).cuda_stream)
+                        build.stream(keys.device))
     build.count_launch("wm_level_step")
     build.check(lib, err, "wm_counts")
     return counts
@@ -142,7 +142,7 @@ def wm_apply(keys: torch.Tensor, zeros_excl: torch.Tensor,
                        zeros_excl.data_ptr(), total_zeros.data_ptr(),
                        dest.data_ptr(), dest.stride(0), bitmap.data_ptr(), W,
                        bitmap.stride(0),
-                       torch.cuda.current_stream(keys.device).cuda_stream)
+                       build.stream(keys.device))
     build.count_launch("wm_level_step")
     build.check(lib, err, "wm_apply")
     return dest, bitmap
@@ -170,7 +170,7 @@ def wm_level_zeros(keys: torch.Tensor, lo: int, width: int,
     out = torch.zeros((keys.shape[0], width), dtype=torch.int32,
                       device=keys.device)
     lib = build.library("wm_level")
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    stream = build.stream(keys.device)
     err = lib.wm_level_zeros(keys.data_ptr(), keys.shape[0], n,
                              keys.stride(0), lo, width, out.data_ptr(),
                              stream)
@@ -201,7 +201,7 @@ def wm_level(keys: torch.Tensor, total_zeros: torch.Tensor, shift: int,
                             zeros.data_ptr(), dest.data_ptr(), dest.stride(0),
                             bitmap.data_ptr(), W, bitmap.stride(0),
                             status.data_ptr(),
-                            torch.cuda.current_stream(keys.device).cuda_stream)
+                            build.stream(keys.device))
     build.count_launch("wm_level_step")
     build.check(lib, err, "wm_level_scan")
     return dest, bitmap, zeros

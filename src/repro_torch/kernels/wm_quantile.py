@@ -11,8 +11,10 @@ one round trip to memory a level, whatever the shard count.
 
 The operands (:class:`QuantileOperands`) are fixed once per engine: the
 stored directories read in place, and on the card the C entry's arguments
-and the grid. A launch takes its scratch from the caching allocator on
-the current stream, so launches on several streams share no buffer. A
+and the grid. Each stream that launches the kernel gets its own scratch,
+allocated on that stream at its first launch and kept with the operands:
+launches on one stream run one after another and reuse it, launches on
+several streams share no buffer. A
 copy of the directories cut into 32-byte "rank lines", one sector a
 probe, was no faster on the H100 (within 1-3%, ``launch/sweep_quantile.py``,
 which keeps that layout as a variant).
@@ -23,7 +25,7 @@ the kernel's plain version.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -52,8 +54,8 @@ class QuantileOperands:
     the C entry's per-engine arguments, ``max_blocks`` the grid that fills
     the card once, ``over`` the probes of a query too wide for the kernel's
     registers that each resident warp keeps in scratch, and
-    ``scratch_elems`` the int32 scratch a launch allocates (2·over a
-    resident warp).
+    ``scratch_elems`` the int32 scratch a launch needs (2·over a resident
+    warp), held in ``scratch`` for each stream that launched.
     """
     words: torch.Tensor
     superblock: torch.Tensor
@@ -67,6 +69,8 @@ class QuantileOperands:
     max_blocks: int = 0
     over: int = 0
     scratch_elems: int = 0
+    #: raw stream handle -> that stream's scratch (:func:`_scratch`)
+    scratch: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def nblocks(self) -> int:
@@ -229,12 +233,23 @@ def _queries(x, device) -> torch.Tensor:
         -1).contiguous()
 
 
+def _scratch(op: QuantileOperands, stream: int, dev) -> int:
+    """The address of ``stream``'s scratch in ``op``: allocated on that
+    stream at its first launch, then reused by its later launches, which
+    the stream orders after the earlier ones."""
+    buf = op.scratch.get(stream)
+    if buf is None:
+        buf = op.scratch[stream] = torch.empty(
+            (op.scratch_elems,), dtype=torch.int32, device=dev)
+    return buf.data_ptr()
+
+
 def wm_quantile_sharded(op: QuantileOperands, lo, hi, k) -> torch.Tensor:
     """(Q,) int32 quantiles of global [lo, hi) at rank k, -1 if empty: the
     CUDA kernel for operands on the card, the plain descent for operands on
-    the CPU. A batch costs its query casts, its scratch (for queries over
-    more than 48 shards), one launch and the output; everything else was
-    fixed by :func:`quantile_operands`."""
+    the CPU. A batch costs its query casts, one launch and the output;
+    everything else was fixed by :func:`quantile_operands` (the scratch
+    for queries over more than 48 shards at a stream's first launch)."""
     dev = op.words.device
     lo, hi, k = (_queries(x, dev) for x in (lo, hi, k))
     q = lo.shape[0]
@@ -245,16 +260,13 @@ def wm_quantile_sharded(op: QuantileOperands, lo, hi, k) -> torch.Tensor:
         return wm_quantile_sharded_plain(op, lo, hi, k)
     if dev.type != "cuda" or not op.launch_args:
         raise ValueError(f"no kernel operands for directories on {dev}")
-    out = torch.empty((q,), dtype=torch.int32, device=dev)
-    # per launch, stream-ordered: concurrent launches never share it
-    scratch = (torch.empty((op.scratch_elems,), dtype=torch.int32, device=dev)
-               if op.over else None)
+    out = torch.empty_like(lo)
+    stream = build.stream(dev)
     lib = build.library("wm_quantile")
     err = lib.wm_quantile_sharded(
         lo.data_ptr(), hi.data_ptr(), k.data_ptr(), q, *op.launch_args,
-        None if scratch is None else scratch.data_ptr(), op.over,
-        op.max_blocks, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _scratch(op, stream, dev) if op.over else None, op.over,
+        op.max_blocks, out.data_ptr(), stream)
     build.count_launch("wm_quantile_sharded")
     build.check(lib, err, "wm_quantile_sharded")
     return out

@@ -153,7 +153,7 @@ def wt_level(sub: torch.Tensor, nid: torch.Tensor, shift: int, nbkt: int,
                             table.data_ptr(), nbkt // 2, dest.data_ptr(),
                             dest.stride(0), bitmap.data_ptr(), W,
                             bitmap.stride(0), status.data_ptr(),
-                            torch.cuda.current_stream(sub.device).cuda_stream)
+                            build.stream(sub.device))
     build.count_launch("wt_level_step")
     build.check(lib, err, "wt_level_scan")
     return dest, bitmap

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import traceback
 from pathlib import Path
 
 import torch
@@ -46,7 +47,7 @@ from repro_torch.models.model import (abstract_cache, abstract_params,
                                       build_model, cache_specs, fit_spec,
                                       map_tree, param_specs, tree_paths)
 from repro_torch.models.shard_ctx import axis_sizes as mesh_axis_sizes
-from repro_torch.models.shard_ctx import fit_dim, placements
+from repro_torch.models.shard_ctx import fit_batch, placements
 from repro_torch.obs import Stopwatch, prof
 from repro_torch.optim.adamw import (AdamWState, abstract_opt_state,
                                      adamw_update)
@@ -59,35 +60,21 @@ PEAK_BUFFERS = 8          # temporaries a cell's record lists at its peak
 #: names it ("NVIDIA H100 80GB HBM3"), where no card is present to ask
 H100_MEMORY_BYTES = 80e9
 
-# Microbatch counts for the train_4k cells (the reference's table, so the
-# cells correspond one to one): bound per-device activation memory; capped
-# at global_batch/data(=16), as a microbatch below one example per data
-# shard replicates activations. ``grad_accum_for`` applies the same cap on
-# the 2×16×16 mesh, whose 32 data shards take 8 at most.
+# Microbatch counts for the train_4k cells: the reference's table
+# (``repro.launch.dryrun.GRAD_ACCUM``) on both meshes, so the cells
+# correspond one to one. They bound per-device activation memory; the
+# reference caps them at global_batch/data(=16). On 2×16×16 a microbatch
+# of 16 (arctic, dbrx, llama-vision) is smaller than the 32 data shards:
+# the reference replicates it over every device; the port keeps it
+# sharded over ``data``, one example a device, and replicates it over
+# ``pod`` only (``shard_ctx.fit_batch``, and ``constrain``'s ``"dp"``
+# falls back to the minor data axes that divide the batch).
 GRAD_ACCUM = {
     "arctic_480b": 16, "dbrx_132b": 16, "llama_3_2_vision_90b": 16,
     "internlm2_20b": 8, "granite_3_8b": 8, "deepseek_7b": 8,
     "jamba_v0_1_52b": 8, "whisper_medium": 4, "qwen2_0_5b": 4,
     "mamba2_370m": 4,
 }
-
-
-
-def grad_accum_for(arch: str, shape, mesh) -> int:
-    """The table's microbatch count, capped at one example a data shard:
-    the reference replicates a smaller microbatch over every device. The
-    cap binds on 2×16×16 only (16 → 8 for arctic, dbrx, llama-vision),
-    and the MoE's expert-parallel dispatch does not lift it. At 16, torch
-    2.11 fails dbrx's train cell in the gradient of the attention
-    out-projection's head fold (``models.layers._out_project``,
-    ``o.flatten(-2)``: a (1, 2048, 6144) local shard viewed as
-    (1, 4096, 6144)); arctic's records, but at 189.5 GB a device against
-    75.0 GB capped: the replicated microbatch's attention scores (56
-    heads, replicated over ``model``) take 7.5 GB a layer."""
-    dp = 1
-    for a in dp_axes(mesh):
-        dp *= mesh_axis_sizes(mesh)[a]
-    return max(1, min(GRAD_ACCUM.get(arch, 1), shape.global_batch // dp))
 
 
 # --------------------------------------------------------------------------
@@ -114,9 +101,9 @@ def make_train_step(model, grad_accum: int = 1):
 
         def split(x):
             # a batch sharded wider than a microbatch (2×16×16 at
-            # grad_accum 16) is replicated, as the reference's constraints
-            # replicate a microbatch below one example a data shard
-            return fit_dim(x, 0, mb).reshape(mb, grad_accum, *x.shape[1:])
+            # grad_accum 16: 16 examples, 32 data shards) keeps its shards
+            # over ``data`` and is replicated over ``pod``
+            return fit_batch(x, mb).reshape(mb, grad_accum, *x.shape[1:])
         mb_tok = split(tokens)
         mb_ext = {k: split(batch[k]) for k in extras_keys}
         loss = None
@@ -352,7 +339,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     """Lower and analyze one cell on its production mesh."""
     mesh = make_production_mesh(multi_pod=multi_pod)
     shape = SHAPES[shape_name]
-    grad_accum = grad_accum_for(arch, shape, mesh)
+    grad_accum = GRAD_ACCUM.get(arch, 1)
     sw = Stopwatch()
     program = lower_cell(get_config(arch), shape, mesh,
                          grad_accum=grad_accum)
@@ -522,11 +509,14 @@ def main(argv=None) -> None:
                           flush=True)
                     n_ok += 1
                 except Exception as e:  # noqa: BLE001
+                    tb = traceback.format_exc()
                     out_file.write_text(json.dumps(
                         {"arch": arch, "shape": shape_name,
                          "mesh": "2x16x16" if mp else "16x16",
-                         "ok": False, "error": repr(e)[:2000]}))
+                         "ok": False, "error": repr(e)[:2000],
+                         "traceback": tb[-6000:]}))
                     print(f"FAILED: {e!r}"[:500], flush=True)
+                    print(tb[-3000:], flush=True)
                     n_fail += 1
     print(f"done ok={n_ok} fail={n_fail} skip={n_skip}")
 

@@ -241,7 +241,9 @@ def _warm_up(fe: QueryFrontend, n: int, sigma: int) -> float:
     return steady_s
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The CLI's arguments, ``--smoke`` already applied (a CI-sized corpus
+    and trace)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true",
                     help="CI-sized corpus + short trace")
@@ -272,15 +274,17 @@ def main(argv=None) -> None:
                     help="capture a torch.profiler trace of the serving "
                          "section into this directory")
     args = ap.parse_args(argv)
-    if args.metrics_dir:
-        obs.configure(args.metrics_dir)
     if args.smoke:
         args.n = min(args.n, 1 << 13)
         args.vocab = min(args.vocab, 64)
         args.shard_bits = min(args.shard_bits, 10)
         args.requests = min(args.requests, 300)
-    dev = resolve_device(args.device)
+    return args
 
+
+def build_engine(args):
+    """(raw stream, engine) of the CLI's corpus on ``args.device``."""
+    dev = resolve_device(args.device)
     toks = np.asarray(make_corpus(args.n, args.vocab, seed=args.seed),
                       np.int64)
     sw = obs.Stopwatch()
@@ -289,7 +293,31 @@ def main(argv=None) -> None:
     eng.probe_shard(0)   # first call before the breakers time it
     print(f"engine: {args.n} tokens, {eng.num_shards} shards "
           f"in {sw.lap():.2f}s (device {dev})")
+    return toks, eng
 
+
+def make_frontend(args, eng) -> QueryFrontend:
+    """The CLI's front-end over ``eng``: its capacity, top-k and buckets."""
+    return QueryFrontend(
+        GenerationServer(eng),
+        config=FrontendConfig(
+            capacity=args.capacity, topk_k=args.topk_k,
+            buckets=(8, 32) if args.smoke else (8, 32, 128),
+            breaker=CLI_BREAKER))
+
+
+def run(args, toks=None, eng=None, on_frontend=None) -> dict:
+    """The CLI's run after argument parsing: build the engine (unless
+    ``toks`` and ``eng`` are given), make or load the trace, warm up, drive
+    it and check every sampled answer and the accounting identity.
+    ``on_frontend(fe)`` is called on the warmed front-end just before the
+    drive (a profiler's hook). Returns the front-end, the trace, its
+    results, the report, the steady batch's seconds and the answers
+    checked."""
+    if args.metrics_dir:
+        obs.configure(args.metrics_dir)
+    if eng is None:
+        toks, eng = build_engine(args)
     if args.replay:
         trace = load_trace(args.replay)
         print(f"replaying {len(trace)} requests from {args.replay} "
@@ -305,16 +333,13 @@ def main(argv=None) -> None:
             save_trace(args.record_trace, trace)
             print(f"trace → {args.record_trace} ({len(trace)} requests)")
 
-    fe = QueryFrontend(
-        GenerationServer(eng),
-        config=FrontendConfig(
-            capacity=args.capacity, topk_k=args.topk_k,
-            buckets=(8, 32) if args.smoke else (8, 32, 128),
-            breaker=CLI_BREAKER))
-    sw.lap()
+    fe = make_frontend(args, eng)
+    sw = obs.Stopwatch()
     steady_s = warm_up(fe, args.n, args.vocab)
     print(f"warmup: {fe.runner.compiled} variants run in "
           f"{sw.lap():.2f}s (steady batch {steady_s * 1e3:.2f}ms)")
+    if on_frontend is not None:
+        on_frontend(fe)
 
     obs.start_trace(args.profile_dir)
     fe.start()
@@ -351,6 +376,12 @@ def main(argv=None) -> None:
         obs.write_snapshot()
         obs.configure(None)
         print(f"metrics → {args.metrics_dir}")
+    return {"fe": fe, "trace": trace, "results": results, "report": out,
+            "steady_s": steady_s, "checked": checked}
+
+
+def main(argv=None) -> None:
+    run(parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -22,7 +22,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .shard_ctx import constrain, fit_dim, reduce_partial
+from .shard_ctx import constrain, distribute, fit_dim, reduce_partial
 
 NEG_BIAS = -1e30
 
@@ -108,8 +108,9 @@ def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """bf16 ``bqhd,bkhd->bhqk`` product, cast to f32 after, scaled (a
     batched matmul: the bits of ``torch.einsum``, at half its host cost).
 
-    On DTensors (decode: training and prefill attend per shard,
-    :func:`_per_shard`) the heads are replicated first: the product folds
+    Training and prefill call it on each device's local heads
+    (:func:`_per_shard`, :func:`_head_parallel`). Decode calls it on
+    DTensors, and there the heads are replicated first: the product folds
     (b, h) into one batch dim, which DTensor cannot do with h sharded
     (torch 2.11 refuses; 2.13 plans it through strided shards at a far
     higher cost)."""
@@ -119,8 +120,8 @@ def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 def _weighted(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``bhqk,bkhd->bqhd`` (heads replicated on DTensors, as in
-    :func:`_scores`)."""
+    """``bhqk,bkhd->bqhd`` (on local heads, or heads replicated on the
+    DTensors of decode, as in :func:`_scores`)."""
     return (fit_dim(probs, 1, 1) @ fit_dim(v, 2, 1).transpose(1, 2)
             ).transpose(1, 2)
 
@@ -235,11 +236,177 @@ def _qkv(x: torch.Tensor, p: dict, cfg):
     return q, k, v
 
 
+def _attend(q, k, v, q_chunk: Optional[int]) -> torch.Tensor:
+    """Causal attention of (B, S, H, hd) operands, query-chunked past
+    ``q_chunk``."""
+    if q_chunk is not None and q.shape[1] > q_chunk:
+        return chunked_attention(q, k, v, q_chunk=q_chunk)
+    return full_attention(q, k, v)
+
+
+def head_slices(h: int, kv: int, parts: int, j: int):
+    """The heads device ``j`` of ``parts`` serves when ``parts`` does not
+    divide the ``h`` query heads: the heads padded to a multiple of
+    ``parts`` (GSPMD's padding of the reference's ``P(.., "model", ..)``),
+    ``ceil(h / parts)`` of them a device. Returns (query heads, which of
+    them are real, the KV heads they read, each query head's index into
+    those): a padding head reads the last real head's KV head; its query
+    and output weights are zero (:func:`_head_sharded`)."""
+    hl = -(-h // parts)
+    glob = [j * hl + i for i in range(hl)]
+    heads = [min(g, h - 1) for g in glob]
+    groups = h // kv
+    kv_heads = sorted({g // groups for g in heads})
+    return (heads, [g < h for g in glob], kv_heads,
+            [kv_heads.index(g // groups) for g in heads])
+
+
+#: the weights :func:`_head_parallel` shards on their head dim (a weight's
+#: head dim: 1 for ``wq``, 0 for ``bq`` and ``wo``); the KV heads' stay
+#: whole
+HEAD_DIMS = {"wq": 1, "bq": 0, "wo": 0}
+
+
+def unsharded_heads(t, cfg) -> Optional[int]:
+    """The mesh dim of ``model`` where ``t`` is a DTensor on a mesh whose
+    ``model`` axis has more than one device and does not divide the query
+    heads (:func:`_head_parallel`'s case), else None."""
+    names = list(getattr(getattr(t, "device_mesh", None), "mesh_dim_names",
+                         None) or ())
+    if "model" not in names:
+        return None
+    m = names.index("model")
+    parts = t.device_mesh.size(m)
+    return None if parts == 1 or cfg.num_heads % parts == 0 else m
+
+
+def _head_sharded(w: torch.Tensor, dim: int, m: int) -> torch.Tensor:
+    """A weight with its head dim ``dim`` zero-padded to a multiple of the
+    ``model`` axis (mesh dim ``m``) and sharded over it, its other dims
+    gathered: each device gathers its own heads' slice alone (the FSDP
+    gather of ``model._fsdp`` leaves these weights to this), and its
+    gradient is reduce-scattered over the data axes from that slice."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = w.device_mesh
+    h, parts = w.shape[dim], mesh.size(m)
+    pad = [0, 0] * (w.dim() - 1 - dim) + [0, -(-h // parts) * parts - h]
+    pl = list(w.placements)
+    w = local_map(lambda t: torch.nn.functional.pad(t, pad),
+                  out_placements=pl, in_placements=(pl,),
+                  in_grad_placements=(pl,), device_mesh=mesh)(w)
+    pl[m] = Shard(dim)
+    w = w.redistribute(mesh, pl)            # each device's slice, no copy
+    return w.redistribute(mesh, [Shard(dim) if i == m else Replicate()
+                                 for i in range(mesh.ndim)])
+
+
+def _local_heads(x, pos, w: dict, cfg, heads, real, kv_heads, kv_of,
+                 q_chunk):
+    """Attention of plain tensors over this device's padded query heads
+    (:func:`head_slices`) and out-projected: (B, S, D), this device's share
+    of the sum over the heads. ``wq``, ``bq`` and ``wo`` are this device's
+    slices (:func:`_head_sharded`: zero for a padding head, whose output
+    therefore adds exactly zero), the KV weights whole. Each head's
+    projections, scores and output are the plain route's ops on that
+    head's slice of the weights."""
+    d, hd, hl = x.shape[-1], cfg.head_dim, len(heads)
+    bias = cfg.qkv_bias
+    q = (x @ w["wq"].reshape(d, hl * hd)).unflatten(-1, (hl, hd))
+    if bias:
+        q = q + w["bq"]
+
+    def proj(wt, bias):
+        y = (x @ wt[:, kv_heads].reshape(d, len(kv_heads) * hd)).unflatten(
+            -1, (len(kv_heads), hd))
+        return y if bias is None else y + bias[kv_heads]
+    k = proj(w["wk"], w["bk"] if bias else None)
+    v = proj(w["wv"], w["bv"] if bias else None)
+    cos, sin = rope_frequencies(hd, cfg.rope_theta, pos)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    k, v = k[:, :, kv_of], v[:, :, kv_of]
+    o = _attend(q, k, v, q_chunk)
+    return o.flatten(-2) @ w["wo"].reshape(hl * hd, -1)
+
+
+def _head_parallel(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor,
+                   q_chunk: Optional[int]):
+    """GQA attention of a DTensor ``x`` with the query heads sharded over
+    ``model`` where ``model`` does not divide them (a ``local_map``), or
+    None where that route does not apply: a plain tensor, no ``model`` axis
+    of more than one device, or heads it divides (those shard through
+    :func:`_per_shard`).
+
+    Each device projects, attends and out-projects its ``ceil(h / model)``
+    heads (:func:`head_slices`), its batch rows kept: ``wq``, ``bq`` and
+    ``wo`` padded with zero heads and sharded on their head dim over
+    ``model`` as the reference's are (:func:`_head_sharded`), the few KV
+    heads' weights whole (FSDP-gathered, replicated over ``model``). The
+    output's sums over the heads are pending over ``model``. Gradients:
+    ``x``'s and the KV weights' are partial sums over ``model`` (each
+    device's heads), the sharded weights' are each device's own slice; the
+    weights' are partial over the batch shards too."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return None
+    m = unsharded_heads(x, cfg)
+    if m is None:
+        return None
+    mesh = x.device_mesh
+    sl = head_slices(cfg.num_heads, cfg.num_kv_heads, mesh.size(m),
+                     mesh.get_local_rank(m))
+    pl = [q if isinstance(q, Shard) and q.dim == 0 and i != m
+          else Replicate() for i, q in enumerate(x.placements)]
+    batch = [i for i, q in enumerate(pl) if isinstance(q, Shard)]
+    rep = [Replicate()] * mesh.ndim
+    grad_x = list(pl)
+    grad_x[m] = Partial()
+    out_pl = list(pl)
+    out_pl[m] = Partial()
+    keys = ["wq", "wk", "wv", "wo"] + (["bq", "bk", "bv"]
+                                       if cfg.qkv_bias else [])
+    x = x.redistribute(mesh, pl)
+    if not isinstance(positions, DTensor):
+        positions = distribute(positions, mesh, rep)
+    positions = positions.redistribute(mesh, pl)
+    ws, w_pl, w_grad = [], [], []
+    for k in keys:
+        dim = HEAD_DIMS.get(k)
+        if dim is None:
+            ws.append(p[k].redistribute(mesh, rep))
+            w_pl.append(rep)
+            w_grad.append([Partial() if i in batch or i == m
+                           else Replicate() for i in range(mesh.ndim)])
+        else:
+            ws.append(_head_sharded(p[k], dim, m))
+            w_pl.append([Shard(dim) if i == m else Replicate()
+                         for i in range(mesh.ndim)])
+            w_grad.append([Shard(dim) if i == m else
+                           Partial() if i in batch else Replicate()
+                           for i in range(mesh.ndim)])
+
+    def local(xl, pos, *wl):
+        return _local_heads(xl, pos, dict(zip(keys, wl)), cfg, *sl,
+                            q_chunk)
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(
+        local, out_placements=out_pl,
+        in_placements=(pl, pl) + tuple(w_pl),
+        in_grad_placements=(grad_x, pl) + tuple(w_grad),
+        device_mesh=mesh)(x, positions, *ws)
+
+
 def gqa_attention_train(x: torch.Tensor, p: dict, cfg,
                         positions: torch.Tensor,
                         q_chunk: Optional[int] = None) -> torch.Tensor:
-    """Full-sequence GQA attention. x: (B, S, D)."""
-    s = x.shape[1]
+    """Full-sequence GQA attention. x: (B, S, D). On DTensors whose
+    ``model`` axis does not divide the heads the heads are sharded
+    anyway, padded (:func:`_head_parallel`); elsewhere each device attends
+    over the heads and batch rows it holds (:func:`_per_shard`)."""
+    y = _head_parallel(x, p, cfg, positions, q_chunk)
+    if y is not None:
+        return reduce_partial(y)
     q, k, v = _qkv(x, p, cfg)
     cos, sin = rope_frequencies(cfg.head_dim, cfg.rope_theta, positions)
     q = apply_rope(q, cos, sin)
@@ -247,12 +414,7 @@ def gqa_attention_train(x: torch.Tensor, p: dict, cfg,
     groups = cfg.num_heads // cfg.num_kv_heads
     k = _repeat_kv(k, groups)
     v = _repeat_kv(v, groups)
-    if q_chunk is not None and s > q_chunk:
-        o = _per_shard(lambda q, k, v: chunked_attention(q, k, v,
-                                                         q_chunk=q_chunk),
-                       q, k, v)
-    else:
-        o = _per_shard(full_attention, q, k, v)
+    o = _per_shard(lambda q, k, v: _attend(q, k, v, q_chunk), q, k, v)
     return _out_project(o, p["wo"])
 
 

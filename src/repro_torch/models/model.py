@@ -40,7 +40,7 @@ from repro_torch.device import resolve_device
 
 from . import layers as L
 from .moe import moe_layer, moe_param_shapes
-from .shard_ctx import all_reduce, constrain, gather_dp
+from .shard_ctx import all_reduce, constrain, gather_dp, grad_as_forward
 from .ssm import CONV_K, mamba2_block, mamba2_decode, mamba2_param_shapes
 
 Params = Dict[str, Any]
@@ -85,14 +85,28 @@ def _unstack(tree, n: int) -> list:
 _remat = L.remat
 
 
-def _fsdp(tree):
+def _fsdp(tree, cfg=None):
     """The block's weights with their data-parallel shards gathered
     (``shard_ctx.gather_dp``), inside the remat so the backward gathers
     again; the MoE expert banks keep theirs (their data axis shards f, not
-    a contraction dim)."""
-    return map_tree(lambda path, w: w if path[-2:-1] == ("moe",)
-                    and path[-1] in ("w1", "w2", "w3") else gather_dp(w),
-                    tree)
+    a contraction dim), and their gradients are held to those placements
+    (``shard_ctx.grad_as_forward``): each layer's bank gradient is
+    reduce-scattered in that layer's backward, where DTensor would
+    otherwise stack every layer's unreduced, data-replicated gradient
+    before one reduce-scatter (arctic: 19.5 GB a device on 16×16). Given
+    ``cfg``, the self-attention's query and output weights whose heads the
+    ``model`` axis does not divide are left as they are: the head-parallel
+    route gathers each device's own heads alone
+    (``layers._head_sharded``)."""
+    def one(path, w):
+        if path[-2:-1] == ("moe",) and path[-1] in ("w1", "w2", "w3"):
+            return grad_as_forward(w)
+        if (cfg is not None and path[:-1] == ("attn",)
+                and path[-1] in L.HEAD_DIMS
+                and L.unsharded_heads(w, cfg) is not None):
+            return w
+        return gather_dp(w)
+    return map_tree(one, tree)
 
 
 def _norm(x, scale, cfg):
@@ -745,8 +759,8 @@ def forward_train(params: Params, cfg, tokens: torch.Tensor,
         memory = extras["image_embeds"].to(ACT_DTYPE)
 
     def body(x, bp, memory):
-        return constrain(_block_train(x, _fsdp(bp), cfg, positions, memory,
-                                      q_chunk), "dp", None, None)
+        return constrain(_block_train(x, _fsdp(bp, cfg), cfg, positions,
+                                      memory, q_chunk), "dp", None, None)
 
     for bp in _unstack(params["blocks"], cfg.num_blocks):
         x = _remat(body, x, bp, memory)

@@ -69,7 +69,9 @@ def distribute(x: torch.Tensor, mesh, placements):
 
 
 def constrain(x: torch.Tensor, *dims):
-    """dims: one entry per axis of x — "dp", a mesh axis name, or None."""
+    """dims: one entry per axis of x — "dp", a mesh axis name, or None.
+    "dp" shards over every data-parallel axis, or over the minor ones
+    whose product divides the dim (:func:`_dp_fit`)."""
     if _DP_AXES is None or _AXIS_SIZES is None:
         return x
     from torch.distributed.tensor import DTensor
@@ -80,10 +82,10 @@ def constrain(x: torch.Tensor, *dims):
         if d is None:
             spec.append(None)
             continue
-        axes = _DP_AXES if d == "dp" else (d,)
+        axes = _dp_fit(size) if d == "dp" else (d,)
         total = math.prod(_AXIS_SIZES.get(a, 1) for a in axes)
         spec.append((axes if d == "dp" else d)
-                    if (total and size % total == 0) else None)
+                    if (axes and total and size % total == 0) else None)
     mesh = x.device_mesh
     want = placements(spec, mesh)
     if list(x.placements) == want:
@@ -91,6 +93,22 @@ def constrain(x: torch.Tensor, *dims):
     if x.requires_grad and torch.is_grad_enabled():
         return _dense(_Constrain.apply(x, want))
     return _dense(x.redistribute(mesh, want))
+
+
+def minor_fit(axes: tuple, size_of, size: int) -> tuple:
+    """The minor ones of ``axes`` (major first) whose product divides
+    ``size``: a batch of ``size`` shards over them and is replicated over
+    the major ones dropped (a 16-example microbatch on the 2×16×16 mesh:
+    ``data``, replicated over ``pod``). ``size_of(axis)``: its size."""
+    while axes and size % math.prod(size_of(a) for a in axes):
+        axes = axes[1:]
+    return axes
+
+
+def _dp_fit(size: int) -> tuple:
+    """The data-parallel axes a batch of ``size`` shards over
+    (:func:`minor_fit`)."""
+    return minor_fit(tuple(_DP_AXES), lambda a: _AXIS_SIZES.get(a, 1), size)
 
 
 def _dense(x):
@@ -121,6 +139,17 @@ class _Constrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad.redistribute(grad.device_mesh, ctx.want), None
+
+
+def grad_as_forward(x: torch.Tensor):
+    """``x``, its gradient redistributed to ``x``'s own placements (the
+    identity for a plain tensor or without grad): a view's backward must
+    get a gradient laid out as the view's output was, which DTensor's plan
+    of the next op's backward need not give."""
+    if (not hasattr(x, "device_mesh") or not x.requires_grad
+            or not torch.is_grad_enabled()):
+        return x
+    return _Constrain.apply(x, list(x.placements))
 
 
 def gather_dp(x: torch.Tensor):
@@ -168,6 +197,24 @@ def _fit(x, dim: int, parts: int):
                                  for i, p in enumerate(x.placements)])
 
 
+def fit_batch(x, parts: int):
+    """``x`` with its dim 0 sharded over the minor mesh axes already
+    sharding it whose sizes divide ``parts`` (:func:`minor_fit`), the major
+    ones replicated (a batch sharded over ``pod`` × ``data`` cut into
+    microbatches of 16: sharded over ``data``). The identity for a plain
+    tensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    shards = minor_fit(tuple(i for i, p in enumerate(x.placements)
+                             if isinstance(p, Shard) and p.dim == 0),
+                       mesh.size, parts)
+    want = [Replicate() if isinstance(p, Shard) and p.dim == 0
+            and i not in shards else p for i, p in enumerate(x.placements)]
+    return x if want == list(x.placements) else x.redistribute(mesh, want)
+
+
 class _FitGrad(torch.autograd.Function):
     """The identity, whose gradient goes through :func:`_fit`."""
 
@@ -186,8 +233,11 @@ def fit_dim(x: torch.Tensor, dim: int, parts: int):
     shards would not split evenly into ``parts``: for a DTensor dim about
     to be unflattened into ``parts`` × rest (or just flattened from it,
     whose gradient is unflattened). DTensor has no strategy for an uneven
-    unflatten; GSPMD gathers there, and so does this. The identity for a
-    plain tensor."""
+    unflatten; GSPMD pads there. Attention, where the heads are such a dim,
+    takes a head-parallel route of its own in training and prefill
+    (``layers._head_parallel``); the decode step's heads and the
+    projections' other uses gather here. The identity for a plain
+    tensor."""
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x

@@ -25,8 +25,13 @@ pump iteration:
 The exact quantile goes through ``ShardedAnalytics.range_quantile``: the
 ``wm_quantile_sharded`` kernel on a card engine with every shard
 available, the plain descent under a mask (the reference takes its XLA
-descent here; the answers are the same). The bracket, bound and greedy
-variants are the engine's plain torch functions.
+descent here; the answers are the same). The counts and count bounds run
+through the port's ``wm_count`` kernel and the greedy top-k through its
+``topk_greedy`` kernel, on the engine's quantile operands, masked or not:
+one launch a batch where the plain descents made some 1,800 and 13,000
+small launches on the H100, which cost the 250 ms deadline (``PERF.md``
+§6). The quantile bracket and the exact top-k are the engine's
+plain torch functions.
 
 Telemetry (the reference's, across this package): ``serve.frontend.
 {submitted{op}, served{op,mode}, shed{reason}, deadline_miss{op},
@@ -161,13 +166,15 @@ class QueryFrontend:
                 def fn(eng, q):
                     c = eng_mod.sharded_range_count(
                         eng.shards, eng.shard_bits, eng.n,
-                        q[0], q[1], q[2], q[3], eng.available)
+                        q[0], q[1], q[2], q[3], eng.available,
+                        eng.quantile)
                     return c, c, cov(eng, q)
             else:
                 def fn(eng, q):
                     return eng_mod.sharded_range_count_bounds(
                         eng.shards, eng.shard_bits, eng.n,
-                        q[0], q[1], q[2], q[3], eng.available)
+                        q[0], q[1], q[2], q[3], eng.available,
+                        eng.quantile)
         elif op == "quantile":
             if mode == "exact":
                 def fn(eng, q):
@@ -202,7 +209,8 @@ class QueryFrontend:
                     syms, counts = eng_mod.sharded_range_topk_greedy(
                         eng.shards, eng.shard_bits, eng.n,
                         q[0], q[1], cfg.topk_k, budget=budget,
-                        prune=True, available=eng.available)
+                        prune=True, available=eng.available,
+                        operands=eng.quantile)
                     return syms, counts, cov(eng, q)
         return mode, fn
 

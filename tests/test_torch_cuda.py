@@ -147,9 +147,10 @@ def test_wm_quantile_kernel_info():
 
 @pytest.mark.cuda
 def test_wm_quantile_kernel_on_two_streams():
-    """One engine's operands serve launches on two streams at once: every
-    launch takes its own scratch, so queries wide enough to use it (up to
-    all 300 shards) still equal the plain descent on both."""
+    """One engine's operands serve launches on two streams at once: each
+    stream takes its own scratch, which its later launches reuse, so
+    queries wide enough to use it (up to all 300 shards) still equal the
+    plain descent on both."""
     dev = _card()
     num_shards, shard_bits, sigma = 300, 6, 1000
     size = 1 << shard_bits
@@ -179,6 +180,130 @@ def test_wm_quantile_kernel_on_two_streams():
     torch.cuda.synchronize(dev)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    assert sorted(op.scratch) == sorted(s.cuda_stream for s in streams)
+
+
+def _serving_engines(num_shards: int, shard_bits: int, sigma: int, dev):
+    """One corpus as a card engine and a CPU engine (its last shard
+    ragged), and the (Q, S) local ranges of a batch on the card."""
+    size = 1 << shard_bits
+    n = num_shards * size - 37
+    toks = np.random.default_rng(num_shards).zipf(1.3, n) % sigma
+    cuda = build_sharded_analytics(toks, sigma, shard_bits=shard_bits,
+                                   device=dev)
+    return toks, n, cuda
+
+
+def _local(eng, lo, hi, available=None):
+    from repro_torch.analytics.engine import local_ranges, mask_ranges
+    los, his = mask_ranges(*local_ranges(eng.shard_bits, eng.num_shards,
+                                         eng.n, lo, hi, eng.device),
+                           available)
+    return los.T.contiguous(), his.T.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_shards,shard_bits,q", [
+    (8, 10, 32), (8, 10, 5), (128, 12, 4096), (300, 6, 777)])
+def test_wm_count_kernel_matches_plain(num_shards, shard_bits, q):
+    """``wm_count`` against its plain version on the same operands, at the
+    front-end smoke's shape, a full-width-like batch, many small shards
+    and ragged batches; symbol bounds below 0, past σ and reversed; a
+    masked shard set; every answer equal."""
+    from repro_torch.kernels import wm_count
+    dev = _card()
+    sigma = 3000
+    _, n, eng = _serving_engines(num_shards, shard_bits, sigma, dev)
+    lo, hi, _ = _queries(n, q, q, dev)
+    rng = np.random.default_rng(q + 1)
+    a = torch.from_numpy(rng.integers(-5, sigma + 5, q)).to(dev)
+    b = torch.from_numpy(rng.integers(-5, 2 * sigma, q)).to(dev)
+    mask = torch.from_numpy(rng.random(num_shards) > 0.25).to(dev)
+    for available in (None, mask):
+        los, his = _local(eng, lo, hi, available)
+        build.reset_launches()
+        got = wm_count.wm_count_sharded(eng.quantile, los, his, a, b)
+        assert build.launches["wm_count"] == 1
+        want = wm_count.wm_count_plain(eng.quantile, los, his, a, b)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_wm_count_and_topk_greedy_kernels_on_two_streams():
+    """One engine's operands serve both kernels on two streams at once:
+    each launch takes its own scratch and output."""
+    from repro_torch.kernels import topk_greedy, wm_count
+    dev = _card()
+    _, n, eng = _serving_engines(64, 10, 500, dev)
+    batches = [list(_queries(n, 128, seed, dev)) for seed in range(6)]
+    ranges = [_local(eng, lo, hi) for lo, hi, _ in batches]
+    want = [(wm_count.wm_count_plain(eng.quantile, los, his, 0, 250),
+             topk_greedy.topk_greedy_plain(eng.quantile, los, his, 8, 48))
+            for los, his in ranges]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    torch.cuda.synchronize(dev)
+    got = []
+    for i, (los, his) in enumerate(ranges):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append((wm_count.wm_count_sharded(eng.quantile, los, his, 0,
+                                                  250),
+                        topk_greedy.topk_greedy(eng.quantile, los, his, 8,
+                                                48)))
+    torch.cuda.synchronize(dev)
+    for (gc, gt), (wc, wt) in zip(got, want):
+        assert torch.equal(gc, wc)
+        for x, y in zip(gt, wt):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_shards,shard_bits,q,budget,prune,k,sigma", [
+    (8, 10, 32, 48, True, 8, 3000), (8, 10, 8, 24, True, 8, 3000),
+    (8, 10, 7, 48, False, 8, 3000), (128, 12, 128, 48, True, 8, 3000),
+    (300, 6, 33, None, True, 8, 3000), (8, 12, 9, None, True, 100, 151_936),
+    (8, 12, 9, 2000, True, 8, 151_936), (8, 12, 9, 9000, True, 8, 151_936),
+    (8, 12, 9, 9000, False, 20, 151_936)])
+def test_topk_greedy_kernel_matches_plain(num_shards, shard_bits, q, budget,
+                                          prune, k, sigma):
+    """``topk_greedy`` against its plain version (``range_ops.
+    topk_frontier`` on the same rows): the front-end smoke's budgets of 6k
+    and 3k, no pruning, a full-width-like batch over 128 shards, the
+    default budget over 300 shards, and budgets whose slots pass a block's
+    default 48 KB of shared memory (over 1,535 pops): the default
+    k·(nbits+1) at k = 100 and 18 levels (Qwen2's vocabulary), 2,000 pops
+    (the larger shared memory a block opts into) and 9,000 (past it: the
+    slots in global scratch); with and without a mask; syms, counts and
+    found equal."""
+    from repro_torch.kernels import topk_greedy
+    dev = _card()
+    _, n, eng = _serving_engines(num_shards, shard_bits, sigma, dev)
+    lo, hi, _ = _queries(n, q, q + 7, dev)
+    mask = torch.from_numpy(np.random.default_rng(q).random(num_shards)
+                            > 0.25).to(dev)
+    for available in (None, mask):
+        los, his = _local(eng, lo, hi, available)
+        build.reset_launches()
+        got = topk_greedy.topk_greedy(eng.quantile, los, his, k, budget,
+                                      prune)
+        assert build.launches["topk_greedy"] == 1
+        want = topk_greedy.topk_greedy_plain(eng.quantile, los, his, k,
+                                             budget, prune)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_frontend_overload_smoke_meets_its_gate(tmp_path, capsys):
+    """``launch.frontend --smoke --overload 5`` on the card, then the
+    ``frontend.*:p99_ms<=250`` gate of ``scripts/ci_torch.sh`` on its
+    capture: every op's accepted p99 within the 250 ms deadline."""
+    from repro_torch.launch import frontend, obs as obs_cli
+    _card()
+    frontend.main(["--smoke", "--device", "cuda", "--overload", "5.0",
+                   "--metrics-dir", str(tmp_path)])
+    assert "✓" in capsys.readouterr().out
+    rc = obs_cli.main([str(tmp_path), "--slo", "frontend.*:p99_ms<=250"])
+    assert rc == 0, capsys.readouterr().out
 
 
 @pytest.mark.cuda
@@ -1342,6 +1467,8 @@ def test_trace_counts_agree_with_launches(_fresh_obs):
     eng = build_sharded_analytics(seq.reshape(-1).cpu().numpy(), 3000,
                                   shard_bits=15, device=dev)
     eng.range_quantile(lo, hi, k)
+    eng.range_count(lo, hi, 0, 1500)
+    eng.range_topk_greedy(lo, hi, 8, budget=24)
     torch.cuda.synchronize()
     traced = {name: [0, 0] for name in build.launches}
     for key, v in obs.REGISTRY.snapshot()["counters"].items():

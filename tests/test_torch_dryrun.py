@@ -323,13 +323,107 @@ def test_dryrun_compare_rows_and_counts(tmp_path, capsys):
     cell(port, "b__prefill_32k__16x16", peak=1e9)       # no reference cell
     rows = dryrun_compare.rows(dryrun_compare._cells(port),
                                dryrun_compare._cells(ref))
-    assert rows == [("a__train_4k__16x16", 3.0, 2.0, 1.5, 3.0, 0.5)]
+    assert rows == [("a__train_4k__16x16", 3.0, 2.0, 1.5, 3.0, 0.5, None)]
     assert dryrun_compare.counts(dryrun_compare._cells(port)) == {
         "ok": 2, "fail": 1, "skip": 1}
     dryrun_compare.main([str(port), str(ref), "--arch", "b"])
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "port cells ok=2 fail=1 skip=1"
     assert len(out) == 3                         # no row of arch b
+
+
+#: a hand-written post-SPMD module: a microbatch loop of 4 trips around a
+#: ``call`` of a layer loop of 3 trips (jax 0.9.0 lowers a scan inside a
+#: scan so), whose trip counts sit only in the loops' ``backend_config``;
+#: the conditions compare through fusions, as the reference's count cannot
+#: read them
+_HLO = """HloModule jit_train_step, entry_computation_layout={(f32[8])->f32[8]}
+
+%wrapped_compare_computation (p0: s32[], p1: s32[]) -> pred[] {
+  %p0 = s32[] parameter(0)
+  %p1 = s32[] parameter(1)
+  ROOT %lt = pred[] compare(%p0, %p1), direction=LT
+}
+
+%layer_body (t: (s32[], bf16[16,8])) -> (s32[], bf16[16,8]) {
+  %t = (s32[], bf16[16,8]{1,0}) parameter(0)
+  %x = bf16[16,8]{1,0} get-tuple-element(%t), index=1
+  %ag = bf16[64,8]{1,0} all-gather(%x), dimensions={0}
+  %ar = f32[16,8]{1,0} all-reduce(%x), to_apply=%add.promoted
+  ROOT %o = (s32[], bf16[16,8]{1,0}) tuple(%i, %x)
+}
+
+%layer_cond (t: (s32[], bf16[16,8])) -> pred[] {
+  %t = (s32[], bf16[16,8]{1,0}) parameter(0)
+  %c = s32[] constant(3)
+  ROOT %w = pred[] fusion(%i, %c), kind=kLoop, calls=%wrapped_compare_computation
+}
+
+%layers (t: (s32[], bf16[16,8])) -> (s32[], bf16[16,8]) {
+  %t = (s32[], bf16[16,8]{1,0}) parameter(0)
+  ROOT %loop = (s32[], bf16[16,8]{1,0}) while(%t), condition=%layer_cond, body=%layer_body, backend_config={"known_trip_count":{"n":"3"},"known_init_step":{"init":"0","step":"1"}}
+}
+
+%micro_body (t: (s32[], bf16[16,8])) -> (s32[], bf16[16,8]) {
+  %t = (s32[], bf16[16,8]{1,0}) parameter(0)
+  %rs = bf16[2,8]{1,0} reduce-scatter(%x), dimensions={0}
+  ROOT %call = (s32[], bf16[16,8]{1,0}) call(%t), to_apply=%layers
+}
+
+%micro_cond (t: (s32[], bf16[16,8])) -> pred[] {
+  %t = (s32[], bf16[16,8]{1,0}) parameter(0)
+  %c = s32[] constant(4)
+  ROOT %w = pred[] fusion(%i, %c), kind=kLoop, calls=%wrapped_compare_computation
+}
+
+ENTRY %main (a: f32[8]) -> f32[8] {
+  %a = f32[8]{0} parameter(0)
+  %loop = (s32[], bf16[16,8]{1,0}) while(%t), condition=%micro_cond, body=%micro_body, backend_config={"known_trip_count":{"n":"4"}}
+  %final = f32[8]{0} all-reduce(%a), to_apply=%add
+  ROOT %r = f32[8]{0} add(%a, %a)
+}
+"""
+
+
+def test_dryrun_compare_scales_collectives_by_their_trip_counts():
+    """Each collective's result bytes times the known trip counts of the
+    loops around it: the layer loop's 3 inside the microbatch loop's 4
+    (through a ``call``), the microbatch body's own 4, the entry's once;
+    a promoted bf16 all-reduce at 2 bytes."""
+    from repro_torch.launch import dryrun_compare as dc
+    w = dc.trip_weights(_HLO)
+    assert w["main"] == 1 and w["micro_body"] == 4
+    assert w["layers"] == 4 and w["layer_body"] == 12
+    got = dc.collective_bytes_with_trips(_HLO)
+    assert got == {"all-gather": 64 * 8 * 2 * 12,
+                   "all-reduce": 16 * 8 * 2 * 12 + 8 * 4,
+                   "reduce-scatter": 2 * 8 * 2 * 4}
+
+
+def test_grad_accum_is_the_reference_table_on_both_meshes():
+    """The dry run's microbatch counts (``GRAD_ACCUM``, taken as they are
+    on 16×16 and 2×16×16 alike) are the reference's table: 16 for dbrx,
+    arctic and llama-vision, whose microbatch on 2×16×16 is then sharded
+    over ``data`` and replicated over ``pod``, where the reference
+    replicates it over every device."""
+    import ast
+    import inspect
+
+    from repro_torch.configs.base import ARCHITECTURES
+    from repro_torch.launch import dryrun
+    # the reference's table, read from its source: importing
+    # ``repro.launch.dryrun`` would set 512 host devices for the worker
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro" / "launch"
+           / "dryrun.py").read_text()
+    table = next(ast.literal_eval(node.value)
+                 for node in ast.parse(src).body
+                 if isinstance(node, ast.Assign)
+                 and getattr(node.targets[0], "id", "") == "GRAD_ACCUM")
+    for arch in ARCHITECTURES:
+        assert dryrun.GRAD_ACCUM.get(arch, 1) == table.get(arch, 1), arch
+    assert dryrun.GRAD_ACCUM["dbrx_132b"] == 16
+    # no cap by mesh: a cell takes the table's count as it is
+    assert "GRAD_ACCUM.get(arch, 1)" in inspect.getsource(dryrun.run_cell)
 
 
 def test_peak_live_names_the_temporaries_at_the_peak():

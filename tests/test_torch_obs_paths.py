@@ -141,8 +141,12 @@ _BUILDS = {
 
 #: counters the port's kernel route adds: the matrix build counts every
 #: level's zeros in one launch of its own (the reference's fused level
-#: counts them inside its level kernel)
-PORT_ONLY = {"kernels.trace{op=wm_level_zeros,route=plain}"}
+#: counts them inside its level kernel), and the engine's counts and greedy
+#: top-k run on kernels of the port's own (the reference runs them as XLA
+#: loops)
+PORT_ONLY = {"kernels.trace{op=wm_level_zeros,route=plain}",
+             "kernels.trace{op=wm_count,route=plain}",
+             "kernels.trace{op=topk_greedy,route=plain}"}
 
 
 @pytest.mark.parametrize("name", list(_BUILDS))
@@ -246,7 +250,7 @@ def test_engine_op_counters_equal_the_reference(op, degraded, engines):
     want = _traced(jfn, jeng, *(jnp.asarray(q) for q in _QUERIES))
     got = _called(lambda: tfn(eng, *(torch.from_numpy(q)
                                      for q in _QUERIES)))
-    assert f"analytics.op{{op={op}}}" in want and got == want
+    assert f"analytics.op{{op={op}}}" in want and got - PORT_ONLY == want
 
 
 @pytest.fixture(scope="module")
