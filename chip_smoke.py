@@ -17,7 +17,10 @@
    same operands the front-end's count (``wm_count``) and greedy top-k
    (``topk_greedy``) kernels are held against their plain versions, with
    every shard and with a masked set, symbol bounds past both ends, and
-   the greedy at budgets of 6k and 3k pops with and without pruning.
+   the greedy at budgets of 6k and 3k pops with and without pruning; at
+   one query, 129 and 4,096, every seventh row all empty; and (at 18
+   levels) the greedy at k = 100 and at budgets of 2,000 and 9,000 pops
+   (past a block's shared memory: the per-stream global scratch).
 4. Runs the main path at full width: a 2^27-token Zipfian stream over
    Qwen2's vocabulary (σ = 151,936, 18 levels), 128 shards of 2^20,
    τ = 8, sample rate 512; the build through the kernels, checked leaf for
@@ -275,7 +278,13 @@
    reference's plan (``REFERENCE_PEAK_BYTES``: 34.82 and 43.55 GB; qwen2
    4.181 and 2.191 GB, jamba 20.42 and 17.42 GB, arctic 55.43 and 95.19 GB
    on 16×16 and 2×16×16; dbrx 25.48 and llama-vision 32.96 GB on
-   2×16×16).
+   2×16×16). The collectives a step of qwen2's decode_32k (both meshes),
+   dbrx's decode_32k (16×16) and qwen2's train_4k (both meshes) must lie
+   within 1.5× of the reference's trip-counted total
+   (``REFERENCE_COLLECTIVE_BYTES``), or within 0.1 GB of it where the
+   reference moves under 0.2 GB: the decode step attends over the
+   sequence-sharded cache in place, and qwen2's 14 heads stay whole on
+   every device, as the reference's plan keeps them.
    Prints each cell's ``lower_s``, ``compile_s``, per-device peak against
    the card's memory (and the reference's, where known) and collective
    bytes by kind. (b) The analytics cell on the card: its four-op batch
@@ -420,6 +429,17 @@ REFERENCE_PEAK_BYTES = {"dbrx_132b__prefill_32k__16x16": 34824435184,
                         "llama_3_2_vision_90b__train_4k__2x16x16":
                             32962499252}
 REFERENCE_PEAK_RATIO = 1.5       # the port's peak at most this × the reference's
+#: the reference's collective bytes a device a step, its loops' trips
+#: counted (``scripts/dryrun_reference_trips.py``, committed in
+#: ``results/dryrun_ref_trips/``; jax 0.9.0 on 512 host devices of a CPU)
+REFERENCE_COLLECTIVE_BYTES = {"qwen2_0_5b__decode_32k__16x16": 723968,
+                              "qwen2_0_5b__decode_32k__2x16x16": 361984,
+                              "dbrx_132b__decode_32k__16x16": 86033086464,
+                              "qwen2_0_5b__train_4k__16x16": 7789973760,
+                              "qwen2_0_5b__train_4k__2x16x16": 6224253056}
+REFERENCE_COLLECTIVE_RATIO = 1.5  # the port's collectives at most this ×
+REFERENCE_COLLECTIVE_SLACK = 0.1e9   # or this much over, where the
+REFERENCE_COLLECTIVE_SMALL = 0.2e9   # reference moves less than this
 DRYRUN_QWEN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 DRYRUN_TIMEOUT_S = 900           # the dry run's processes, from their start
 MESH_HOST_STEPS = 5
@@ -3020,6 +3040,20 @@ def check_dryrun_cells(out_dir: Path, card_memory: float) -> list:
         if not set(coll) <= {"all-gather", "all-reduce", "reduce-scatter",
                              "all-to-all", "collective-permute"}:
             fail(f"dryrun: {cid} counts collectives {sorted(coll)}")
+        ref_coll = REFERENCE_COLLECTIVE_BYTES.get(cid)
+        if ref_coll is not None:
+            total = sum(coll.values())
+            bar = (ref_coll + REFERENCE_COLLECTIVE_SLACK
+                   if ref_coll < REFERENCE_COLLECTIVE_SMALL
+                   else REFERENCE_COLLECTIVE_RATIO * ref_coll)
+            res["reference_collective_bytes"] = ref_coll
+            print(f"dryrun: {cid}: collectives {total / 1e9:.4f} GB a step, "
+                  f"the reference's {ref_coll / 1e9:.4f} GB, bar "
+                  f"{bar / 1e9:.4f} GB")
+            if total > bar:
+                fail(f"dryrun: {cid} moves {total / 1e9:.4f} GB of "
+                     f"collectives a step, over the bar {bar / 1e9:.4f} GB "
+                     f"(the reference's {ref_coll / 1e9:.4f})")
     skip_id = dryrun.cell_id(LM_ARCH, "long_500k", False)
     skip = json.loads((out_dir / f"{skip_id}.json").read_text())
     if "skipped" not in skip:
@@ -3447,6 +3481,23 @@ def main() -> None:
                 ragged_err["topk_greedy"] = max(
                     ragged_err["topk_greedy"],
                     *(max_abs_err(a, b) for a, b in zip(got, want)))
+        # the front-end's kernels at ragged batch sizes: one query, 129 and
+        # 4,096 (the batch repeated), every seventh row all empty
+        for rows_q in (1, 129, 4096):
+            idx = torch.arange(rows_q, device=dev) % los.shape[0]
+            ql, qh = los[idx], his[idx].clone()
+            qh[::7] = ql[::7]
+            ragged_err["wm_count"] = max(ragged_err["wm_count"], max_abs_err(
+                wm_count.wm_count_sharded(op, ql, qh, s0[idx], s1[idx]),
+                wm_count.wm_count_plain(op, ql, qh, s0[idx], s1[idx])))
+            if rows_q < 4096 or num_shards == 40:
+                got = topk_greedy.topk_greedy(op, ql, qh, FE_TOPK,
+                                              6 * FE_TOPK)
+                want = topk_greedy.topk_greedy_plain(op, ql, qh, FE_TOPK,
+                                                     6 * FE_TOPK)
+                ragged_err["topk_greedy"] = max(
+                    ragged_err["topk_greedy"],
+                    *(max_abs_err(a, b) for a, b in zip(got, want)))
         if shards.nbits == 18:
             # budgets past a block's default 48 KB of shared memory: the
             # default at k = 100, 2,000 pops (opted-in shared memory) and
@@ -3657,6 +3708,46 @@ def main() -> None:
                                            hi0)
         return probes_, int(torch.unique(torch.cat(keys)).numel())
 
+    def count_probes(shards, los_, his_, sym_lo, sym_hi):
+        """(probes, sectors) of ``wm_count``'s descents over the (S, Q)
+        local ranges ``los_``/``his_``: per level each live endpoint's
+        probe for each bound that needs one, once while the two bounds'
+        bits agree; none for an empty symbol range or a bound at most 0 or
+        at least 2^nbits. Sectors as :func:`quantile_probes` counts them."""
+        nbits_ = shards.nbits
+        top = 1 << nbits_
+        S = los_.shape[0]
+        per_row = (1 << SHARD_BITS) // sweep_quantile.LINE_BITS + 1
+        first_row = torch.arange(S, device=dev)[:, None] * nbits_
+        bhi = sym_hi.long().clamp(0, top)
+        blo = sym_lo.long().clamp(0, top)
+        live = (his_ > los_) & (bhi > blo)[None]
+        act_h = live & (bhi < top)[None]
+        act_l = live & (blo > 0)[None]
+        diff, length = bhi ^ blo, torch.zeros_like(bhi)
+        while bool((diff > 0).any()):
+            length += (diff > 0).long()
+            diff = diff >> 1
+        part = torch.where((bhi < top) & (blo > 0), nbits_ - length, nbits_)
+        ends = {"hi": [los_.long(), his_.long()],
+                "lo": [los_.long(), his_.long()]}
+        probes_, keys = 0, []
+        for l in range(nbits_):
+            row = (first_row + l).expand_as(los_) * per_row
+            second = act_l & ~((l < part)[None] & act_h)
+            for m, (a_, b_) in ((act_h, ends["hi"]), (second, ends["lo"])):
+                probes_ += 2 * int(m.sum())
+                keys += [row[m] + a_[m] // sweep_quantile.LINE_BITS,
+                         row[m] + b_[m] // sweep_quantile.LINE_BITS]
+            for name, bound in (("hi", bhi), ("lo", blo)):
+                a_, b_ = ends[name]
+                bit = (bound >> (nbits_ - 1 - l)) & 1
+                lo0, hi0 = wm_interval_zeros(shards, l, a_, b_)
+                ends[name] = list(wm_child_interval(shards, l, a_, b_, bit,
+                                                    lo0, hi0))
+        sectors_ = int(torch.unique(torch.cat(keys)).numel()) if keys else 0
+        return probes_, sectors_
+
     def quantile_extra(op, batches, probes, sectors, nbits, latency_ns):
         """The bare C entry's time on the first batch repeated (its probes'
         sectors warm in L2) and cycling through ``batches``, the bound's
@@ -3769,44 +3860,73 @@ def main() -> None:
                                 lat["dram_ns"]))
 
     # the front-end's count and greedy top-k kernels at its widest bucket
-    # on the full-width engine (its counts span every symbol; its greedy
-    # top-k pops at most 6k nodes, ladder level 1); their launches are
-    # those of the front-end gate (step 10b), filled in there. The bounds
-    # count the ranges, bounds and answers (not the directory sectors)
-    # and the nbits (+ 1 for the greedy's leaf) dependent DRAM loads
+    # on the full-width engine: the counts over every symbol, [0, σ) (the
+    # low bound known, no probe), and over random [s0, s1) pairs of the
+    # run's seed; the greedy top-k at most 6k pops, ladder level 1. Their
+    # launches are those of the front-end gate (step 10b), filled in there.
+    # Bounds: the count's distinct directory sectors (as the quantile's)
+    # against its nbits dependent DRAM loads; the greedy's pops, one
+    # dependent DRAM load each (a pop reads the weights of the pop before),
+    # the most pops of the batch's queries, against its bytes
     fe_q = FE_BUCKETS[-1]
     fe_los, fe_his = (t.T.contiguous() for t in local_ranges(
         SHARD_BITS, eng.num_shards, N_TOKENS, lo_t[:fe_q], hi_t[:fe_q], dev))
     fe_s0 = torch.zeros(fe_q, dtype=torch.int32, device=dev)
     fe_s1 = torch.full((fe_q,), SIGMA, dtype=torch.int32, device=dev)
+    rnd = torch.randint(0, SIGMA + 1, (2, fe_q), generator=torch.Generator(
+        device=dev).manual_seed(27), device=dev,
+        dtype=torch.int32).sort(0).values
     live = int((fe_his > fe_los).sum())
+    terms = {}
+    for tag, (a0, a1) in (("all", (fe_s0, fe_s1)), ("random", rnd)):
+        c_probes, c_sectors = count_probes(eng.shards, fe_los.T, fe_his.T,
+                                           a0, a1)
+        c_bytes = fe_los.numel() * 8 + fe_q * 12 + c_sectors * SECTOR_BYTES
+        terms[tag] = {
+            "ms": cuda_ms(lambda a0=a0, a1=a1: wm_count.wm_count_sharded(
+                op, fe_los, fe_his, a0, a1), 20),
+            "probes": c_probes, "sectors": c_sectors, "bytes": c_bytes,
+            "bound_ms": bound_ms(c_bytes, c_probes * wm_quantile.PROBE_OPS,
+                                 nbits * lat["dram_ns"] * 1e-6),
+            "check": max_abs_err(wm_count.wm_count_sharded(op, fe_los, fe_his,
+                                                           a0, a1),
+                                 wm_count.wm_count_plain(op, fe_los, fe_his,
+                                                         a0, a1))}
+        ragged_err["wm_count"] = max(ragged_err["wm_count"],
+                                     terms[tag]["check"])
+    print("wm_count: [0, σ) and random symbol ranges: " + json.dumps(terms))
     got = wm_count.wm_count_sharded(op, fe_los, fe_his, fe_s0, fe_s1)
     report("wm_count", "src/repro_torch/kernels/csrc/wm_count.cu",
            "src/repro/analytics/engine.py:97 sharded_range_count (XLA; no "
            "Pallas kernel)", [], got,
            wm_count.wm_count_plain(op, fe_los, fe_his, fe_s0, fe_s1),
-           cuda_ms(lambda: wm_count.wm_count_sharded(
-               op, fe_los, fe_his, fe_s0, fe_s1), 20),
+           terms["all"]["ms"],
            cuda_ms(lambda: wm_count.wm_count_plain(
                op, fe_los, fe_his, fe_s0, fe_s1), 3),
-           fe_los.numel() * 8 + fe_q * 12, live * 4 * nbits * 40,
+           terms["all"]["bytes"],
+           terms["all"]["probes"] * wm_quantile.PROBE_OPS,
            path="frontend", path_launches={"wm_count": 0},
            latency_ms=nbits * lat["dram_ns"] * 1e-6,
-           extra={"queries": fe_q, "live_pairs": live})
+           extra={"queries": fe_q, "live_pairs": live,
+                  "symbol_ranges": terms})
     got = topk_greedy.topk_greedy(op, fe_los, fe_his, FE_TOPK, 6 * FE_TOPK)
+    pops = torch.zeros(fe_q, dtype=torch.long, device=dev)
+    want = topk_greedy.topk_greedy_plain(op, fe_los, fe_his, FE_TOPK,
+                                         6 * FE_TOPK, pops=pops)
+    most_pops = int(pops.max())
     report("topk_greedy", "src/repro_torch/kernels/csrc/topk_greedy.cu",
            "src/repro/analytics/range_ops.py:198 _topk_frontier (XLA loop; "
-           "no Pallas kernel)", [], got,
-           topk_greedy.topk_greedy_plain(op, fe_los, fe_his, FE_TOPK,
-                                         6 * FE_TOPK),
+           "no Pallas kernel)", [], got, want,
            cuda_ms(lambda: topk_greedy.topk_greedy(
                op, fe_los, fe_his, FE_TOPK, 6 * FE_TOPK), 20),
            cuda_ms(lambda: topk_greedy.topk_greedy_plain(
                op, fe_los, fe_his, FE_TOPK, 6 * FE_TOPK), 2),
            fe_los.numel() * 8 + fe_q * (2 * FE_TOPK + 1) * 4, 0,
            path="frontend", path_launches={"topk_greedy": 0},
-           latency_ms=(nbits + 1) * lat["dram_ns"] * 1e-6,
-           extra={"queries": fe_q, "budget": 6 * FE_TOPK})
+           latency_ms=most_pops * lat["dram_ns"] * 1e-6,
+           extra={"queries": fe_q, "budget": 6 * FE_TOPK,
+                  "most_pops": most_pops,
+                  "mean_pops": float(pops.float().mean())})
     del fe_los, fe_his, fe_s0, fe_s1
 
     # the single-row and single-shard forms, and the two phases of each

@@ -180,7 +180,8 @@ def _put(arr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
 
 
 def topk_frontier(rows, nbits: int, los: torch.Tensor, his: torch.Tensor,
-                  k: int, budget: int | None = None, prune: bool = True):
+                  k: int, budget: int | None = None, prune: bool = True,
+                  pops: torch.Tensor | None = None):
     """The greedy top-k engine over per-shard intervals: ``los``/``his``
     (Q, S) local ranges of Q queries on the S shards of ``rows``
     (:func:`level_rows`); a node's weight is its summed width over the
@@ -189,6 +190,10 @@ def topk_frontier(rows, nbits: int, los: torch.Tensor, his: torch.Tensor,
     rounds: a leaf is the next answer, an internal node's shard intervals
     split on its level's rows into two children. Returns (syms (Q, k),
     counts (Q, k), found (Q,)) int32.
+
+    ``pops``, a (Q,) int64 tensor if given, gains each query's pops (the
+    rounds before it stopped): the measure of a kernel's chain of
+    dependent loads.
 
     The reference's clamped slot and output indices (``min(nslots,
     cap - 2)``, ``min(found, k - 1)``) are explicit clamps here. A round in
@@ -225,6 +230,8 @@ def topk_frontier(rows, nbits: int, los: torch.Tensor, his: torch.Tensor,
         stop = (w <= 0) | (nout >= k)
         if it % _STOP_EVERY == 0 and bool(stop.all()):
             break
+        if pops is not None:
+            pops += (~stop).long()
         level = slot_level[q, best]
         sym = slot_sym[q, best]
         is_leaf = level == nbits

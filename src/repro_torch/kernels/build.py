@@ -72,8 +72,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
                                                                   _I, _P,
                                                                   _P])},
     "topk_greedy": {
+        "topk_greedy_plan": [_I, _I, _I, _P],
         "topk_greedy": ([_P, _P, _I, _I] + [_P, _L] * 3 + [_I, _P]
-                        + [_I] * 4 + [_P] * 5)},
+                        + [_I] * 4 + [_P, _L] + [_P] * 4)},
 }
 SOURCES = tuple(SIGNATURES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -4,9 +4,11 @@ plain version.
 No Pallas counterpart: the reference counts through XLA (two count-below
 descents a shard, ``repro.analytics.range_ops.range_count``). The port's
 plain torch form of those descents is about 1,800 launches a serving batch
-on the H100; the kernel (``csrc/wm_count.cu``) runs one thread a (query,
-shard) pair, both descents side by side, and sums the shards' counts by
-integer atomics.
+on the H100; the kernel (``csrc/wm_count.cu``) deals a query's shards 16
+to a warp, lo and hi of a shard on neighbouring lanes, probes once a level
+while the two bounds' bits agree and not at all for a bound whose answer
+is known (at most 0, at least 2^nbits), and sums the shards' counts by
+warp reductions, a block a query.
 
 Both take the quantile kernel's operands
 (:class:`~repro_torch.kernels.wm_quantile.QuantileOperands`, the engine's

@@ -71,6 +71,10 @@ class QuantileOperands:
     scratch_elems: int = 0
     #: raw stream handle -> that stream's scratch (:func:`_scratch`)
     scratch: dict = field(default_factory=dict, repr=False, compare=False)
+    #: raw stream handle -> that stream's global scratch of the greedy
+    #: top-k (``topk_greedy._scratch``), for frontiers past shared memory
+    greedy_scratch: dict = field(default_factory=dict, repr=False,
+                                 compare=False)
 
     @property
     def nblocks(self) -> int:

@@ -22,7 +22,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .shard_ctx import constrain, distribute, fit_dim, reduce_partial
+from .shard_ctx import (constrain, distribute, fit_dim, gather_dp,
+                        reduce_partial)
 
 NEG_BIAS = -1e30
 
@@ -108,22 +109,19 @@ def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """bf16 ``bqhd,bkhd->bhqk`` product, cast to f32 after, scaled (a
     batched matmul: the bits of ``torch.einsum``, at half its host cost).
 
-    Training and prefill call it on each device's local heads
-    (:func:`_per_shard`, :func:`_head_parallel`). Decode calls it on
-    DTensors, and there the heads are replicated first: the product folds
+    On plain tensors only: on a mesh every attention route calls it on
+    each device's own tensors (:func:`_per_shard`, :func:`_local_gqa`,
+    :func:`_head_parallel`, :func:`cache_attention`). The product folds
     (b, h) into one batch dim, which DTensor cannot do with h sharded
     (torch 2.11 refuses; 2.13 plans it through strided shards at a far
     higher cost)."""
-    q, k = fit_dim(q, 2, 1), fit_dim(k, 2, 1)
     return ((q.transpose(1, 2) @ k.permute(0, 2, 3, 1)).float()
             / math.sqrt(q.shape[-1]))
 
 
 def _weighted(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``bhqk,bkhd->bqhd`` (on local heads, or heads replicated on the
-    DTensors of decode, as in :func:`_scores`)."""
-    return (fit_dim(probs, 1, 1) @ fit_dim(v, 2, 1).transpose(1, 2)
-            ).transpose(1, 2)
+    """``bhqk,bkhd->bqhd``, on plain tensors as :func:`_scores`."""
+    return (probs @ v.transpose(1, 2)).transpose(1, 2)
 
 
 def _causal_bias(qpos: torch.Tensor, kpos: torch.Tensor) -> torch.Tensor:
@@ -192,6 +190,70 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return _weighted(probs, v_cache)
 
 
+def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, length_mask: torch.Tensor,
+                    groups: int) -> torch.Tensor:
+    """:func:`decode_attention` of q (B, 1, H, hd) against a GQA cache
+    (B, S, KV, hd) whose KV heads are repeated ``groups`` times.
+
+    Plain tensors take today's ops: the repeat, then
+    :func:`decode_attention`. On DTensors each device attends over its
+    own batch rows and its own slice of the cache's sequence, with every
+    one of q's heads (a gather of B·H·hd values; a ``local_map``): the
+    cache never moves. Where the sequence is sharded the softmax is split
+    over its shards, as the reference's GSPMD plan reduces over the
+    sequence-sharded cache axis: the local max of the masked scores
+    all-reduced (max) over the mesh dims that shard the sequence, the
+    local sum of the exponentials all-reduced, then the local
+    probability-weighted values all-reduced in f32 and cast back. The sums
+    run in another order than the plain softmax's, so the result agrees
+    to rounding, not to the bit. A cache whose sequence is not sharded
+    (the cross-attention memory, the 1×1 host mesh) runs
+    :func:`decode_attention` on its local tensors, with no collective.
+    Decode takes no gradient, so the explicit collectives need no
+    ``autograd.Function``."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(k_cache, DTensor):
+        return decode_attention(q, _repeat_kv(k_cache, groups),
+                                _repeat_kv(v_cache, groups), length_mask)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from .shard_ctx import all_reduce
+    mesh = k_cache.device_mesh
+    cache_pl = [p if isinstance(p, Shard) and p.dim in (0, 1)
+                else Replicate() for p in k_cache.placements]
+    seq = [i for i, p in enumerate(cache_pl) if p == Shard(1)]
+    q_pl = [p if p == Shard(0) else Replicate() for p in cache_pl]
+    q = q.redistribute(mesh, q_pl)
+    k_cache, v_cache = (t.redistribute(mesh, cache_pl)
+                        for t in (k_cache, v_cache))
+    if not isinstance(length_mask, DTensor):
+        length_mask = distribute(length_mask, mesh,
+                                 [Replicate()] * mesh.ndim)
+    length_mask = length_mask.redistribute(mesh, cache_pl)
+
+    def local(q, k, v, mask):
+        k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
+        if not seq:
+            return decode_attention(q, k, v, mask)
+        scores = _scores(q, k)
+        scores = torch.where(mask[:, None, None, :], scores, NEG_BIAS)
+        mx = scores.amax(-1, keepdim=True)
+        for d in seq:
+            mx = all_reduce(mx, mesh, d, "max")
+        e = torch.exp(scores - mx)
+        den = e.sum(-1, keepdim=True)
+        for d in seq:
+            den = all_reduce(den, mesh, d)
+        o = _weighted((e / den).to(q.dtype), v).float()
+        for d in seq:
+            o = all_reduce(o, mesh, d)
+        return o.to(q.dtype)
+    return local_map(local, out_placements=q_pl,
+                     in_placements=(q_pl, cache_pl, cache_pl, cache_pl),
+                     device_mesh=mesh)(q, k_cache, v_cache, length_mask)
+
+
 def _per_shard(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """``fn(q, k, v)`` for (B, S, H, hd) operands. On DTensors each device
     attends over its own batch rows and heads (``local_map``; the
@@ -213,6 +275,74 @@ def _per_shard(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         return fn(*(_ContiguousGrad.apply(x) for x in t)).contiguous()
     return local_map(local, out_placements=pl, in_placements=(pl, pl, pl),
                      device_mesh=mesh)(q, k, v)
+
+
+def _local_gqa(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               wo: torch.Tensor, groups: int):
+    """``fn``'s attention of DTensor q (B, S, H, hd) over GQA k and v
+    (B, S, KV, hd), out-projected by ``wo`` (H, hd, D), on each device's
+    own batch rows and query heads (a ``local_map``), or None where q's
+    heads are not sharded over a ``model`` axis of more than one device
+    alone (or ``wo``'s not with them): then :func:`_per_shard` serves.
+
+    Each device repeats only the KV heads its query heads read, and
+    out-projects its heads with its own rows of ``wo``: (B, S, D), its
+    share of the sum over the heads, pending over ``model``. Gradients:
+    q's in q's placements; k's and v's where their heads are replicated
+    over ``model`` partial sums over it (each device's query heads), as
+    ``wo``'s are over the batch shards. DTensor's own plan of the same
+    ops gathers the repeat's gradient over the heads (two activations a
+    layer) and, in the out-projection's backward, its incoming gradient
+    and the whole of ``wo``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    if not isinstance(q, DTensor):
+        return None
+    mesh = q.device_mesh
+    names = list(mesh.mesh_dim_names or ())
+    if "model" not in names:
+        return None
+    m = names.index("model")
+    parts = mesh.size(m)
+    if (parts == 1 or q.placements[m] != Shard(2)
+            or any(p == Shard(2) for i, p in enumerate(q.placements)
+                   if i != m)):
+        return None
+    kv_sharded = k.shape[2] % parts == 0 and k.placements[m] == Shard(2)
+    batch = [i for i, p in enumerate(q.placements) if p == Shard(0)]
+    q_pl = [Shard(0) if i in batch else Shard(2) if i == m else Replicate()
+            for i in range(mesh.ndim)]
+    kv_pl = list(q_pl)
+    kv_pl[m] = Shard(2) if kv_sharded else Replicate()
+    kv_grad = list(kv_pl)
+    if not kv_sharded:
+        kv_grad[m] = Partial()
+    w_pl = [Shard(0) if i == m else Replicate() for i in range(mesh.ndim)]
+    w_grad = [Shard(0) if i == m else Partial() if i in batch
+              else Replicate() for i in range(mesh.ndim)]
+    out_pl = [Partial() if i == m else p for i, p in enumerate(q_pl)]
+    q = q.redistribute(mesh, q_pl)
+    k, v = (t.redistribute(mesh, kv_pl) for t in (k, v))
+    wo = wo.redistribute(mesh, w_pl)
+    j = mesh.get_local_rank(m)
+
+    def local(q, k, v, w):
+        q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
+        hl = q.shape[2]
+        if kv_sharded:
+            k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
+        else:
+            lo = j * hl // groups
+            hi = (j * hl + hl - 1) // groups + 1
+            off = j * hl - lo * groups
+            k, v = (_repeat_kv(t[:, :, lo:hi], groups)[:, :, off:off + hl]
+                    for t in (k, v))
+        o = fn(q, k, v)
+        return o.flatten(-2) @ w.reshape(hl * w.shape[1], -1)
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(q_pl, kv_pl, kv_pl, w_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad, w_grad),
+                     device_mesh=mesh)(q, k, v, wo)
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -351,7 +481,7 @@ def _head_parallel(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor,
     if not isinstance(x, DTensor):
         return None
     m = unsharded_heads(x, cfg)
-    if m is None:
+    if m is None or not _heads_pay(x, p):
         return None
     mesh = x.device_mesh
     sl = head_slices(cfg.num_heads, cfg.num_kv_heads, mesh.size(m),
@@ -397,6 +527,28 @@ def _head_parallel(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor,
         device_mesh=mesh)(x, positions, *ws)
 
 
+def _heads_pay(x, p: dict) -> bool:
+    """Whether to shard heads that ``model`` does not divide. In training,
+    where the head-parallel route moves fewer bytes than the reference's
+    plan: there GSPMD keeps every head on every device of ``model``,
+    gathers the query and output weights whole (in the forward and again
+    in the remat) and sums nothing over ``model`` in attention, where the
+    head-parallel route sums the attention's output over ``model`` in the
+    forward and the remat and its input gradient in the backward: three of
+    this device's (B, S, D) activations a layer. At equal bytes the heads
+    shard (a ``model``-th of the attention's FLOPs). qwen2 at train_4k
+    (0.8 M values in each weight, 14.7 M in a device's activation) takes
+    the reference's plan; arctic (51.4 M, 29.4 M) shards its heads.
+    Without gradients (prefill) the route sums one output a layer and the
+    heads always shard: every head on every device would hold all heads'
+    scores of a long sequence (qwen2 prefill_32k: a peak of 4.36 GB a
+    device against 0.60)."""
+    if not torch.is_grad_enabled():
+        return True
+    act = x.to_local().numel()
+    return 3 * act <= 2 * (p["wq"].numel() + p["wo"].numel())
+
+
 def gqa_attention_train(x: torch.Tensor, p: dict, cfg,
                         positions: torch.Tensor,
                         q_chunk: Optional[int] = None) -> torch.Tensor:
@@ -407,11 +559,18 @@ def gqa_attention_train(x: torch.Tensor, p: dict, cfg,
     y = _head_parallel(x, p, cfg, positions, q_chunk)
     if y is not None:
         return reduce_partial(y)
+    if unsharded_heads(x, cfg) is not None:
+        # left ungathered by ``model._fsdp`` for the head-parallel route
+        p = {**p, **{w: gather_dp(p[w]) for w in HEAD_DIMS if w in p}}
     q, k, v = _qkv(x, p, cfg)
     cos, sin = rope_frequencies(cfg.head_dim, cfg.rope_theta, positions)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     groups = cfg.num_heads // cfg.num_kv_heads
+    y = _local_gqa(lambda q, k, v: _attend(q, k, v, q_chunk), q, k, v,
+                   p["wo"], groups)
+    if y is not None:
+        return reduce_partial(y)
     k = _repeat_kv(k, groups)
     v = _repeat_kv(v, groups)
     o = _per_shard(lambda q, k, v: _attend(q, k, v, q_chunk), q, k, v)
@@ -440,6 +599,29 @@ def decode_step_tables(cfg, pos: torch.Tensor, start: int,
     return DecodeStep(pos, start, cos, sin, length_mask)
 
 
+def write_slot(cache: torch.Tensor, new: torch.Tensor, start: int) -> None:
+    """``cache[:, start:start + 1] = new`` in place. On a DTensor cache
+    whose sequence is sharded the device whose slice holds slot ``start``
+    writes it into its own shard, ``new`` laid out as the cache's batch
+    rows: DTensor's own plan of the slice assignment gathers the whole
+    sequence first."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(cache, DTensor):
+        cache[:, start:start + 1] = new
+        return
+    mesh, pl = cache.device_mesh, cache.placements
+    new = new.redistribute(mesh, [Replicate() if p == Shard(1) else p
+                                  for p in pl])
+    local = cache.to_local()
+    part = 0
+    for i, p in enumerate(pl):
+        if p == Shard(1):
+            part = part * mesh.size(i) + mesh.get_local_rank(i)
+    j = start - part * local.shape[1]
+    if 0 <= j < local.shape[1]:
+        local[:, j:j + 1] = new.to_local()
+
+
 def gqa_attention_decode(x: torch.Tensor, p: dict, cfg,
                          cache_k: torch.Tensor, cache_v: torch.Tensor,
                          step: DecodeStep):
@@ -452,12 +634,10 @@ def gqa_attention_decode(x: torch.Tensor, p: dict, cfg,
     q, k, v = _qkv(x, p, cfg)
     q = apply_rope(q, step.cos, step.sin)
     k = apply_rope(k, step.cos, step.sin)
-    cache_k[:, step.start:step.start + 1] = k.to(cache_k.dtype)
-    cache_v[:, step.start:step.start + 1] = v.to(cache_v.dtype)
-    groups = cfg.num_heads // cfg.num_kv_heads
-    kk = _repeat_kv(cache_k, groups)
-    vv = _repeat_kv(cache_v, groups)
-    o = decode_attention(q, kk, vv, step.length_mask)
+    write_slot(cache_k, k.to(cache_k.dtype), step.start)
+    write_slot(cache_v, v.to(cache_v.dtype), step.start)
+    o = cache_attention(q, cache_k, cache_v, step.length_mask,
+                        cfg.num_heads // cfg.num_kv_heads)
     return _out_project(o, p["wo"]), cache_k, cache_v
 
 
@@ -474,7 +654,65 @@ def cross_attention(x: torch.Tensor, memory: torch.Tensor, p: dict,
     return _out_project(o, p["wo"])
 
 
+def _local_mlp(hidden: Callable, x: torch.Tensor, p: dict, keys: tuple):
+    """``hidden(x, *w) @ w2`` of DTensor x (B, S, D) and weights
+    ``keys`` (the hidden projections, then ``w2``) on each device's own
+    batch rows and slice of the hidden dim (a ``local_map``), or None where
+    that layout does not apply: a plain tensor, no ``model`` axis of more
+    than one device, x sharded on other than its batch, or a weight not
+    sharded on the hidden dim over ``model`` alone (the decode step's
+    FSDP-sharded weights stay with DTensor's plan, which moves the small
+    activation instead).
+
+    This is the reference's plan of the MLP (Megatron's column- then
+    row-parallel products): the output's sum over ``model`` pending, the
+    input's gradient a partial sum over ``model``, each weight's gradient
+    its own slice, partial over the batch shards. DTensor (torch 2.11)
+    plans the backward of the same products on the 2×16×16 mesh through
+    the whole of w2's gradient (an all-reduce of (F, D) a layer) and
+    re-shards of w2 between its two dims."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    if not isinstance(x, DTensor):
+        return None
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names or ())
+    if "model" not in names or mesh.size(names.index("model")) == 1:
+        return None
+    m = names.index("model")
+    if any(q not in (Shard(0), Replicate()) for q in x.placements):
+        return None
+    ws = [p[k] for k in keys]
+    dims = [1] * (len(ws) - 1) + [0]
+    for w, d in zip(ws, dims):
+        if not isinstance(w, DTensor) or any(
+                q != (Shard(d) if i == m else Replicate())
+                for i, q in enumerate(w.placements)):
+            return None
+    batch = [i for i, q in enumerate(x.placements) if q == Shard(0)]
+    x_pl = list(x.placements)
+    x_grad = list(x_pl)
+    x_grad[m] = Partial()
+    out_pl = list(x_grad)
+    w_pl = [list(w.placements) for w in ws]
+    w_grad = [[Shard(d) if i == m else Partial() if i in batch
+               else Replicate() for i in range(mesh.ndim)] for d in dims]
+
+    def local(x, *w):
+        return hidden(x, *w[:-1]) @ w[-1]
+    return reduce_partial(local_map(
+        local, out_placements=out_pl, in_placements=(x_pl, *w_pl),
+        in_grad_placements=(x_grad, *w_grad), device_mesh=mesh)(x, *ws))
+
+
+def _swiglu_hidden(x, w1, w3):
+    return silu(x @ w1) * (x @ w3)
+
+
 def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    y = _local_mlp(_swiglu_hidden, x, p, ("w1", "w3", "w2"))
+    if y is not None:
+        return y
     h = silu(x @ p["w1"])
     h = h * (x @ p["w3"])
     # pin the hidden f-sharding so the w2 product partial-sums (one small
@@ -483,7 +721,14 @@ def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
     return h @ p["w2"]
 
 
+def _gelu_hidden(x, w1):
+    return gelu(x @ w1)
+
+
 def gelu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    y = _local_mlp(_gelu_hidden, x, p, ("w1", "w2"))
+    if y is not None:
+        return y
     h = gelu(x @ p["w1"])
     h = constrain(h, "dp", None, "model")
     return h @ p["w2"]

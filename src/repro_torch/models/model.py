@@ -853,12 +853,9 @@ def _block_decode(x, bp, cfg, cache_b, step):
 def _cross_decode(x, p, cfg, xk, xv):
     """Cross-attention against precomputed memory K/V. x: (B, 1, D)."""
     q = L._project(x, p["wq"])
-    groups = cfg.num_heads // cfg.num_kv_heads
-    kk = L._repeat_kv(xk, groups)
-    vv = L._repeat_kv(xv, groups)
     mask = torch.ones((x.shape[0], xk.shape[1]), dtype=torch.bool,
                       device=x.device)
-    o = L.decode_attention(q, kk, vv, mask)
+    o = L.cache_attention(q, xk, xv, mask, cfg.num_heads // cfg.num_kv_heads)
     return L._out_project(o, p["wo"])
 
 
@@ -881,7 +878,11 @@ def forward_decode(params: Params, cfg, tokens: torch.Tensor, cache,
                   None)
     for i in range(cfg.num_blocks):
         cb = _index(cache, i)
-        x, new_cb = _block_decode(x, _fsdp(_index(params["blocks"], i)),
+        # the weights stay where they are (no FSDP gather, unlike the train
+        # step): a token's activations are far smaller than a block's
+        # weights, and DTensor then moves them instead, as the reference's
+        # plan does (arctic decode: 15.8 → 0.23 GB of collectives a step)
+        x, new_cb = _block_decode(x, _index(params["blocks"], i),
                                   cfg, cb, step)
         x = constrain(x, "dp", None, None)
         for name, leaf in new_cb.items():

@@ -235,9 +235,8 @@ def fit_dim(x: torch.Tensor, dim: int, parts: int):
     whose gradient is unflattened). DTensor has no strategy for an uneven
     unflatten; GSPMD pads there. Attention, where the heads are such a dim,
     takes a head-parallel route of its own in training and prefill
-    (``layers._head_parallel``); the decode step's heads and the
-    projections' other uses gather here. The identity for a plain
-    tensor."""
+    (``layers._head_parallel``); the projections' other uses gather here.
+    The identity for a plain tensor."""
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x

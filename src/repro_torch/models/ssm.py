@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from .layers import rms_norm, silu
-from .shard_ctx import fit_dim, reduce_partial
+from .shard_ctx import all_gather, fit_dim, reduce_partial
 
 CONV_K = 4   # causal depthwise conv width (Mamba standard)
 
@@ -176,10 +176,11 @@ def _head_parallel(zxbc: torch.Tensor, p: dict, cfg, chunk: int):
     head count it does not divide.
 
     The projection's columns are gathered over ``model`` (its shards do
-    not fall on the z/x/B/C/dt boundaries), keeping the batch shards; each
-    device then takes the z, x and dt of its H/m heads and all of B and C
-    (N wide, shared by every head) and runs the conv, the chunked scan and
-    the gate on them alone. The output is sharded on H·P over ``model``.
+    not fall on the z/x/B/C/dt boundaries), keeping the batch shards, and
+    without gradients a piece of the sequence at a time; each device then
+    takes the z, x and dt of its H/m heads and all of B and C (N wide,
+    shared by every head) and runs the conv, the chunked scan and the gate
+    on them alone. The output is sharded on H·P over ``model``.
     Gradients: each device's share of the projection's (its heads'
     columns, its part of B and C's) sums over ``model``, as do the conv
     weights', and every parameter's over the batch shards."""
@@ -212,25 +213,43 @@ def _head_parallel(zxbc: torch.Tensor, p: dict, cfg, chunk: int):
     grad_x[m] = Partial()
     out_pl = list(pl)
     out_pl[m] = Shard(2)
-    zxbc = zxbc.redistribute(mesh, pl)
+    mine = slice(j * dl, (j + 1) * dl)
     conv_w = p["conv_w"].redistribute(mesh, rep)
     per_head = [p[k].redistribute(mesh, heads)
                 for k in ("dt_bias", "A_log", "D_skip")]
+    # without gradients the whole gathered projection (0.57 GB a device
+    # for mamba2 prefill_32k, twice: the gather and its concatenation)
+    # never exists at once: ``model``-many pieces of the sequence
+    pieces, zx_pl = None, pl
+    if (not torch.is_grad_enabled() and zxbc.placements[m] == Shard(2)
+            and zxbc.shape[2] % parts == 0):
+        pieces, zx_pl = parts, list(pl)
+        zx_pl[m] = Shard(2)
+    zxbc = zxbc.redistribute(mesh, zx_pl)
+
+    def own(zx):
+        """This device's z, x (its heads), B, C (all) and dt (its
+        heads), contiguous copies: no view keeps a gathered projection
+        alive."""
+        z, xin, Bm, Cm, dt = _split_in_proj(zx, cfg)
+        return (z[..., mine].contiguous(), xin[..., mine].contiguous(),
+                Bm.contiguous(), Cm.contiguous(),
+                dt[..., j * hl:(j + 1) * hl].contiguous())
+
+    def gathered(zx):
+        step = -(-zx.shape[1] // pieces)
+        parts_ = [own(all_gather(zx[:, s0:s0 + step], mesh, m, 2))
+                  for s0 in range(0, zx.shape[1], step)]
+        return [torch.cat(t, dim=1) for t in zip(*parts_)]
 
     def local(zx, cw, dt_bias, A_log, D_skip):
-        z, xin, Bm, Cm, dt = _split_in_proj(zx, cfg)
-        mine = slice(j * dl, (j + 1) * dl)
-        # contiguous copies: the gathered projection is not kept alive by
-        # views of it
-        z, xin, Bm, Cm = (t.contiguous() for t in (z[..., mine],
-                                                   xin[..., mine], Bm, Cm))
-        dt = dt[..., j * hl:(j + 1) * hl].contiguous()
+        z, xin, Bm, Cm, dt = gathered(zx) if pieces else own(zx)
         cw = torch.cat([cw[:, mine], cw[:, din:]], dim=1)
         return _mixer(z, xin, Bm, Cm, dt, cw, dt_bias, A_log, D_skip, chunk)
     from torch.distributed.tensor.experimental import local_map
     return local_map(
         local, out_placements=out_pl,
-        in_placements=(pl, rep, heads, heads, heads),
+        in_placements=(zx_pl, rep, heads, heads, heads),
         in_grad_placements=(grad_x, grads(Partial()), grads(Shard(0)),
                             grads(Shard(0)), grads(Shard(0))),
         device_mesh=mesh)(zxbc, conv_w, *per_head)

@@ -231,7 +231,8 @@ def test_wm_count_kernel_matches_plain(num_shards, shard_bits, q):
 @pytest.mark.cuda
 def test_wm_count_and_topk_greedy_kernels_on_two_streams():
     """One engine's operands serve both kernels on two streams at once:
-    each launch takes its own scratch and output."""
+    each launch takes its own output (at budget 48 the greedy frontier
+    lives in shared memory; past it, see the next test)."""
     from repro_torch.kernels import topk_greedy, wm_count
     dev = _card()
     _, n, eng = _serving_engines(64, 10, 500, dev)
@@ -290,6 +291,70 @@ def test_topk_greedy_kernel_matches_plain(num_shards, shard_bits, q, budget,
                                              budget, prune)
         for x, y in zip(got, want):
             assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_shards,shard_bits,q", [
+    (37, 8, 1), (37, 8, 129), (300, 6, 129), (128, 10, 4096), (5, 10, 4096)])
+def test_front_end_kernels_at_ragged_shapes(num_shards, shard_bits, q):
+    """``wm_count`` and ``topk_greedy`` against their plain versions where
+    S is no multiple of a warp's 16 shards or of 32 (37, 5), past a
+    block's 256 threads (300), at one query, 129 and 4,096, every seventh
+    row all empty; symbol bounds below 0, past 2^nbits, equal and
+    reversed; the greedy at the front-end's budget of 48 (over 300 shards
+    past a block's shared memory: the per-stream global scratch), with and
+    without pruning."""
+    from repro_torch.kernels import topk_greedy, wm_count
+    dev = _card()
+    sigma = 3000
+    _, n, eng = _serving_engines(num_shards, shard_bits, sigma, dev)
+    lo, hi, _ = (x[:q] for x in _queries(n, max(q, 8), q + 3, dev))
+    los, his = _local(eng, lo, hi)
+    los[::7] = his[::7]
+    rng = np.random.default_rng(q)
+    a = torch.from_numpy(rng.integers(-5, 4200, q)).to(dev)
+    b = torch.from_numpy(rng.integers(-5, 4200, q)).to(dev)
+    b[1::5] = a[1::5]
+    a[2::5], b[2::5] = 0, 4096
+    for x, y in ((a, b), (torch.zeros_like(a), torch.full_like(b, sigma))):
+        assert torch.equal(wm_count.wm_count_sharded(eng.quantile, los, his,
+                                                     x, y),
+                           wm_count.wm_count_plain(eng.quantile, los, his, x,
+                                                   y))
+    for prune in (True, False):
+        got = topk_greedy.topk_greedy(eng.quantile, los, his, 8, 48, prune)
+        want = topk_greedy.topk_greedy_plain(eng.quantile, los, his, 8, 48,
+                                             prune)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_topk_greedy_global_scratch_on_two_streams():
+    """Frontiers past a block's shared memory (budget 2,000) on two streams
+    at once: each stream takes its own global scratch on the operands,
+    which its later launches reuse, and every answer equals the plain
+    version."""
+    from repro_torch.kernels import topk_greedy
+    dev = _card()
+    _, n, eng = _serving_engines(16, 10, 3000, dev)
+    batches = [_local(eng, *list(_queries(n, 12, seed, dev))[:2])
+               for seed in range(6)]
+    want = [topk_greedy.topk_greedy_plain(eng.quantile, los, his, 8, 2000)
+            for los, his in batches]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    torch.cuda.synchronize(dev)
+    got = []
+    for i, (los, his) in enumerate(batches):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(topk_greedy.topk_greedy(eng.quantile, los, his, 8,
+                                               2000))
+    torch.cuda.synchronize(dev)
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            assert torch.equal(x, y)
+    assert sorted(eng.quantile.greedy_scratch) == sorted(
+        s.cuda_stream for s in streams)
 
 
 @pytest.mark.cuda

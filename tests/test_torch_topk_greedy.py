@@ -2,9 +2,10 @@
 ``csrc/topk_greedy.cu``) on the CPU: the front-end's degraded top-k at the
 smoke's shapes through the new wrapper against the old plain route and the
 reference's ``sharded_range_topk_greedy``, and a step-for-step numpy
-emulation of the kernel's loop (one warp a query: its argmax, its skipped
-empty intervals, its pruning by distinct lower bounds) against the plain
-version. The kernel itself runs in ``tests/test_torch_cuda.py``."""
+emulation of the kernel's loop (a block a query: a warp's one pass over
+its copy of the slots for the heaviest slot and the prune's threshold from
+the lanes' lists of lower bounds, the skipped empty intervals) against the
+plain version. The kernel itself runs in ``tests/test_torch_cuda.py``."""
 from __future__ import annotations
 
 import jax
@@ -55,11 +56,51 @@ def _queries(bucket: int, seed: int):
     return lo.astype(np.int32), hi.astype(np.int32)
 
 
-def emulate_kernel(op, los, his, k: int, budget: int, prune: bool):
-    """``topk_greedy_kernel`` step for step in numpy, one query at a time:
-    the lanes' argmax (first among equals), empty intervals left unprobed
-    (their children hold zeros), and the need-th largest lower bound found
-    by walking the distinct bounds downwards."""
+#: bounds a lane of the kernel keeps for the prune (``kTop``)
+KTOP = 8
+
+
+def prune_threshold(lbs, need: int) -> int:
+    """The kernel's prune threshold over the slots' lower bounds ``lbs`` in
+    slot order (None for a dead slot, which keeps its lane): for need <=
+    ``KTOP`` each of 32 lanes keeps the KTOP largest bounds of its slots
+    (slot j on lane j % 32) and the warp pops the need largest heads; past
+    that the distinct bounds walked downwards. -1 where fewer than need
+    slots are alive."""
+    if need <= KTOP:
+        lists = [sorted((x for x in lbs[lane::32] if x is not None),
+                        reverse=True)[:KTOP] for lane in range(32)]
+        v = -1
+        for _ in range(need):
+            heads = [(lst[0] if lst else -1) for lst in lists]
+            v = max(heads)
+            if v < 0:
+                return -1
+            lists[heads.index(v)].pop(0)
+        return v
+    alive = [x for x in lbs if x is not None]
+    remaining, prev = need, None
+    while True:
+        cand = [x for x in alive if prev is None or x < prev]
+        if not cand:
+            return -1
+        v = max(cand)
+        c = alive.count(v)
+        if c >= remaining:
+            return v
+        remaining -= c
+        prev = v
+
+
+def emulate_kernel(op, los, his, k: int, budget: int, prune: bool,
+                   pops=None):
+    """``topk_greedy_kernel`` step for step in numpy, one query (block) at a
+    time: a warp's one pass over its slots a round, which retires the
+    slots under the last prune's threshold (those that existed when it was
+    found), finds the heaviest slot (first among equals) and the next
+    threshold (:func:`prune_threshold`); the split's empty intervals left
+    unprobed (their children hold zeros). ``pops``, an array if given,
+    gets each query's rounds before it stopped."""
     S, nbits = op.num_shards, op.nbits
     words = op.words.numpy().view(np.uint32)
     sb, blk = op.superblock.numpy(), op.block.numpy().view(np.uint16)
@@ -91,17 +132,33 @@ def emulate_kernel(op, los, his, k: int, budget: int, prune: bool):
         lev = np.zeros(cap, np.int64)
         alive = np.zeros(cap, bool)
         w[0], alive[0] = (his[q] - los[q]).sum(), True
-        nslots, nout = 1, 0
+        nslots, nout, thresh, kill_below = 1, 0, -1, 0
         kk = min(k, cap)
-        for _ in range(budget):
+        for it in range(budget + 1):
+            # a warp's pass: the last prune's retirees (of the slots that
+            # existed when its threshold was found) go, the heaviest alive
+            # slot is found, and the prune's bounds are gathered
             used = min(nslots, cap)
+            idx = np.arange(used)
+            alive[:used] &= ~((idx < kill_below) & (w[:used] < thresh))
             wt = np.where(alive[:used], w[:used], -1)
             best = int(np.argmax(wt))
             bw = int(wt[best])
-            if bw <= 0 or nout >= k:
+            need = k - nout
+            thresh = -1
+            if it > 0 and prune and 0 < need <= kk:
+                lbs = [int((w[j] + (1 << max(nbits - int(lev[j]), 0)) - 1)
+                           >> max(nbits - int(lev[j]), 0))
+                       if alive[j] else None for j in range(used)]
+                thresh = prune_threshold(lbs, need)
+            kill_below = used
+            if it >= budget or bw <= 0 or nout >= k:
+                if pops is not None:
+                    pops[q] = it
                 break
             if lev[best] == nbits:
-                out_s[q, nout], out_c[q, nout] = sym[best], bw
+                out_s[q, min(nout, k - 1)], out_c[q, min(nout, k - 1)] = \
+                    sym[best], bw
                 nout += 1
             else:
                 a = min(nslots, cap - 2)
@@ -122,25 +179,6 @@ def emulate_kernel(op, los, his, k: int, budget: int, prune: bool):
                     w[a + 1] += iv[a + 1, s, 1] - iv[a + 1, s, 0]
                 nslots += 2
             alive[best] = False
-            need = k - nout
-            if prune and 0 < need <= kk:
-                used = min(nslots, cap)
-                idx = np.flatnonzero(alive[:used])
-                leaves = 1 << np.maximum(nbits - lev[idx], 0)
-                lb = (w[idx] + leaves - 1) // leaves
-                thresh, remaining, prev = -1, need, None
-                while True:
-                    cand = lb if prev is None else lb[lb < prev]
-                    if cand.size == 0:
-                        break
-                    v = int(cand.max())
-                    c = int((lb == v).sum())
-                    if c >= remaining:
-                        thresh = v
-                        break
-                    remaining -= c
-                    prev = v
-                alive[idx[w[idx] < thresh]] = False
         found[q] = nout
     return out_s, out_c, found
 
@@ -196,6 +234,42 @@ def test_kernel_emulation_equals_the_plain_version(engine, budget, prune):
     got = emulate_kernel(op, los.numpy(), his.numpy(), K, budget, prune)
     for a, b in zip(want, got):
         np.testing.assert_array_equal(a.numpy(), b)
+
+
+@pytest.mark.parametrize("budget,k", [(48, 12), (120, 20)])
+def test_kernel_emulation_past_the_one_pass_prune(engine, budget, k):
+    """k over the lanes' lists (``KTOP``): the prune's need reaches past 8
+    and the emulated kernel walks the distinct bounds; still equal to
+    ``topk_greedy_plain``."""
+    op = engine.quantile
+    lo, hi = _queries(12, budget + k)
+    los, his = eng_mod.local_ranges(SHARD_BITS, engine.num_shards, N,
+                                    torch.from_numpy(lo),
+                                    torch.from_numpy(hi))
+    los, his = los.T.contiguous(), his.T.contiguous()
+    want = topk_greedy_plain(op, los, his, k, budget, True)
+    got = emulate_kernel(op, los.numpy(), his.numpy(), k, budget, True)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a.numpy(), b)
+
+
+def test_plain_version_counts_the_kernels_pops(engine):
+    """``topk_frontier``'s ``pops`` (the greedy kernel's bound in
+    ``chip_smoke.py``: the most pops of a batch × a dependent load) equal
+    the emulated kernel's rounds before each query stopped."""
+    op = engine.quantile
+    lo, hi = _queries(16, 5)
+    lo[:2], hi[:2] = [7, 900], [8, 905]
+    los, his = eng_mod.local_ranges(SHARD_BITS, engine.num_shards, N,
+                                    torch.from_numpy(lo),
+                                    torch.from_numpy(hi))
+    los, his = los.T.contiguous(), his.T.contiguous()
+    got = torch.zeros(16, dtype=torch.long)
+    topk_greedy_plain(op, los, his, K, 48, True, pops=got)
+    want = np.zeros(16, np.int64)
+    emulate_kernel(op, los.numpy(), his.numpy(), K, 48, True, pops=want)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.max() <= 48 and got[-1] == 0      # the padding lane
 
 
 def test_wrapper_takes_the_plain_version_on_the_cpu(engine):
