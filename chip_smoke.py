@@ -272,19 +272,22 @@
    the card's memory; a train cell's FLOPs a device × devices must reach
    6·(N − N_embed)·tokens, N the parameters a token meets (an MoE's top k
    of its experts); collectives are counted under the reference's
-   five kinds only. The peaks of the two MoE prefills and of the train_4k
-   cells of qwen2, jamba and arctic (both meshes), dbrx and llama-vision
-   (2×16×16) must lie within 1.5× of the
+   five kinds only. The peaks of the two MoE prefills, of qwen2's
+   prefill_32k and of the train_4k cells of qwen2, jamba and arctic (both
+   meshes), dbrx and llama-vision (2×16×16) must lie within 1.5× of the
    reference's plan (``REFERENCE_PEAK_BYTES``: 34.82 and 43.55 GB; qwen2
-   4.181 and 2.191 GB, jamba 20.42 and 17.42 GB, arctic 55.43 and 95.19 GB
-   on 16×16 and 2×16×16; dbrx 25.48 and llama-vision 32.96 GB on
-   2×16×16). The collectives a step of qwen2's decode_32k (both meshes),
-   dbrx's decode_32k (16×16) and qwen2's train_4k (both meshes) must lie
-   within 1.5× of the reference's trip-counted total
-   (``REFERENCE_COLLECTIVE_BYTES``), or within 0.1 GB of it where the
-   reference moves under 0.2 GB: the decode step attends over the
-   sequence-sharded cache in place, and qwen2's 14 heads stay whole on
-   every device, as the reference's plan keeps them.
+   prefill 4.840 and 2.454 GB, train 4.181 and 2.191 GB, jamba 20.42 and
+   17.42 GB, arctic 55.43 and 95.19 GB on 16×16 and 2×16×16; dbrx 25.48
+   and llama-vision 32.96 GB on 2×16×16). The collectives a step of
+   qwen2's decode_32k, train_4k and prefill_32k (both meshes), dbrx's
+   decode_32k (16×16) and arctic's prefill_32k (16×16) must lie within
+   1.5× of the reference's trip-counted total
+   (``REFERENCE_COLLECTIVE_BYTES``; qwen2 prefill 3.240 and 1.863 GB,
+   arctic prefill 366.2 GB), or within 0.1 GB of it where the reference
+   moves under 0.2 GB: the decode step attends over the sequence-sharded
+   cache in place, and qwen2's 14 heads (and arctic's 56 in prefill) stay
+   whole on every device, as the reference's plan keeps them, attended a
+   KV group at a time without gradients.
    Prints each cell's ``lower_s``, ``compile_s``, per-device peak against
    the card's memory (and the reference's, where known) and collective
    bytes by kind. (b) The analytics cell on the card: its four-op batch
@@ -427,7 +430,11 @@ REFERENCE_PEAK_BYTES = {"dbrx_132b__prefill_32k__16x16": 34824435184,
                         "arctic_480b__train_4k__2x16x16": 95192942924,
                         "dbrx_132b__train_4k__2x16x16": 25479634276,
                         "llama_3_2_vision_90b__train_4k__2x16x16":
-                            32962499252}
+                            32962499252,
+                        # ``memory.peak_bytes`` of the trip-counted records
+                        # (``results/dryrun_ref_trips/``)
+                        "qwen2_0_5b__prefill_32k__16x16": 4840478384,
+                        "qwen2_0_5b__prefill_32k__2x16x16": 2453788208}
 REFERENCE_PEAK_RATIO = 1.5       # the port's peak at most this × the reference's
 #: the reference's collective bytes a device a step, its loops' trips
 #: counted (``scripts/dryrun_reference_trips.py``, committed in
@@ -436,7 +443,10 @@ REFERENCE_COLLECTIVE_BYTES = {"qwen2_0_5b__decode_32k__16x16": 723968,
                               "qwen2_0_5b__decode_32k__2x16x16": 361984,
                               "dbrx_132b__decode_32k__16x16": 86033086464,
                               "qwen2_0_5b__train_4k__16x16": 7789973760,
-                              "qwen2_0_5b__train_4k__2x16x16": 6224253056}
+                              "qwen2_0_5b__train_4k__2x16x16": 6224253056,
+                              "qwen2_0_5b__prefill_32k__16x16": 3240148992,
+                              "qwen2_0_5b__prefill_32k__2x16x16": 1862597632,
+                              "arctic_480b__prefill_32k__16x16": 366223834828}
 REFERENCE_COLLECTIVE_RATIO = 1.5  # the port's collectives at most this ×
 REFERENCE_COLLECTIVE_SLACK = 0.1e9   # or this much over, where the
 REFERENCE_COLLECTIVE_SMALL = 0.2e9   # reference moves less than this

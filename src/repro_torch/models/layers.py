@@ -528,25 +528,42 @@ def _head_parallel(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor,
 
 
 def _heads_pay(x, p: dict) -> bool:
-    """Whether to shard heads that ``model`` does not divide. In training,
-    where the head-parallel route moves fewer bytes than the reference's
-    plan: there GSPMD keeps every head on every device of ``model``,
-    gathers the query and output weights whole (in the forward and again
-    in the remat) and sums nothing over ``model`` in attention, where the
-    head-parallel route sums the attention's output over ``model`` in the
-    forward and the remat and its input gradient in the backward: three of
-    this device's (B, S, D) activations a layer. At equal bytes the heads
-    shard (a ``model``-th of the attention's FLOPs). qwen2 at train_4k
-    (0.8 M values in each weight, 14.7 M in a device's activation) takes
-    the reference's plan; arctic (51.4 M, 29.4 M) shards its heads.
-    Without gradients (prefill) the route sums one output a layer and the
-    heads always shard: every head on every device would hold all heads'
-    scores of a long sequence (qwen2 prefill_32k: a peak of 4.36 GB a
-    device against 0.60)."""
-    if not torch.is_grad_enabled():
-        return True
+    """Whether to shard heads that ``model`` does not divide: where the
+    head-parallel route moves fewer bytes than the reference's plan. That
+    plan keeps every head on every device of ``model``, gathers the query
+    and output weights whole and sums nothing over ``model`` in attention.
+    In training it gathers them in the forward and again in the remat,
+    where the head-parallel route sums the attention's output over
+    ``model`` in the forward and the remat and its input gradient in the
+    backward: three of this device's (B, S, D) activations a layer against
+    two gathers of ``wq`` and ``wo``. Without gradients (prefill) it is
+    one sum against one gather of ``wq``, ``wo`` and ``bq``; the heads kept
+    whole then attend one KV group at a time (:func:`_by_kv_group`), which
+    holds one group's scores at the peak instead of all heads'. At equal
+    bytes the heads shard (a ``model``-th of the attention's FLOPs).
+    qwen2 (0.8 M values in each weight) keeps its heads whole at train_4k
+    (14.7 M in a device's activation) and prefill_32k (58.7 M on 16×16);
+    arctic (51.4 M) shards them at train_4k (29.4 M) and keeps them whole
+    at prefill_32k (470 M)."""
     act = x.to_local().numel()
-    return 3 * act <= 2 * (p["wq"].numel() + p["wo"].numel())
+    weights = p["wq"].numel() + p["wo"].numel()
+    if torch.is_grad_enabled():
+        return 3 * act <= 2 * weights
+    return act <= weights + (p["bq"].numel() if "bq" in p else 0)
+
+
+def _by_kv_group(fn, groups: int):
+    """``fn``'s attention of q (B, S, H, hd) over GQA k and v (B, S, KV, hd)
+    one KV head at a time: its ``groups`` query heads against it repeated,
+    the outputs concatenated on the heads. Only one group's scores are
+    live at once. Each head's softmax is its own, so each head's output is
+    the ungrouped call's bit for bit."""
+    def attend(q, k, v):
+        return torch.cat([fn(q[:, :, g * groups:(g + 1) * groups],
+                             _repeat_kv(k[:, :, g:g + 1], groups),
+                             _repeat_kv(v[:, :, g:g + 1], groups))
+                          for g in range(k.shape[2])], dim=2)
+    return attend
 
 
 def gqa_attention_train(x: torch.Tensor, p: dict, cfg,
@@ -554,12 +571,16 @@ def gqa_attention_train(x: torch.Tensor, p: dict, cfg,
                         q_chunk: Optional[int] = None) -> torch.Tensor:
     """Full-sequence GQA attention. x: (B, S, D). On DTensors whose
     ``model`` axis does not divide the heads the heads are sharded
-    anyway, padded (:func:`_head_parallel`); elsewhere each device attends
-    over the heads and batch rows it holds (:func:`_per_shard`)."""
+    anyway, padded (:func:`_head_parallel`), where that moves fewer bytes
+    (:func:`_heads_pay`), else kept whole on every device of ``model``
+    and, without gradients, attended a KV group at a time
+    (:func:`_by_kv_group`); elsewhere each device attends over the heads
+    and batch rows it holds (:func:`_per_shard`)."""
     y = _head_parallel(x, p, cfg, positions, q_chunk)
     if y is not None:
         return reduce_partial(y)
-    if unsharded_heads(x, cfg) is not None:
+    whole = unsharded_heads(x, cfg) is not None
+    if whole:
         # left ungathered by ``model._fsdp`` for the head-parallel route
         p = {**p, **{w: gather_dp(p[w]) for w in HEAD_DIMS if w in p}}
     q, k, v = _qkv(x, p, cfg)
@@ -567,13 +588,17 @@ def gqa_attention_train(x: torch.Tensor, p: dict, cfg,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     groups = cfg.num_heads // cfg.num_kv_heads
-    y = _local_gqa(lambda q, k, v: _attend(q, k, v, q_chunk), q, k, v,
-                   p["wo"], groups)
+
+    def attend(q, k, v):
+        return _attend(q, k, v, q_chunk)
+    y = _local_gqa(attend, q, k, v, p["wo"], groups)
     if y is not None:
         return reduce_partial(y)
-    k = _repeat_kv(k, groups)
-    v = _repeat_kv(v, groups)
-    o = _per_shard(lambda q, k, v: _attend(q, k, v, q_chunk), q, k, v)
+    if whole and not torch.is_grad_enabled():
+        o = _per_shard(_by_kv_group(attend, groups), q, k, v)
+    else:
+        o = _per_shard(attend, q, _repeat_kv(k, groups),
+                       _repeat_kv(v, groups))
     return _out_project(o, p["wo"])
 
 

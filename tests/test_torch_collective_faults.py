@@ -5,8 +5,9 @@ decode step's attention over a sequence-sharded KV cache
 KV repeat and the out-projection inside (``layers._local_gqa``), the MLP
 over each device's hidden slice (``layers._local_mlp``), heads that
 ``model`` does not divide kept whole where sharding them would move more
-(``layers._heads_pay``), and the Mamba-2 mixer's projection gathered in
-pieces without gradients (``ssm._head_parallel``).
+(``layers._heads_pay``) and, without gradients, attended a KV group at
+a time (``layers._by_kv_group``), and the Mamba-2 mixer's projection
+gathered in pieces without gradients (``ssm._head_parallel``).
 
 * Values on a real mesh: 4 gloo ranks as a 2×2 ("data", "model") mesh, in
   a subprocess with its own timeout.
@@ -30,12 +31,21 @@ pieces without gradients (``ssm._head_parallel``).
     every device) moves fewer bytes: the layer within 0.05 of the plain
     route and the gradients of its input and every weight within 2% in
     norm (``tests/test_torch_head_parallel.py``'s bounds).
+  - Prefill of 9 query heads on 3 KV heads, kept whole without gradients
+    and attended a KV group at a time: each head's attention output and
+    the layer equal to the ungrouped call's bit for bit, the layer within
+    0.05 of the plain route.
+* ``_heads_pay``'s choice, by bytes, for qwen2's and arctic's weights at
+  train_4k's and prefill_32k's rows a device.
 * The 1×1 host mesh (one gloo rank) and plain tensors: the decode
   attention and the slot write equal today's route bit for bit.
 * Plan against plan on the fake 16×16 mesh (a subprocess): a decode cell
   of qwen2's smoke config, batch 128 against 2,048 cache slots; the new
   route's plan has no all-gather; the parent's route, forced in the same
   run, gathers each layer's cache (both K and V, at least once each).
+  And a prefill cell of 14 query heads on 2 KV heads: kept whole, it
+  moves fewer collective bytes than the head-parallel route and, a KV
+  group at a time, holds a lower peak than ungrouped.
 """
 import json
 import socket
@@ -254,6 +264,73 @@ GLOO = textwrap.dedent("""
             "out_ok": torch.allclose(out.full_tensor().float(),
                                      want.float(), rtol=0.05, atol=0.05)}
 
+    def prefill(res, mesh):
+        # heads ``model`` does not divide (9 query heads, 3 KV heads, on
+        # 2), kept whole without gradients: the layer's per-head attention
+        # output (what ``_out_project`` receives) and its output, attended
+        # a KV group at a time and ungrouped
+        from repro_torch.configs.base import get_config
+        from repro_torch.launch.mesh import set_mesh
+        from repro_torch.models import layers as L, model as M
+        from repro_torch.models.shard_ctx import (axis_sizes, distribute,
+                                                  placements)
+        cfg = dataclasses.replace(get_config("qwen2_0_5b", smoke=True),
+                                  num_heads=9, num_kv_heads=3, head_dim=HD,
+                                  d_model=32)
+        shapes = M.param_shapes(cfg)["blocks"]["attn"]
+        rng = np.random.default_rng(9)
+        p = {k: arr(rng.normal(size=shp[1:]) * 0.3)
+             for k, shp in shapes.items()}
+        b, s = 4, 128
+        x = arr(rng.normal(size=(b, s, cfg.d_model)))
+        pos = torch.arange(s)[None].expand(b, s)
+        with torch.no_grad():
+            want = L.gqa_attention_train(x, p, cfg, pos, q_chunk=32)
+        group, out_project, head_parallel = (L._by_kv_group, L._out_project,
+                                             L._head_parallel)
+        seen, heads_o = [], []
+
+        def rec_group(fn, groups):
+            seen.append("by_kv_group")
+            return group(fn, groups)
+
+        def rec_head_parallel(*a):
+            y = head_parallel(*a)
+            seen.append("head_parallel" if y is not None else None)
+            return y
+
+        def rec_out_project(o, w):
+            heads_o.append(o.full_tensor())
+            return out_project(o, w)
+
+        def ungrouped(fn, groups):
+            return lambda q, k, v: fn(q, L._repeat_kv(k, groups),
+                                      L._repeat_kv(v, groups))
+        L._head_parallel, L._out_project = rec_head_parallel, rec_out_project
+        specs = M.param_specs(cfg, axis_sizes(mesh))["blocks"]["attn"]
+        outs = {}
+        with set_mesh(mesh), torch.no_grad():
+            pd = {k: distribute(t, mesh, placements(tuple(specs[k])[1:],
+                                                    mesh))
+                  for k, t in p.items()}
+            xd = distribute(x, mesh, placements(("data", None, None), mesh))
+            w = M._fsdp({"attn": pd}, cfg)["attn"]
+            for route, fn in (("grouped", rec_group),
+                              ("ungrouped", ungrouped)):
+                L._by_kv_group = fn
+                outs[route] = L.gqa_attention_train(xd, w, cfg, pos,
+                                                    q_chunk=32).full_tensor()
+        L._by_kv_group, L._out_project, L._head_parallel = (
+            group, out_project, head_parallel)
+        grouped_o, ungrouped_o = heads_o
+        res["prefill_9_3"] = {
+            "routes": [r for r in seen if r],
+            "head_bits": [torch.equal(grouped_o[:, :, h], ungrouped_o[:, :, h])
+                          for h in range(cfg.num_heads)],
+            "out_bits": torch.equal(outs["grouped"], outs["ungrouped"]),
+            "out_ok": torch.allclose(outs["grouped"].float(), want.float(),
+                                     rtol=0.05, atol=0.05)}
+
     def host(res):
         from torch.distributed.device_mesh import init_device_mesh
         from torch.distributed.tensor import Replicate
@@ -290,6 +367,7 @@ GLOO = textwrap.dedent("""
             mlp(res, mesh, "swiglu")
             mlp(res, mesh, "gelu")
             mixer(res, mesh)
+            prefill(res, mesh)
         dist.destroy_process_group()
         if rank == 0:
             with open(res_path, "w") as fh:
@@ -366,6 +444,62 @@ def test_mamba_mixer_without_gradients_gathers_pieces(gloo_run):
     assert r["y_bits"] and r["out_ok"], r
 
 
+def test_prefill_heads_whole_a_kv_group_at_a_time(gloo_run):
+    """Without gradients, 9 query heads on a 2-device ``model`` axis stay
+    whole where that moves fewer bytes (``_heads_pay``) and are attended
+    one KV group (3 query heads) at a time (``_by_kv_group``): each head's
+    attention output equal to the ungrouped call's bit for bit, the layer
+    too, and within 0.05 of the plain route."""
+    r = gloo_run["prefill_9_3"]
+    assert r["routes"] == ["by_kv_group"], r
+    assert len(r["head_bits"]) == 9 and all(r["head_bits"]), r
+    assert r["out_bits"] and r["out_ok"], r
+
+
+def _meta(*shape):
+    return torch.empty(shape, device="meta")
+
+
+class _Shard:
+    """A stand-in for a DTensor's local shard (``_heads_pay`` reads only
+    its size)."""
+
+    def __init__(self, *shape):
+        self.local = _meta(*shape)
+
+    def to_local(self):
+        return self.local
+
+
+# (arch, rows a device, sequence, gradients, heads sharded): train_4k's
+# microbatch rows on 16×16 (qwen2 64 / 16, arctic 16 / 16), prefill_32k's
+# 32 rows on 16×16 and 2×16×16
+HEADS_PAY = [("qwen2_0_5b", 4, 4096, True, False),
+             ("qwen2_0_5b", 2, 32768, False, False),
+             ("qwen2_0_5b", 1, 32768, False, False),
+             ("arctic_480b", 1, 4096, True, True),
+             ("arctic_480b", 2, 32768, False, False),
+             ("arctic_480b", 1, 32768, False, False),
+             # a short prefill shards: one sum moves less than the gathers
+             ("qwen2_0_5b", 1, 512, False, True),
+             ("arctic_480b", 1, 4096, False, True)]
+
+
+@pytest.mark.parametrize("arch,rows,seq,grad,shard", HEADS_PAY)
+def test_heads_pay_by_bytes(arch, rows, seq, grad, shard):
+    """``_heads_pay``: in training the head-parallel route's three
+    activation sums a layer against two whole gathers of ``wq`` and
+    ``wo``; without gradients one sum against one gather of ``wq``, ``wo``
+    and ``bq``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(arch)
+    shapes = M.param_shapes(cfg)["blocks"]["attn"]
+    p = {k: _meta(*shp[1:]) for k, shp in shapes.items()}
+    with torch.set_grad_enabled(grad):
+        assert layers._heads_pay(_Shard(rows, seq, cfg.d_model), p) is shard
+
+
 def test_host_mesh_and_plain_tensors_bit_for_bit(tmp_path_factory):
     r = _gloo(tmp_path_factory, 1)["host"]
     assert r["out_bits"] and r["slot_bits"], r
@@ -385,6 +519,7 @@ def test_host_mesh_and_plain_tensors_bit_for_bit(tmp_path_factory):
 
 
 FAKE_MESH = textwrap.dedent("""
+    import dataclasses
     import json
     import torch
     from repro_torch.configs.base import ShapeConfig, get_config
@@ -416,8 +551,31 @@ FAKE_MESH = textwrap.dedent("""
                           "collective_bytes_per_device"],
                       "gathers": gathers}
     L.cache_attention, L.write_slot = new_attention, new_write
+
+    # prefill of 14 query heads on 2 KV heads (qwen2's), 2,048 tokens a
+    # row, 2 rows a device: heads whole a KV group at a time, the
+    # head-parallel route forced, and heads whole ungrouped
+    wide = dataclasses.replace(cfg, num_heads=14, num_kv_heads=2,
+                               head_dim=8)
+    pay, group = L._heads_pay, L._by_kv_group
+
+    def ungrouped(fn, groups):
+        return lambda q, k, v: fn(q, L._repeat_kv(k, groups),
+                                  L._repeat_kv(v, groups))
+    prefill = {}
+    for route in ("new", "head_parallel", "ungrouped"):
+        L._heads_pay = (lambda x, p: True) if route == "head_parallel" else pay
+        L._by_kv_group = ungrouped if route == "ungrouped" else group
+        program = dryrun.lower_cell(
+            wide, ShapeConfig("prefill_2k", 2048, 32, "prefill"), mesh)
+        prefill[route] = {
+            "collectives": sum(prof.analyze_program(program)[
+                "collective_bytes_per_device"].values()),
+            "peak": prof.compiled_memory(program)["peak_bytes"]}
+    L._heads_pay, L._by_kv_group = pay, group
     print(json.dumps({"cfg": [cfg.num_blocks, cfg.num_kv_heads,
-                              cfg.head_dim], "plans": out}))
+                              cfg.head_dim], "plans": out,
+                      "prefill": prefill}))
 """)
 
 
@@ -443,3 +601,17 @@ def test_decode_plan_gathers_no_cache_where_the_parent_did(fake_mesh_run):
     assert len(held) >= 2 * blocks, plans["parent"]["gathers"][:4]
     layer = 8 * 2048 * kv * hd * 2
     assert plans["parent"]["collectives"]["all-gather"] >= 2 * blocks * layer
+
+
+def test_prefill_plan_keeps_heads_whole_at_a_lower_peak(fake_mesh_run):
+    """A prefill cell of qwen2's 14 query and 2 KV heads (smoke widths,
+    2,048 tokens, 2 rows a device) on the fake 16×16 mesh: heads kept
+    whole move fewer collective bytes than the head-parallel route forced
+    in the same run (no sum of the attention's output over ``model``),
+    and attending them a KV group at a time holds a lower peak than the
+    ungrouped heads-whole route (one group's scores live, not all
+    heads')."""
+    r = fake_mesh_run["prefill"]
+    assert r["new"]["collectives"] < r["head_parallel"]["collectives"], r
+    assert r["new"]["collectives"] == r["ungrouped"]["collectives"], r
+    assert r["new"]["peak"] < r["ungrouped"]["peak"], r
