@@ -7,9 +7,8 @@
 // bucket totals and across the exclusive scan of the per-tile histograms over
 // tiles. Two launches and a torch scan between them, because CUDA blocks run
 // in no order (the TPU forms carry these sums through a sequential grid):
-//   1. count: one block of kTile threads per tile writes the tile's
-//      histogram; each warp first merges equal keys with __match_any_sync, so
-//      a tile of few distinct keys costs few shared-memory atomics.
+//   1. count: one warp per tile writes the tile's histogram
+//      (radix_rank.cu, radix_hist_kernel);
 //   2. (torch) offsets = base + across for every (tile, bucket), as one
 //      exclusive scan over the histograms laid out bucket-major.
 //   3. apply: one warp per tile walks it in 32 rounds of 32 keys, in order.
@@ -39,20 +38,6 @@ __device__ __forceinline__ int clamp_key(int key, int num_buckets) {
   return static_cast<unsigned>(key) > static_cast<unsigned>(num_buckets)
              ? num_buckets
              : key;
-}
-
-// Count phase for one tile: every thread of the kTile-thread block passes its
-// key (sentinel past n); the block writes num_buckets + 1 counts to `out`.
-__device__ __forceinline__ void tile_histogram(int key, int nb1,
-                                               int32_t* __restrict__ out) {
-  __shared__ int counts[kMaxBuckets + 1];
-  for (int b = threadIdx.x; b < nb1; b += blockDim.x) counts[b] = 0;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const unsigned peers = __match_any_sync(kFull, key);
-  if (lane == __ffs(peers) - 1) atomicAdd(&counts[key], __popc(peers));
-  __syncthreads();
-  for (int b = threadIdx.x; b < nb1; b += blockDim.x) out[b] = counts[b];
 }
 
 // Apply phase: one warp's running per-bucket counters for one tile.

@@ -20,11 +20,27 @@
 // wm_counts and wm_apply are the counterparts of the reference's two phase
 // kernels (wm_counts_pallas, wm_apply_pallas), off the build path: a count
 // launch of zeros per 1024-key block, and an apply launch given the
-// exclusive block offsets. One thread holds one key; with lane i holding key
-// i of its warp, __ballot_sync(bit) is exactly the bitmap word, and
-// __popc(~ballot & lanemask_lt) is the number of zeros before the lane.
-// Keys past n read as ones (the reference pads with ones): they sort after
-// every real key, are never written, and are masked out of the bitmap.
+// exclusive block offsets. Keys past n read as ones (the reference pads
+// with ones): they sort after every real key, are never written, and are
+// masked out of the bitmap.
+//
+// wm_counts: one thread holds one key; with lane i holding key i of its
+// warp, __ballot_sync(bit) is exactly the bitmap word.
+//
+// wm_apply: a thread a key would hold an SM to 8 KB of 4-byte loads in
+// flight, under what the card's latency needs, and a 1,024-thread block a
+// contract block would pay barriers and a scan for every 1,024 keys. So
+// each warp owns one contract block, eight warps a CUDA block, and runs the
+// warp half of zero_scan.cuh: eight 16-byte loads a lane issued before any
+// is used (4-byte loads only where a row is not 16-byte aligned, or at its
+// ragged end), ballots for the in-warp zero counts and whole bitmap words,
+// and 16-byte stores of the destinations. A warp's base is its block's own
+// zeros_excl entry, read directly, so no warp waits on another: no
+// look-back, no barrier, and any offsets give the plain version's result,
+// not only those of a scan. Destinations are computed mod 2^32, as the
+// plain version's int64 sums cast to int32. At 128 rows of 2^20 keys it
+// runs at 89% of its bound on the H100 (0.364 ms against 0.326;
+// launch/sweep_phase_kernels.py).
 //
 // Bound on the H100: bytes. Per key 4 B are read and 4 B of destination plus
 // 1/8 B of bitmap written.
@@ -32,7 +48,8 @@
 
 namespace {
 
-constexpr int kBlock = 1024;  // keys per CUDA block, one per thread
+// keys per contract block (in wm_counts one CUDA block, a thread a key)
+constexpr int kBlock = 1024;
 constexpr int kWarps = kBlock / 32;
 
 __device__ __forceinline__ unsigned level_bit(const int32_t* row, long long i,
@@ -64,50 +81,63 @@ __global__ void wm_counts_kernel(const int32_t* __restrict__ keys, int n,
   }
 }
 
-__global__ void wm_apply_kernel(const int32_t* __restrict__ keys, int n,
-                                long long key_stride, int shift, int nb,
-                                const int32_t* __restrict__ zeros_excl,
-                                const int32_t* __restrict__ total_zeros,
-                                int32_t* __restrict__ dest,
-                                long long dest_stride,
-                                int32_t* __restrict__ bitmap, int W,
-                                long long bitmap_stride) {
-  __shared__ int warp_excl[kWarps];
-  const long long row = blockIdx.x / nb;
-  const int blk = blockIdx.x % nb;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long i = static_cast<long long>(blk) * kBlock + threadIdx.x;
-  const bool valid = i < n;
-  const unsigned bit = level_bit(keys + row * key_stride, i, n, shift);
-  const unsigned ones = __ballot_sync(0xffffffffu, bit);
-  const unsigned word = __ballot_sync(0xffffffffu, valid && bit);
-  const unsigned lanemask_lt = (1u << lane) - 1u;
-  const int lane_zeros = __popc(~ones & lanemask_lt);
-  if (lane == 0) warp_excl[warp] = 32 - __popc(ones);
-  __syncthreads();
-  if (warp == 0) {
-    const int z = warp_excl[lane];
-    int x = z;
+constexpr int kApplyWarps = 8;   // contract blocks per CUDA block, one a warp
+static_assert(zero_scan::kWarpKeys == kBlock,
+              "a warp's keys are one contract block");
+
+template <bool kVec>
+__global__ void __launch_bounds__(kApplyWarps * 32)
+    wm_apply_kernel(const int32_t* __restrict__ keys, int n,
+                    long long key_stride, int shift, int nb, long long blocks,
+                    const int32_t* __restrict__ zeros_excl,
+                    const int32_t* __restrict__ total_zeros,
+                    int32_t* __restrict__ dest, long long dest_stride,
+                    int32_t* __restrict__ bitmap, int W,
+                    long long bitmap_stride) {
+  const int lane = threadIdx.x & 31;
+  const long long t =
+      static_cast<long long>(blockIdx.x) * kApplyWarps + (threadIdx.x >> 5);
+  if (t >= blocks) return;                         // the whole warp leaves
+  const long long row = t / nb;
+  const int blk = static_cast<int>(t % nb);
+  const long long first = static_cast<long long>(blk) * kBlock;
+  const int left = static_cast<int>(min(static_cast<long long>(kBlock),
+                                         n - first));
+  int key[zero_scan::kSlabs][4];
+  const int32_t* src = keys + row * key_stride + first;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, d);
-      if (lane >= d) x += y;
+  for (int s = 0; s < zero_scan::kSlabs; ++s)
+    zero_scan::load4<kVec>(src, s * 128 + 4 * lane, left, -1, key[s]);
+  const unsigned zb = static_cast<unsigned>(zeros_excl[t]);
+  const unsigned total = static_cast<unsigned>(total_zeros[row]);
+  const zero_scan::Ballots bal = zero_scan::ballot_slabs(key, shift, lane);
+
+  // word `lane` of the block: keys 32 lane .. 32 lane + 31, zero past n
+  const int gw = blk * (kBlock / 32) + lane;
+  if (gw < W) {
+    const unsigned word = zero_scan::slab_word(bal.mine[0], lane);
+    const int real = left - 32 * lane;
+    bitmap[row * bitmap_stride + gw] = static_cast<int32_t>(
+        real >= 32 ? word : word & ((1u << real) - 1u));
+  }
+
+  // zeros go to zb + (zeros before the key in the block), ones to total +
+  // (ones before the block) + (ones before the key in the block)
+  const unsigned ones_base = total + static_cast<unsigned>(first) - zb;
+  int32_t* drow = dest + row * dest_stride + first;
+#pragma unroll
+  for (int s = 0; s < zero_scan::kSlabs; ++s) {
+    const int i0 = s * 128 + 4 * lane;
+    unsigned z = static_cast<unsigned>(bal.zb[s]);
+    int d[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const unsigned bit = (bal.bits[s / 8] >> (4 * (s % 8) + c)) & 1u;
+      d[c] = static_cast<int>(bit ? ones_base + (i0 + c) - z : zb + z);
+      z += 1u - bit;
     }
-    warp_excl[lane] = x - z;
+    zero_scan::store4<kVec>(drow, i0, left, d);
   }
-  __syncthreads();
-  const int local_zeros = warp_excl[warp] + lane_zeros;  // zeros before key
-  const int zb = zeros_excl[row * nb + blk];
-  if (valid) {
-    const int d =
-        bit == 0u ? zb + local_zeros
-        : total_zeros[row] + (blk * kBlock - zb)
-              + (static_cast<int>(threadIdx.x) - local_zeros);
-    dest[row * dest_stride + i] = d;
-  }
-  const long long w = static_cast<long long>(blk) * kWarps + warp;
-  if (lane == 0 && w < W) bitmap[row * bitmap_stride + w] =
-      static_cast<int32_t>(word);
 }
 
 constexpr int kCountThreads = 256;
@@ -212,16 +242,29 @@ extern "C" int wm_apply(const void* keys, int rows, int n,
                         const void* zeros_excl, const void* total_zeros,
                         void* dest, long long dest_stride, void* bitmap,
                         int W, long long bitmap_stride, void* stream) {
-  const long long grid = static_cast<long long>(rows) * nb;
+  const long long blocks = static_cast<long long>(rows) * nb;
+  const long long grid = (blocks + kApplyWarps - 1) / kApplyWarps;
   if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
+                   (rows == 1 || key_stride % 4 == 0) &&
+                   reinterpret_cast<uintptr_t>(dest) % 16 == 0 &&
+                   (rows == 1 || dest_stride % 4 == 0);
   if (grid > 0) {
-    wm_apply_kernel<<<static_cast<unsigned>(grid), kBlock, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(keys), n, key_stride, shift, nb,
-        static_cast<const int32_t*>(zeros_excl),
-        static_cast<const int32_t*>(total_zeros),
-        static_cast<int32_t*>(dest), dest_stride,
-        static_cast<int32_t*>(bitmap), W, bitmap_stride);
+    const auto st = static_cast<cudaStream_t>(stream);
+    const unsigned g = static_cast<unsigned>(grid);
+    const auto* k = static_cast<const int32_t*>(keys);
+    const auto* ze = static_cast<const int32_t*>(zeros_excl);
+    const auto* tz = static_cast<const int32_t*>(total_zeros);
+    auto* d = static_cast<int32_t*>(dest);
+    auto* b = static_cast<int32_t*>(bitmap);
+    if (vec)
+      wm_apply_kernel<true><<<g, kApplyWarps * 32, 0, st>>>(
+          k, n, key_stride, shift, nb, blocks, ze, tz, d, dest_stride, b, W,
+          bitmap_stride);
+    else
+      wm_apply_kernel<false><<<g, kApplyWarps * 32, 0, st>>>(
+          k, n, key_stride, shift, nb, blocks, ze, tz, d, dest_stride, b, W,
+          bitmap_stride);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,8 @@
 // Single-pass stable 0/1 partition of key rows: a zero scan with decoupled
 // look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan with
 // Decoupled Look-back", NVIDIA 2016), shared by wm_level.cu and wt_level.cu.
+// wm_level.cu's wm_apply uses its warp half alone (load4, ballot_slabs,
+// slab_word, store4): a warp's keys there are one block with a known base.
 //
 // One launch places every key of a wavelet level. The destination of key i
 // needs Z(i), the zeros before i in its row, and per-node constants that
@@ -122,20 +124,64 @@ __device__ __forceinline__ unsigned spread4(unsigned x) {
   return (x | (x << 3)) & 0x11111111u;
 }
 
-// The bitmap words of a warp's keys: word 32r + lane (< 4 kSlabs) is byte
-// (lane & 3) of the four ballots of slab 8r + (lane >> 2), which the lane
-// holds in mine[r]; masked past n.
+// The ballots of a warp's kSlabs slabs of 128 keys, lane l holding keys
+// 4l..4l+3 of slab s in key[s]: ballot c of a slab has bit l set where key
+// 4l + c is a one. A lane keeps its keys only as their level bits.
+struct Ballots {
+  unsigned bits[(kSlabs + 7) / 8];     // bit 4 (s % 8) + c of bits[s / 8]
+  int zb[kSlabs];                      // zeros of the warp before key 4 lane
+  int zeros;                           // zeros of the warp
+  unsigned mine[(kSlabs + 7) / 8][4];  // the ballots of this lane's words:
+                                       // slab s where s % 8 == lane >> 2
+};
+
+__device__ __forceinline__ Ballots ballot_slabs(const int (&key)[kSlabs][4],
+                                                int shift, int lane) {
+  Ballots w = {};
+  const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+  for (int s = 0; s < kSlabs; ++s) {
+    unsigned ones[4];
+    int before = 0, slab_ones = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const unsigned b = (static_cast<uint32_t>(key[s][c]) >> shift) & 1u;
+      w.bits[s / 8] |= b << (4 * (s % 8) + c);
+      ones[c] = __ballot_sync(kFull, b);
+      before += __popc(~ones[c] & lt);
+      slab_ones += __popc(ones[c]);
+    }
+    w.zb[s] = w.zeros + before;
+    w.zeros += 128 - slab_ones;
+    if ((s % 8) == (lane >> 2)) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w.mine[s / 8][c] = ones[c];
+    }
+  }
+  return w;
+}
+
+// Bitmap word (lane & 3) of a slab, keys 32 (lane & 3) .. + 31, from the
+// slab's four ballots: byte (lane & 3) of each, interleaved.
+__device__ __forceinline__ unsigned slab_word(const unsigned (&m)[4],
+                                              int lane) {
+  const int sh = 8 * (lane & 3);
+  unsigned word = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) word |= spread4((m[c] >> sh) & 0xffu) << c;
+  return word;
+}
+
+// The bitmap words of a warp's keys: word 32r + lane (< 4 kSlabs) is
+// slab_word of slab 8r + (lane >> 2), whose ballots the lane holds in
+// mine[r]; masked past n.
 template <int kRounds>
 __device__ __forceinline__ void write_words(
     const Params& p, int row, int warp_base, int lane,
     const unsigned (&mine)[kRounds][4]) {
-  const int sh = 8 * (lane & 3);
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
-    unsigned word = 0;
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      word |= spread4((mine[r][c] >> sh) & 0xffu) << c;
+    const unsigned word = slab_word(mine[r], lane);
     const int gw = warp_base / 32 + 32 * r + lane;
     const int left = p.n - 32 * gw;
     if (32 * r + lane < 4 * kSlabs && gw < p.W)
@@ -184,34 +230,9 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // ballots per slab and key slot: the in-warp zero counts and the bitmap;
-  // the keys are kept only as their level bits, bit 4 (s % 8) + c of
-  // bits[s / 8] for key 4 lane + c of slab s
-  const unsigned lt = (1u << lane) - 1u;
-  unsigned bits[(kSlabs + 7) / 8] = {};
-  int zb[kSlabs];                      // zeros of the warp before key 4 lane
-  int warp_zeros = 0;
-  unsigned mine[(kSlabs + 7) / 8][4] = {};   // ballots of this lane's words
-#pragma unroll
-  for (int s = 0; s < kSlabs; ++s) {
-    unsigned ones[4];
-    int before = 0, slab_ones = 0;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const unsigned b = (static_cast<uint32_t>(key[s][c]) >> p.shift) & 1u;
-      bits[s / 8] |= b << (4 * (s % 8) + c);
-      ones[c] = __ballot_sync(kFull, b);
-      before += __popc(~ones[c] & lt);
-      slab_ones += __popc(ones[c]);
-    }
-    zb[s] = warp_zeros + before;
-    warp_zeros += 128 - slab_ones;
-    if ((s % 8) == (lane >> 2)) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) mine[s / 8][c] = ones[c];
-    }
-  }
-  if (lane == 0) s_warp_zeros[warp] = warp_zeros;
+  // ballots per slab and key slot: the in-warp zero counts and the bitmap
+  const Ballots bal = ballot_slabs(key, p.shift, lane);
+  if (lane == 0) s_warp_zeros[warp] = bal.zeros;
   __syncthreads();
   int warp_excl = 0, agg = 0;
 #pragma unroll
@@ -231,10 +252,10 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   } else {
-    write_words(p, row, warp_base, lane, mine);
+    write_words(p, row, warp_base, lane, bal.mine);
   }
   __syncthreads();
-  if (warp == 0) write_words(p, row, warp_base, lane, mine);
+  if (warp == 0) write_words(p, row, warp_base, lane, bal.mine);
 
   int s0 = 0, s1 = 0, zs = 0;
   if constexpr (!kTree) s1 = p.total_zeros[row * p.total_stride];
@@ -243,11 +264,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int s = 0; s < kSlabs; ++s) {
     const int i0 = warp_base + s * 128 + 4 * lane;
-    int z = zbase + zb[s];                     // Z(i0)
+    int z = zbase + bal.zb[s];                 // Z(i0)
     int d[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const int bit = (bits[s / 8] >> (4 * (s % 8) + c)) & 1u;
+      const int bit = (bal.bits[s / 8] >> (4 * (s % 8) + c)) & 1u;
       if constexpr (kTree) {
         const int v = (nodes[s] >> (8 * c)) & 0xffu;
         s0 = s_table[v];

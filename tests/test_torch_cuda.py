@@ -66,21 +66,52 @@ def test_rank_build_levels_kernel_matches_plain(n):
         ops.rank_build(words[3], n), ref.rank_build_ref(words[3], n)))
 
 
+#: row lengths the 16-byte loads and stores can get wrong: one short of,
+#: at and one past a 1,024-key block and an 8-block CUDA block
+PHASE_NS = [1, 31, 1000, 1023, 1024, 1025, 8191, 8192, 8193, 70001]
+
+
+def _phase_layouts(x: torch.Tensor, n: int) -> dict:
+    """Four views of the first n columns of x: its first row alone (16-byte
+    loads up to a ragged end), contiguous rows (16-byte loads where n is a
+    multiple of 4), rows that start 4 bytes past 16-byte alignment, and
+    16-byte aligned rows whose stride is 1 more than a multiple of 4 (the
+    kernels' 4-byte fallback takes the last two)."""
+    wide = torch.empty((x.shape[0], (n + 3) // 4 * 4 + 1), dtype=x.dtype,
+                       device=x.device)
+    wide[:, :n] = x[:, :n]
+    off = torch.empty((x.shape[0], n + 1), dtype=x.dtype, device=x.device)
+    off[:, 1:] = x[:, :n]
+    return {"row": x[:1, :n].contiguous(), "contiguous": x[:, :n].contiguous(),
+            "offset": off[:, 1:n + 1], "stride": wide[:, :n]}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,shift", [(1, 0), (1000, 3), (1025, 7),
-                                     (70001, 5)])
+@pytest.mark.parametrize("n", PHASE_NS)
+@pytest.mark.parametrize("shift", [0, 3, 7, 31])
 def test_wm_level_kernels_match_plain(n, shift):
+    """Both phases against their plain versions on every layout; wm_apply
+    also with random offsets and totals that are the scan of no counts."""
     dev = _card()
-    keys = torch.from_numpy(np.random.default_rng(n).integers(
-        0, 256, (4, n)).astype(np.int32)).to(dev)
-    keys[0], keys[1] = 0, 255
-    counts = wm_level.wm_counts(keys, shift, n)
-    assert torch.equal(counts, wm_level.wm_counts_plain(keys, shift, n))
-    incl = torch.cumsum(counts, 1)
-    zexcl, total = (incl - counts).int(), incl[:, -1].int()
-    got = wm_level.wm_apply(keys, zexcl, total, shift, n)
-    want = wm_level.wm_apply_plain(keys, zexcl, total, shift, n)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    rng = np.random.default_rng(n * 32 + shift)
+    keys = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (4, n)).astype(
+        np.int32)).to(dev)
+    keys[0], keys[1] = 0, -1
+    nb = (n + 1023) // 1024
+    wild = (torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (4, nb))
+                             .astype(np.int32)).to(dev),
+            torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, 4)
+                             .astype(np.int32)).to(dev))
+    for layout, k in _phase_layouts(keys, n).items():
+        counts = wm_level.wm_counts(k, shift, n)
+        assert torch.equal(counts, wm_level.wm_counts_plain(k, shift, n)), \
+            layout
+        incl = torch.cumsum(counts, 1)
+        scanned = ((incl - counts).int(), incl[:, -1].int())
+        for zexcl, total in (scanned, (wild[0][:len(k)], wild[1][:len(k)])):
+            got = wm_level.wm_apply(k, zexcl, total, shift, n)
+            want = wm_level.wm_apply_plain(k, zexcl, total, shift, n)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), layout
 
 
 def _wide_queries(n: int, shard_bits: int, seed: int, dev):
@@ -394,20 +425,32 @@ def test_main_path_on_the_card_matches_the_cpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 31, 1000, 1024, 1025, 70001])
-@pytest.mark.parametrize("nb", [2, 33, 256, 512])
+@pytest.mark.parametrize("n", PHASE_NS)
+@pytest.mark.parametrize("nb", [1, 2, 33, 255, 256, 512])
 def test_radix_rank_kernels_match_plain(n, nb):
+    """Both phases against their plain versions on every layout, with
+    digits -1, B and 2^31 - 1 planted in a copy of row 2: the histogram
+    counts them in the sentinel column, the apply phase sorts them after
+    every real digit."""
     dev = _card()
     d = torch.from_numpy(np.random.default_rng(n + nb).integers(
         0, nb, (3, n)).astype(np.int32)).to(dev)
     d[0] = 0                                      # one bucket only
-    hist = radix_rank.radix_hist(d, nb, n)
-    assert torch.equal(hist, radix_rank.radix_hist_plain(d, nb, n))
-    offsets = radix_rank.bucket_offsets(hist)
-    got = radix_rank.radix_apply(d, offsets, nb, n)
-    assert torch.equal(got, radix_rank.radix_apply_plain(d, offsets, nb, n))
-    for r in range(3):
-        assert torch.equal(got[r], ref.radix_rank_ref(d[r], nb))
+    planted = d[2].clone()
+    planted[::7] = -1
+    planted[3::7] = nb
+    planted[5::11] = (1 << 31) - 1
+    d = torch.cat([d, planted[None]])
+    for layout, x in _phase_layouts(d, n).items():
+        hist = radix_rank.radix_hist(x, nb, n)
+        assert torch.equal(hist, radix_rank.radix_hist_plain(x, nb, n)), \
+            layout
+        offsets = radix_rank.bucket_offsets(hist)
+        got = radix_rank.radix_apply(x, offsets, nb, n)
+        assert torch.equal(got, radix_rank.radix_apply_plain(
+            x, offsets, nb, n)), layout
+        for r in range(min(3, len(x))):
+            assert torch.equal(got[r], ref.radix_rank_ref(x[r], nb)), layout
 
 
 def _twice(fn):

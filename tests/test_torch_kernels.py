@@ -19,6 +19,7 @@ import torch
 from repro.core.wavelet_matrix import build_wavelet_matrix as jbuild
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.wm_level import wm_apply_pallas
 from repro_torch.core import bitops
 from repro_torch.core.wavelet_matrix import build_wavelet_matrix
 from repro_torch.kernels import build, ops, rank_build, ref, wm_level
@@ -145,6 +146,28 @@ def test_wm_level_phases_match_pallas_interpret():
     counts = wm_level.wm_counts(_t(keys)[None], shift, n)
     assert counts.shape == (1, 3)                  # 2500 keys → 3 blocks
     assert int(counts.sum()) == int(jz)
+
+
+def test_wm_apply_plain_matches_pallas_interpret():
+    """The apply phase's plain version, which the card kernel is held to,
+    against the reference's wm_apply_pallas in interpret mode, once, tiny:
+    2,500 keys in 3 blocks, the keys past n padded with ones, the block
+    offsets and the total from numpy."""
+    n, shift = 2500, 5
+    keys = _keys(3, n, 11)[2]
+    padded = np.full(3 * 1024, 0xFFFFFFFF, np.uint32)
+    padded[:n] = keys
+    counts = (1 - ((padded >> shift) & 1)).reshape(3, 1024).sum(1)
+    zexcl = (np.cumsum(counts) - counts).astype(np.int32)
+    total = np.array([[counts.sum()]], np.int32)
+    jd, jb = wm_apply_pallas(jnp.asarray(padded[None]),
+                             jnp.asarray(zexcl[None]), jnp.asarray(total),
+                             shift, n, interpret=True)
+    d, b = wm_level.wm_apply(_t(keys)[None], torch.from_numpy(zexcl)[None],
+                             torch.from_numpy(total[0]), shift, n)
+    assert np.array_equal(d[0].numpy(), np.asarray(jd)[0, :n])
+    words = bitops.num_words(n)
+    assert np.array_equal(_u(b[0]), _u(np.asarray(jb)[0, :words]))
 
 
 def test_wm_level_padding_keys_read_as_ones():
