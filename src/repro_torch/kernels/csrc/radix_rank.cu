@@ -15,15 +15,8 @@
 //     ids from an atomic counter in row-major launch order;
 //       - the tile's digits go to shared memory by 16-byte cp.async copies
 //         (no registers hold them in flight);
-//       - each warp ranks its 1,024 digits in 32 ordered rounds; in round r
-//         lane l takes digit 32 r + l of the warp, so rounds run in digit
-//         order and lanes in digit order within a round, which keeps the
-//         rank stable; a lane's peers (the lanes of its digit) come from a
-//         shared-memory atomicOr of lane bits into a per-warp, per-bucket
-//         mask (faster in the sweep than __match_any_sync or one
-//         __ballot_sync per digit bit), its rank from a per-warp,
-//         per-bucket counter plus its lower peers; the lowest peer advances
-//         the counter and clears the mask;
+//       - each warp ranks its 1,024 digits in the 32 ordered rounds of
+//         bucket_rank.cuh (peer masks), its counters starting at 0;
 //       - the per-warp counts are scanned over the warps: each warp's
 //         offset in the tile, and the tile's histogram;
 //       - thread b publishes bucket b's tile count in a 32-bit status word
@@ -45,23 +38,36 @@
 // radix_hist and radix_apply are the counterparts of the two Pallas phase
 // kernels, off the build path: a count launch of per-1,024-digit-tile
 // histograms (B+1 columns, the sentinel last), the offsets' scan in torch,
-// and an apply launch in which one warp walks a tile in 32 ordered rounds
-// with __match_any_sync (bucket_rank.cuh). An out-of-range digit there sorts
-// after every real one.
+// and an apply launch given each tile's offsets. An out-of-range digit there
+// sorts after every real one. A thread a digit would hold an SM to 8 KB of
+// 4-byte loads in flight, under what the card's latency needs, and a
+// 1,024-thread block a tile would pay barriers for every 1,024 digits. So in
+// both each warp owns one tile, eight warps a block, and no warp waits on
+// another: no barrier.
 //
 // radix_hist is bound by bytes: 4 B of digit read and (B+1) * 4 / 1,024 B
-// of histogram written per digit (1 B at B = 256). A thread a digit would
-// hold an SM to 8 KB of 4-byte loads in flight, under what the card's
-// latency needs, and a 1,024-thread block a tile would pay barriers and
-// 257 counters for every 1,024 digits. So each warp owns one tile, eight
-// warps a block: a lane issues all of its eight 16-byte loads before it
-// uses any (4-byte loads only where a row is not 16-byte aligned, or at its
-// ragged end), the warp zeroes its own B+1 counters in shared memory
-// meanwhile, adds one shared atomic a digit (as radix_totals does; merging
-// equal digits with __match_any_sync first is slower), and writes the
-// counters out coalesced. No warp waits on another: no barrier. At 2^27
-// digits it runs at 92% of its bound on the H100 (0.217 ms against 0.200;
+// of histogram written per digit (1 B at B = 256). A lane issues all of its
+// eight 16-byte loads before it uses any (4-byte loads only where a row is
+// not 16-byte aligned, or at its ragged end), the warp zeroes its own B+1
+// counters in shared memory meanwhile, adds one shared atomic a digit (as
+// radix_totals does; merging equal digits with __match_any_sync first is
+// slower), and writes the counters out coalesced. At 2^27 digits it runs at
+// 92% of its bound on the H100 (0.217 ms against 0.200;
 // launch/sweep_phase_kernels.py).
+//
+// radix_apply is bound by bytes too: 4 B of digit read and 4 B of
+// destination written per digit, and (B+1) * 4 / 1,024 B of offsets read.
+// Its rank must visit a tile's digits in order, while a lane's 16-byte load
+// holds four digits of four different rounds, and a warp that walks its
+// rounds behind one 4-byte load each keeps 128 B in flight. So a warp first
+// puts its whole tile in flight by 16-byte cp.async copies into its slice
+// of shared memory, and the tile's B+1 offsets by 4-byte copies into its
+// counters, zeroing its peer masks meanwhile; ranks in the 32 ordered rounds
+// of bucket_rank.cuh, each destination written back over its digit; and
+// stores the slice out with 16-byte stores. A warp's counters start at its
+// own tile's offsets, read directly: no look-back, and any offsets give the
+// plain version's result, not only those of a scan. Destinations wrap mod
+// 2^32, as the plain version's int64 sums cast to int32.
 //
 // The build path's bound on the H100: bytes. Per digit 4 B are read and
 // 4 B of destination written; the status words (B per tile) and the starts
@@ -69,46 +75,100 @@
 // reads the digits a second time.
 #include "bucket_rank.cuh"
 #include "look_back.cuh"
+#include "zero_scan.cuh"
 
 namespace {
 
-using bucket_rank::kApplyWarps;
 using bucket_rank::kMaxBuckets;
 using bucket_rank::kTile;
 
-__device__ __forceinline__ int digit_at(const int32_t* row, long long i, int n,
-                                        int num_buckets) {
-  return i < n ? bucket_rank::clamp_key(row[i], num_buckets) : num_buckets;
+__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(gmem)
+               : "memory");
 }
 
-__global__ void radix_apply_kernel(const int32_t* __restrict__ digits, int rows,
-                                   int n, long long stride, int num_buckets,
-                                   int nb, const int32_t* __restrict__ offsets,
-                                   int32_t* __restrict__ dest,
-                                   long long dest_stride) {
-  __shared__ int counters[kApplyWarps][kMaxBuckets + 1];
+__device__ __forceinline__ void copy4_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_async() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+
+// ---- the apply phase -----------------------------------------------------
+
+constexpr int kApplyWarps = bucket_rank::kWarps;   // tiles a block, one a warp
+constexpr int kApplySlabs = kTile / 128;           // 16-byte copies a lane
+
+template <bool kVec>
+__global__ void __launch_bounds__(kApplyWarps * 32)
+    radix_apply_kernel(const int32_t* __restrict__ digits, int n,
+                       long long stride, int num_buckets, int nb,
+                       long long tiles, const int32_t* __restrict__ offsets,
+                       int32_t* __restrict__ dest, long long dest_stride) {
+  extern __shared__ int smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long t = static_cast<long long>(blockIdx.x) * kApplyWarps + warp;
-  if (t >= static_cast<long long>(rows) * nb) return;  // whole warp leaves
+  if (t >= tiles) return;                          // the whole warp leaves
+  const int B = num_buckets, nb1 = B + 1;
+  int* slice = smem + warp * kTile;                // digits, then destinations
+  unsigned* cnt = reinterpret_cast<unsigned*>(smem + kApplyWarps * kTile) +
+                  warp * nb1;
+  unsigned* lanes = cnt + kApplyWarps * nb1;
   const long long row = t / nb;
-  const int tile = static_cast<int>(t % nb);
-  const int nb1 = num_buckets + 1;
-  bucket_rank::TileRanker ranker{counters[warp]};
-  ranker.seed(offsets + t * nb1, nb1, lane);
-  const int32_t* src = digits + row * stride;
-  int32_t* out = dest + row * dest_stride;
+  const long long first = (t % nb) * kTile;
+  const int left = static_cast<int>(min(static_cast<long long>(kTile),
+                                         n - first));
+  const int32_t* src = digits + row * stride + first;
+
+  // everything in flight at once: the tile, its offsets; the masks zeroed
+  if (kVec && left == kTile) {
+#pragma unroll
+    for (int s = 0; s < kApplySlabs; ++s)
+      copy16_async(slice + s * 128 + 4 * lane, src + s * 128 + 4 * lane);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kTile / 32; ++k) {
+      const int i = 32 * k + lane;
+      slice[i] = i < left ? src[i] : B;
+    }
+  }
+  const int32_t* off = offsets + t * nb1;
+  for (int b = lane; b < nb1; b += 32) {
+    copy4_async(cnt + b, off + b);
+    lanes[b] = 0;
+  }
+  wait_async();
+  __syncwarp();
+
+#pragma unroll 4
   for (int r = 0; r < 32; ++r) {
-    const long long i = static_cast<long long>(tile) * kTile + r * 32 + lane;
-    const int d = ranker.rank(digit_at(src, i, n, num_buckets), lane);
-    if (i < n) out[i] = d;
+    int* mine = slice + 32 * r + lane;
+    *mine = static_cast<int>(bucket_rank::peer_rank(
+        cnt, lanes, bucket_rank::clamp_key(*mine, B), lane));
+  }
+  __syncwarp();
+
+  int32_t* out = dest + row * dest_stride + first;
+#pragma unroll
+  for (int s = 0; s < kApplySlabs; ++s) {
+    const int i = s * 128 + 4 * lane;
+    const int4 v = *reinterpret_cast<const int4*>(slice + i);
+    const int d[4] = {v.x, v.y, v.z, v.w};
+    zero_scan::store4<kVec>(out, i, left, d);
   }
 }
 
 // ---- the one-sweep rank --------------------------------------------------
 
-constexpr int kScanWarps = 8;
+constexpr int kScanWarps = bucket_rank::kWarps;
 constexpr int kScanThreads = kScanWarps * 32;
-constexpr int kWarpDigits = 1024;        // 32 rounds of 32 digits
+constexpr int kWarpDigits = kTile;       // 32 rounds of 32 digits
 constexpr int kScanTile = kScanWarps * kWarpDigits;
 constexpr int kBucketsPerThread =
     (kMaxBuckets + kScanThreads - 1) / kScanThreads;
@@ -117,12 +177,6 @@ constexpr int kTotalsThreads = 256;
 constexpr int kTotalsLoads = 8;          // 16-byte loads in flight a round
 constexpr int kTotalsRounds = 8;
 constexpr int kTotalsChunk = kTotalsThreads * kTotalsLoads * kTotalsRounds * 4;
-
-// Dynamic shared memory of the scan: the tile's digits (then their ranks),
-// and one counter and one lane mask per bucket and warp.
-constexpr int scan_shared_bytes(int num_buckets) {
-  return (kScanTile + 2 * kScanWarps * (num_buckets + 1)) * 4;
-}
 
 struct ScanParams {
   const int32_t* digits;
@@ -135,13 +189,6 @@ struct ScanParams {
   unsigned* status;              // (tiles, B) words, zeroed
   unsigned* next_tile;           // zeroed
 };
-
-__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
 
 template <bool kVec>
 __global__ void __launch_bounds__(kScanThreads)
@@ -170,8 +217,7 @@ __global__ void __launch_bounds__(kScanThreads)
       const int i = 4 * (k * kScanThreads + threadIdx.x);
       copy16_async(digit + i, src + i);
     }
-    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::
-                     : "memory");
+    wait_async();
   } else {
     for (int i = threadIdx.x; i < kScanTile; i += kScanThreads)
       digit[i] = i < left ? src[i] : B;
@@ -190,22 +236,12 @@ __global__ void __launch_bounds__(kScanThreads)
   unsigned* lanes = reinterpret_cast<unsigned*>(
       counters + (kScanWarps + warp) * (B + 1));
   int* mine = digit + warp * kWarpDigits + lane;
-  const unsigned lt = (1u << lane) - 1u;
 #pragma unroll 4
   for (int r = 0; r < 32; ++r) {
     const int d = bucket_rank::clamp_key(mine[32 * r], B);
-    atomicOr(lanes + d, 1u << lane);
-    __syncwarp();
-    const unsigned peers = lanes[d];
-    const int before = cnt[d];
-    const int below = __popc(peers & lt);
-    __syncwarp();
-    if (below == 0) {
-      cnt[d] = before + __popc(peers);
-      lanes[d] = 0;
-    }
-    __syncwarp();
-    mine[32 * r] = d | (before + below) << 16;
+    const unsigned rank = bucket_rank::peer_rank(
+        reinterpret_cast<unsigned*>(cnt), lanes, d, lane);
+    mine[32 * r] = d | static_cast<int>(rank) << 16;
   }
   __syncthreads();
 
@@ -243,20 +279,13 @@ __global__ void __launch_bounds__(kScanThreads)
   }
 }
 
-// Digits i..i+3 of a row as bucket indices (the sentinel past n and for
-// digits outside [0, B)): one 16-byte load where all four are real and the
-// row is 16-byte aligned.
+// Digits i..i+3 of a row as bucket indices: the sentinel past n and for
+// digits outside [0, B).
 template <bool kVec>
 __device__ __forceinline__ void load_digits4(const int32_t* __restrict__ row,
                                              int i, int n, int B,
                                              int (&v)[4]) {
-  if (kVec && i + 3 < n) {
-    const int4 x = *reinterpret_cast<const int4*>(row + i);
-    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-  } else {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) v[c] = i + c < n ? row[i + c] : B;
-  }
+  zero_scan::load4<kVec>(row, i, n, B, v);
 #pragma unroll
   for (int c = 0; c < 4; ++c) v[c] = bucket_rank::clamp_key(v[c], B);
 }
@@ -371,12 +400,22 @@ extern "C" int radix_apply(const void* digits, int rows, int n,
   const long long tiles = static_cast<long long>(rows) * nb;
   const long long grid = (tiles + kApplyWarps - 1) / kApplyWarps;
   if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = reinterpret_cast<uintptr_t>(digits) % 16 == 0 &&
+                   (rows == 1 || stride % 4 == 0) &&
+                   reinterpret_cast<uintptr_t>(dest) % 16 == 0 &&
+                   (rows == 1 || dest_stride % 4 == 0);
   if (grid > 0) {
-    radix_apply_kernel<<<static_cast<unsigned>(grid), kApplyWarps * 32, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(digits), rows, n, stride, num_buckets, nb,
-        static_cast<const int32_t*>(offsets), static_cast<int32_t*>(dest),
-        dest_stride);
+    const auto kernel =
+        vec ? &radix_apply_kernel<true> : &radix_apply_kernel<false>;
+    const int smem = bucket_rank::shared_bytes(num_buckets);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<static_cast<unsigned>(grid), kApplyWarps * 32, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(digits), n, stride, num_buckets, nb,
+        tiles, static_cast<const int32_t*>(offsets),
+        static_cast<int32_t*>(dest), dest_stride);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -437,7 +476,7 @@ extern "C" int radix_scan(const void* digits, int rows, int n,
   p.next_tile = p.status + tiles * num_buckets;
   const bool vec = reinterpret_cast<uintptr_t>(digits) % 16 == 0 &&
                    (rows == 1 || stride % 4 == 0);
-  const int smem = scan_shared_bytes(num_buckets);
+  const int smem = bucket_rank::shared_bytes(num_buckets);
   if (tiles > 0) {
     const auto st = static_cast<cudaStream_t>(stream);
     const unsigned grid = static_cast<unsigned>(tiles);
@@ -465,7 +504,7 @@ extern "C" int radix_scan(const void* digits, int rows, int n,
 // out[0..3].
 extern "C" int radix_scan_info(void* out) {
   int* o = static_cast<int*>(out);
-  const int smem = scan_shared_bytes(256);
+  const int smem = bucket_rank::shared_bytes(256);
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncSetAttribute(
       radix_scan_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,

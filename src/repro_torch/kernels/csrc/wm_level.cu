@@ -24,69 +24,66 @@
 // with ones): they sort after every real key, are never written, and are
 // masked out of the bitmap.
 //
-// wm_counts: one thread holds one key; with lane i holding key i of its
-// warp, __ballot_sync(bit) is exactly the bitmap word.
+// Both are bound by bytes. A thread a key would hold an SM to 8 KB of
+// 4-byte loads in flight, under what the card's latency needs, and a
+// 1,024-thread block a contract block would pay barriers for every 1,024
+// keys. So in both each warp owns one contract block, eight warps a CUDA
+// block, and no warp waits on another: no barrier. A lane issues its eight
+// 16-byte loads (zero_scan.cuh's load4) before it uses any (4-byte loads
+// only where a row is not 16-byte aligned, or at its ragged end).
 //
-// wm_apply: a thread a key would hold an SM to 8 KB of 4-byte loads in
-// flight, under what the card's latency needs, and a 1,024-thread block a
-// contract block would pay barriers and a scan for every 1,024 keys. So
-// each warp owns one contract block, eight warps a CUDA block, and runs the
-// warp half of zero_scan.cuh: eight 16-byte loads a lane issued before any
-// is used (4-byte loads only where a row is not 16-byte aligned, or at its
-// ragged end), ballots for the in-warp zero counts and whole bitmap words,
-// and 16-byte stores of the destinations. A warp's base is its block's own
-// zeros_excl entry, read directly, so no warp waits on another: no
-// look-back, no barrier, and any offsets give the plain version's result,
+// wm_counts reads 4 B a key and writes 4 B a block: a lane packs its 32
+// level bits into one word, and the warp adds their popcounts with one
+// __reduce_add_sync; lane 0 writes the block's zeros. No shared memory.
+//
+// wm_apply reads 4 B a key and writes 4 B of destination plus 1/8 B of
+// bitmap. It runs the warp half of zero_scan.cuh: ballots for the in-warp
+// zero counts and whole bitmap words, and 16-byte stores of the
+// destinations. A warp's base is its block's own zeros_excl entry, read
+// directly: no look-back, and any offsets give the plain version's result,
 // not only those of a scan. Destinations are computed mod 2^32, as the
 // plain version's int64 sums cast to int32. At 128 rows of 2^20 keys it
 // runs at 89% of its bound on the H100 (0.364 ms against 0.326;
 // launch/sweep_phase_kernels.py).
-//
-// Bound on the H100: bytes. Per key 4 B are read and 4 B of destination plus
-// 1/8 B of bitmap written.
 #include "zero_scan.cuh"
 
 namespace {
 
-// keys per contract block (in wm_counts one CUDA block, a thread a key)
-constexpr int kBlock = 1024;
-constexpr int kWarps = kBlock / 32;
-
-__device__ __forceinline__ unsigned level_bit(const int32_t* row, long long i,
-                                              int n, int shift) {
-  return i < n ? (static_cast<uint32_t>(row[i]) >> shift) & 1u : 1u;
-}
-
-__device__ __forceinline__ int warp_sum(int x) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(0xffffffffu, x, d);
-  return x;
-}
-
-__global__ void wm_counts_kernel(const int32_t* __restrict__ keys, int n,
-                                 long long key_stride, int shift, int nb,
-                                 int32_t* __restrict__ counts) {
-  __shared__ int warp_zeros[kWarps];
-  const long long row = blockIdx.x / nb;
-  const int blk = blockIdx.x % nb;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long i = static_cast<long long>(blk) * kBlock + threadIdx.x;
-  const unsigned ones =
-      __ballot_sync(0xffffffffu, level_bit(keys + row * key_stride, i, n, shift));
-  if (lane == 0) warp_zeros[warp] = 32 - __popc(ones);
-  __syncthreads();
-  if (warp == 0) {
-    const int z = warp_sum(warp_zeros[lane]);
-    if (lane == 0) counts[row * nb + blk] = z;
-  }
-}
-
-constexpr int kApplyWarps = 8;   // contract blocks per CUDA block, one a warp
+constexpr int kBlock = 1024;     // keys per contract block, one a warp
+constexpr int kPhaseWarps = 8;   // contract blocks per CUDA block
 static_assert(zero_scan::kWarpKeys == kBlock,
               "a warp's keys are one contract block");
 
 template <bool kVec>
-__global__ void __launch_bounds__(kApplyWarps * 32)
+__global__ void __launch_bounds__(kPhaseWarps * 32)
+    wm_counts_kernel(const int32_t* __restrict__ keys, int n,
+                     long long key_stride, int shift, int nb,
+                     long long blocks, int32_t* __restrict__ counts) {
+  const int lane = threadIdx.x & 31;
+  const long long t =
+      static_cast<long long>(blockIdx.x) * kPhaseWarps + (threadIdx.x >> 5);
+  if (t >= blocks) return;                         // the whole warp leaves
+  const long long first = (t % nb) * kBlock;
+  const int left = static_cast<int>(min(static_cast<long long>(kBlock),
+                                         n - first));
+  int key[zero_scan::kSlabs][4];
+  const int32_t* src = keys + (t / nb) * key_stride + first;
+#pragma unroll
+  for (int s = 0; s < zero_scan::kSlabs; ++s)
+    zero_scan::load4<kVec>(src, s * 128 + 4 * lane, left, -1, key[s]);
+  unsigned bits = 0;                               // past n: ones
+#pragma unroll
+  for (int s = 0; s < zero_scan::kSlabs; ++s) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      bits |= ((static_cast<uint32_t>(key[s][c]) >> shift) & 1u) << (4 * s + c);
+  }
+  const unsigned ones = __reduce_add_sync(zero_scan::kFull, __popc(bits));
+  if (lane == 0) counts[t] = kBlock - static_cast<int>(ones);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kPhaseWarps * 32)
     wm_apply_kernel(const int32_t* __restrict__ keys, int n,
                     long long key_stride, int shift, int nb, long long blocks,
                     const int32_t* __restrict__ zeros_excl,
@@ -96,7 +93,7 @@ __global__ void __launch_bounds__(kApplyWarps * 32)
                     long long bitmap_stride) {
   const int lane = threadIdx.x & 31;
   const long long t =
-      static_cast<long long>(blockIdx.x) * kApplyWarps + (threadIdx.x >> 5);
+      static_cast<long long>(blockIdx.x) * kPhaseWarps + (threadIdx.x >> 5);
   if (t >= blocks) return;                         // the whole warp leaves
   const long long row = t / nb;
   const int blk = static_cast<int>(t % nb);
@@ -223,13 +220,22 @@ extern "C" const char* kernel_error_string(int err) {
 extern "C" int wm_counts(const void* keys, int rows, int n,
                          long long key_stride, int shift, void* counts,
                          int nb, void* stream) {
-  const long long grid = static_cast<long long>(rows) * nb;
+  const long long blocks = static_cast<long long>(rows) * nb;
+  const long long grid = (blocks + kPhaseWarps - 1) / kPhaseWarps;
   if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
+                   (rows == 1 || key_stride % 4 == 0);
   if (grid > 0) {
-    wm_counts_kernel<<<static_cast<unsigned>(grid), kBlock, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(keys), n, key_stride, shift, nb,
-        static_cast<int32_t*>(counts));
+    const auto st = static_cast<cudaStream_t>(stream);
+    const unsigned g = static_cast<unsigned>(grid);
+    const auto* k = static_cast<const int32_t*>(keys);
+    auto* c = static_cast<int32_t*>(counts);
+    if (vec)
+      wm_counts_kernel<true><<<g, kPhaseWarps * 32, 0, st>>>(
+          k, n, key_stride, shift, nb, blocks, c);
+    else
+      wm_counts_kernel<false><<<g, kPhaseWarps * 32, 0, st>>>(
+          k, n, key_stride, shift, nb, blocks, c);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -243,7 +249,7 @@ extern "C" int wm_apply(const void* keys, int rows, int n,
                         void* dest, long long dest_stride, void* bitmap,
                         int W, long long bitmap_stride, void* stream) {
   const long long blocks = static_cast<long long>(rows) * nb;
-  const long long grid = (blocks + kApplyWarps - 1) / kApplyWarps;
+  const long long grid = (blocks + kPhaseWarps - 1) / kPhaseWarps;
   if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
                    (rows == 1 || key_stride % 4 == 0) &&
@@ -258,11 +264,11 @@ extern "C" int wm_apply(const void* keys, int rows, int n,
     auto* d = static_cast<int32_t*>(dest);
     auto* b = static_cast<int32_t*>(bitmap);
     if (vec)
-      wm_apply_kernel<true><<<g, kApplyWarps * 32, 0, st>>>(
+      wm_apply_kernel<true><<<g, kPhaseWarps * 32, 0, st>>>(
           k, n, key_stride, shift, nb, blocks, ze, tz, d, dest_stride, b, W,
           bitmap_stride);
     else
-      wm_apply_kernel<false><<<g, kApplyWarps * 32, 0, st>>>(
+      wm_apply_kernel<false><<<g, kPhaseWarps * 32, 0, st>>>(
           k, n, key_stride, shift, nb, blocks, ze, tz, d, dest_stride, b, W,
           bitmap_stride);
   }

@@ -16,8 +16,9 @@ out per digit.
 ``radix_hist``/``radix_apply`` are the counterparts of the two Pallas phase
 kernels, off the build path: per-1,024-digit-tile histograms (one warp a
 tile, 16-byte loads and a shared atomic a digit), their offsets in torch
-(:func:`bucket_offsets`), and an apply launch that walks each tile with one
-warp in 32 ordered rounds (``csrc/bucket_rank.cuh``).
+(:func:`bucket_offsets`), and an apply launch in which one warp copies its
+tile and the tile's offsets into shared memory and ranks it in the scan's
+32 ordered rounds (``csrc/bucket_rank.cuh``), from the offsets it is given.
 
 Positions past n are never written. Digits outside [0, B) read as the
 sentinel bucket B: the phase kernels sort them after every real digit (the

@@ -13,10 +13,11 @@ out per key.
 
 ``wm_counts`` and ``wm_apply`` are the counterparts of the reference's two
 phase kernels ``wm_counts_pallas`` and ``wm_apply_pallas``; no build calls
-them. ``wm_apply`` runs the zero scan's warp half with no look-back: a warp
-owns one block of ``BLOCK`` keys and takes its base from the block's own
-exclusive offset. The plain version of a level is those two phases with a torch scan
-between them.
+them. In both a warp owns one block of ``BLOCK`` keys, read with the zero
+scan's 16-byte loads: ``wm_counts`` adds the popcounts of its level bits,
+``wm_apply`` runs the zero scan's warp half with no look-back, its base the
+block's own exclusive offset. The plain version of a level is those two
+phases with a torch scan between them.
 
 Keys past ``n`` read as ones, as the reference pads them: they sort after
 every real key, their destinations are never written, and their bitmap

@@ -431,16 +431,21 @@ def test_radix_rank_kernels_match_plain(n, nb):
     """Both phases against their plain versions on every layout, with
     digits -1, B and 2^31 - 1 planted in a copy of row 2: the histogram
     counts them in the sentinel column, the apply phase sorts them after
-    every real digit."""
+    every real digit. The apply phase also with random offsets over all of
+    int32 that are the scan of no histogram: a kernel that derives its base
+    any other way, or wraps otherwise than mod 2^32, fails."""
     dev = _card()
-    d = torch.from_numpy(np.random.default_rng(n + nb).integers(
-        0, nb, (3, n)).astype(np.int32)).to(dev)
+    rng = np.random.default_rng(n + nb)
+    d = torch.from_numpy(rng.integers(0, nb, (3, n)).astype(np.int32)).to(dev)
     d[0] = 0                                      # one bucket only
     planted = d[2].clone()
     planted[::7] = -1
     planted[3::7] = nb
     planted[5::11] = (1 << 31) - 1
     d = torch.cat([d, planted[None]])
+    wild = torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, (4, (n + 1023) // 1024, nb + 1)).astype(
+            np.int32)).to(dev)
     for layout, x in _phase_layouts(d, n).items():
         hist = radix_rank.radix_hist(x, nb, n)
         assert torch.equal(hist, radix_rank.radix_hist_plain(x, nb, n)), \
@@ -451,6 +456,9 @@ def test_radix_rank_kernels_match_plain(n, nb):
             x, offsets, nb, n)), layout
         for r in range(min(3, len(x))):
             assert torch.equal(got[r], ref.radix_rank_ref(x[r], nb)), layout
+        w = wild[:len(x)]
+        assert torch.equal(radix_rank.radix_apply(x, w, nb, n),
+                           radix_rank.radix_apply_plain(x, w, nb, n)), layout
 
 
 def _twice(fn):

@@ -19,7 +19,7 @@ import torch
 from repro.core.wavelet_matrix import build_wavelet_matrix as jbuild
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro.kernels.wm_level import wm_apply_pallas
+from repro.kernels.wm_level import wm_apply_pallas, wm_counts_pallas
 from repro_torch.core import bitops
 from repro_torch.core.wavelet_matrix import build_wavelet_matrix
 from repro_torch.kernels import build, ops, rank_build, ref, wm_level
@@ -146,6 +146,11 @@ def test_wm_level_phases_match_pallas_interpret():
     counts = wm_level.wm_counts(_t(keys)[None], shift, n)
     assert counts.shape == (1, 3)                  # 2500 keys → 3 blocks
     assert int(counts.sum()) == int(jz)
+    padded = np.full(3 * 1024, 0xFFFFFFFF, np.uint32)   # ones past n
+    padded[:n] = keys
+    jcounts = wm_counts_pallas(jnp.asarray(padded[None]), shift,
+                               interpret=True)
+    assert np.array_equal(counts.numpy(), np.asarray(jcounts))
 
 
 def test_wm_apply_plain_matches_pallas_interpret():

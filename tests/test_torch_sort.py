@@ -179,6 +179,29 @@ def test_radix_rank_matches_pallas_interpret():
     assert np.array_equal(hist[0].numpy(), np.asarray(jhist))
 
 
+def test_radix_apply_plain_matches_pallas_interpret():
+    """The apply phase's plain version, which the card kernel is held to,
+    against the reference's radix_apply_pallas in interpret mode, once,
+    tiny: 2,500 digits in 3 tiles, the padding as the sentinel, the bucket
+    bases and cross-tile offsets from numpy's histograms, and offsets =
+    base + across."""
+    n, nb = 2500, 40
+    d = _digits(n, nb, 13)
+    padded = np.full((1, 3 * 1024), nb, np.int32)
+    padded[0, :n] = d
+    hist = np.stack([np.bincount(t, minlength=nb + 1)
+                     for t in padded[0].reshape(3, 1024)]).astype(np.int32)
+    across = np.cumsum(hist, 0) - hist
+    totals = hist.sum(0)
+    base = (np.cumsum(totals) - totals)[None].astype(np.int32)
+    want = jrr.radix_apply_pallas(jnp.asarray(padded), jnp.asarray(base),
+                                  jnp.asarray(across.astype(np.int32)), nb,
+                                  interpret=True)
+    got = radix_rank.radix_apply(torch.from_numpy(d)[None],
+                                 torch.from_numpy(base + across)[None], nb, n)
+    assert np.array_equal(got[0].numpy(), np.asarray(want)[0, :n])
+
+
 def test_radix_rank_batched_rows_and_sentinel():
     rows = _digits(2100, 256, 9, rows=4)
     got = ops.radix_rank(torch.from_numpy(rows), 256)
