@@ -280,8 +280,9 @@ class ShardedAnalytics:
 
     def __post_init__(self):
         if self.quantile is None:
-            object.__setattr__(self, "quantile", ops.quantile_operands(
-                self.shards, self.shard_bits, self.n))
+            with obs.stage("engine.operands"):
+                object.__setattr__(self, "quantile", ops.quantile_operands(
+                    self.shards, self.shard_bits, self.n))
 
     @property
     def num_shards(self) -> int:
@@ -387,15 +388,20 @@ class ShardedAnalytics:
     def range_quantile(self, lo, hi, k) -> torch.Tensor:
         """Global k-th smallest in [lo, hi) for (Q,) batches: the
         ``wm_quantile_sharded`` kernel on a CUDA engine, its plain version on
-        a CPU engine, the plain descent under an availability mask."""
-        obs.counter("analytics.op", op="quantile").inc()
-        if self.available is not None:
-            obs.counter("analytics.path", op="quantile",
-                        path="degraded_torch").inc()
-            return sharded_range_quantile(self.shards, self.shard_bits,
-                                          self.n, lo, hi, k, self.available)
-        obs.counter("analytics.path", op="quantile", path="kernel").inc()
-        return ops.wm_quantile(self.quantile, lo, hi, k)
+        a CPU engine, the plain descent under an availability mask. Stage
+        ``engine.range_quantile``: from the entry to the launch's return
+        (the answers' readback is the caller's); a profiler's range only,
+        no exported event, as a call is one batch."""
+        with obs.stage("engine.range_quantile", export=False):
+            obs.counter("analytics.op", op="quantile").inc()
+            if self.available is not None:
+                obs.counter("analytics.path", op="quantile",
+                            path="degraded_torch").inc()
+                return sharded_range_quantile(self.shards, self.shard_bits,
+                                              self.n, lo, hi, k,
+                                              self.available)
+            obs.counter("analytics.path", op="quantile", path="kernel").inc()
+            return ops.wm_quantile(self.quantile, lo, hi, k)
 
     def range_quantile_bracket(self, lo, hi, k, levels: int):
         """(sym_lo, sym_hi) bracketing the exact k-th smallest after a
@@ -481,9 +487,11 @@ def build_sharded_analytics(tokens, sigma: int, *, shard_bits: int = 16,
                             device: str | torch.device = "cuda"
                             ) -> ShardedAnalytics:
     """Build the engine from a raw token stream via the compressed-store
-    shard builder."""
+    shard builder. Stage ``engine.build`` holds the store's stages and
+    ``engine.operands``."""
     from repro_torch.data.compressed_store import build_compressed_corpus
-    corpus = build_compressed_corpus(tokens, sigma, shard_bits=shard_bits,
-                                     tau=tau, big_step=big_step,
-                                     sample_rate=sample_rate, device=device)
-    return ShardedAnalytics.from_corpus(corpus)
+    with obs.stage("engine.build"):
+        corpus = build_compressed_corpus(
+            tokens, sigma, shard_bits=shard_bits, tau=tau, big_step=big_step,
+            sample_rate=sample_rate, device=device)
+        return ShardedAnalytics.from_corpus(corpus)

@@ -28,7 +28,10 @@ layout, with one level of all shards per kernel launch.
 
 Counters (the reference's): ``core.build{builder, path}`` a build and
 ``core.level_step{builder=wm, impl=kernel|torch}`` a level of the fused
-build (the reference's ``impl=xla``). The reference's
+build (the reference's ``impl=xla``). Stages of the fused build
+(``obs.stage``): ``wm.zeros`` (the zero totals), ``wm.levels`` (a
+τ-chunk's level steps and applies, attribute ``chunk``), ``wm.compose`` or
+``wm.sort`` (the big step), ``wm.directories``. The reference's
 ``core.kernel_guard_trip`` guards jit's batch tracers, which the port does
 not have, and has no counterpart here.
 """
@@ -141,60 +144,66 @@ def build_wavelet_matrix(seq, sigma: int, tau: int = 8,
         from repro_torch.kernels import ops
         # a level's zeros survive every permutation of its row: count the
         # zeros of all levels once, from the input
-        level_zeros = ops.wm_level_zeros(order, nbits)
+        with obs.stage("wm.zeros"):
+            level_zeros = ops.wm_level_zeros(order, nbits)
 
     for alpha0 in range(0, nbits, tau):
         width = min(tau, nbits - alpha0)
-        # the τ-bit field starting alpha0 bits below the top: the short list
-        fld = bitops.extract_field(order, nbits - alpha0 - width, width)
-        sub = fld.to(torch.int32)
         last_chunk = alpha0 + width >= nbits
-        # the composed permutation exists only for a compose big step
-        idx = (torch.arange(n, dtype=torch.int32, device=dev)
-               .expand(rows, n).contiguous()
-               if not last_chunk and big_step == "compose" else None)
-        for t in range(width):
-            shift = width - 1 - t
-            # movement arranges the next level; at the chunk's final level
-            # only the composed permutation still advances (a radix or xla
-            # big step re-sorts from the chunk-start order)
-            move = (alpha0 + t < nbits - 1) and (t < width - 1
-                                                 or idx is not None)
-            obs.counter("core.level_step", builder="wm",
-                        impl="kernel" if use_kernels else "torch").inc()
-            if use_kernels:
-                dest, words, z = ops.wm_level_step(
-                    sub, shift, n, level_zeros[:, alpha0 + t])
-                if move:
-                    if t < width - 1:
-                        sub = apply_permutation_dest(sub, dest)
-                    if idx is not None:
-                        idx = apply_permutation_dest(idx, dest)
-            else:
-                bit = (sub.long() >> shift) & 1
-                words = bitops.pack_bits(bitops.pad_bits(bit))
-                z = (n - bit.sum(-1)).to(torch.int32)
-                if move:
-                    g = stable_partition_gather(words, z, n)
-                    if t < width - 1:
-                        sub = take(sub, g)
-                    if idx is not None:
-                        idx = take(idx, g)
-            level_words.append(words)
-            zeros.append(z)
+        with obs.stage("wm.levels", chunk=alpha0 // tau):
+            # the τ-bit field starting alpha0 bits below the top: the short
+            # list
+            fld = bitops.extract_field(order, nbits - alpha0 - width, width)
+            sub = fld.to(torch.int32)
+            # the composed permutation exists only for a compose big step
+            idx = (torch.arange(n, dtype=torch.int32, device=dev)
+                   .expand(rows, n).contiguous()
+                   if not last_chunk and big_step == "compose" else None)
+            for t in range(width):
+                shift = width - 1 - t
+                # movement arranges the next level; at the chunk's final
+                # level only the composed permutation still advances (a
+                # radix or xla big step re-sorts from the chunk-start order)
+                move = (alpha0 + t < nbits - 1) and (t < width - 1
+                                                     or idx is not None)
+                obs.counter("core.level_step", builder="wm",
+                            impl="kernel" if use_kernels else "torch").inc()
+                if use_kernels:
+                    dest, words, z = ops.wm_level_step(
+                        sub, shift, n, level_zeros[:, alpha0 + t])
+                    if move:
+                        if t < width - 1:
+                            sub = apply_permutation_dest(sub, dest)
+                        if idx is not None:
+                            idx = apply_permutation_dest(idx, dest)
+                else:
+                    bit = (sub.long() >> shift) & 1
+                    words = bitops.pack_bits(bitops.pad_bits(bit))
+                    z = (n - bit.sum(-1)).to(torch.int32)
+                    if move:
+                        g = stable_partition_gather(words, z, n)
+                        if t < width - 1:
+                            sub = take(sub, g)
+                        if idx is not None:
+                            idx = take(idx, g)
+                level_words.append(words)
+                zeros.append(z)
         if not last_chunk:
             if big_step == "compose":
-                order = take(order, idx)
+                with obs.stage("wm.compose"):
+                    order = take(order, idx)
             else:
-                order, _ = sort_pass(
-                    order, reverse_bits(fld, width), 1 << width,
-                    backend="counting" if big_step == "radix" else "xla",
-                    use_kernel=use_kernels)
+                with obs.stage("wm.sort"):
+                    order, _ = sort_pass(
+                        order, reverse_bits(fld, width), 1 << width,
+                        backend="counting" if big_step == "radix" else "xla",
+                        use_kernel=use_kernels)
 
-    bvs = build_bitvector_levels(torch.stack(level_words, 1), n, sample_rate,
-                                 use_kernels=use_kernels)
-    wm = WaveletMatrix(bitvectors=bvs, zeros=torch.stack(zeros, 1), n=n,
-                       nbits=nbits)
+    with obs.stage("wm.directories"):
+        bvs = build_bitvector_levels(torch.stack(level_words, 1), n,
+                                     sample_rate, use_kernels=use_kernels)
+        wm = WaveletMatrix(bitvectors=bvs, zeros=torch.stack(zeros, 1), n=n,
+                           nbits=nbits)
     return wm if batched else tree_map(lambda x: x[0], wm)
 
 

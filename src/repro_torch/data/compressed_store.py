@@ -15,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.analytics.engine import (sharded_range_count,
                                           sharded_range_distinct,
                                           sharded_range_histogram,
@@ -166,19 +167,23 @@ def build_compressed_corpus(tokens, sigma: int, shard_bits: int = 16,
                             ) -> CompressedCorpus:
     """Pad the stream to whole shards (with token 0, never addressed: n
     keeps the true length and the histograms subtract the padding), build
-    every shard on ``device`` and stack them."""
+    every shard on ``device`` and stack them. Stages: ``store.upload``
+    (the cast, the range check's sync, the pad), the matrix's ``wm.*``,
+    ``store.histograms``."""
     dev = resolve_device(device)
-    if isinstance(tokens, torch.Tensor):
-        toks = tokens.to(device=dev, dtype=torch.int32)
-    else:
-        toks = torch.from_numpy(np.asarray(tokens).astype(np.int32)).to(dev)
-    n = toks.shape[0]
-    if n and int(toks.max()) >= sigma:
-        raise ValueError(f"token id {int(toks.max())} >= sigma {sigma}")
-    size = 1 << shard_bits
-    num_shards = max(1, (n + size - 1) // size)
-    pad = num_shards * size - n
-    shards = F.pad(toks, (0, pad)).reshape(num_shards, size)
+    with obs.stage("store.upload"):
+        if isinstance(tokens, torch.Tensor):
+            toks = tokens.to(device=dev, dtype=torch.int32)
+        else:
+            toks = torch.from_numpy(
+                np.asarray(tokens).astype(np.int32)).to(dev)
+        n = toks.shape[0]
+        if n and int(toks.max()) >= sigma:
+            raise ValueError(f"token id {int(toks.max())} >= sigma {sigma}")
+        size = 1 << shard_bits
+        num_shards = max(1, (n + size - 1) // size)
+        pad = num_shards * size - n
+        shards = F.pad(toks, (0, pad)).reshape(num_shards, size)
 
     # the shard axis is the builder's batch axis (the reference's vmap
     # mode of ``repro.data.shard_build``): one level of every shard is one
@@ -186,12 +191,13 @@ def build_compressed_corpus(tokens, sigma: int, shard_bits: int = 16,
     stacked = build_wavelet_matrix(shards, sigma, tau=tau, big_step=big_step,
                                    sample_rate=sample_rate, device=dev)
 
-    flat = (torch.arange(num_shards, device=dev)[:, None] * sigma
-            + shards.long()).reshape(-1)
-    hist = torch.bincount(flat, minlength=num_shards * sigma).reshape(
-        num_shards, sigma)
-    hist[-1, 0] -= pad
-    cum = F.pad(torch.cumsum(hist, 0), (0, 0, 1, 0)).to(torch.int32)
+    with obs.stage("store.histograms"):
+        flat = (torch.arange(num_shards, device=dev)[:, None] * sigma
+                + shards.long()).reshape(-1)
+        hist = torch.bincount(flat, minlength=num_shards * sigma).reshape(
+            num_shards, sigma)
+        hist[-1, 0] -= pad
+        cum = F.pad(torch.cumsum(hist, 0), (0, 0, 1, 0)).to(torch.int32)
     return CompressedCorpus(shards=stacked, shard_counts=cum, n=n,
                             sigma=sigma, shard_bits=shard_bits)
 

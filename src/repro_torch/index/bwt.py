@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core.scan import exclusive_sum, take
 from repro_torch.device import resolve_device
 
@@ -73,7 +74,11 @@ def bwt_encode(seq, sigma: int | None = None, *, backend: str = "counting",
     text = append_sentinel(seq)
     sa = suffix_array(text, sigma_work, backend=backend,
                       use_kernel=use_kernel, device=dev)
-    return bwt_from_sa(text, sa), sa, symbol_boundaries(text, sigma_work)
+    with obs.stage("bwt.gather"):
+        bwt = bwt_from_sa(text, sa)
+    with obs.stage("bwt.c_table"):
+        C = symbol_boundaries(text, sigma_work)
+    return bwt, sa, C
 
 
 def bwt_decode(bwt, C) -> np.ndarray:

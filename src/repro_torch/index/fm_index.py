@@ -30,6 +30,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import bitops
 from repro_torch.core.rank_select import (BinaryRank, access_bit,
                                           build_binary_rank, rank1)
@@ -99,7 +100,9 @@ def build_fm_index(seq, sigma: int, *, sample_rate: int = 32, tau: int = 8,
     gather → the paper's wavelet-matrix construction (Theorem 4.5) →
     sampled-SA directories. ``use_kernels`` (default: ``device`` is CUDA)
     routes the suffix array's sorts, the matrix and the mark directory
-    through the kernels; the same index either way."""
+    through the kernels; the same index either way. Stages: the suffix
+    array's ``sa.*``, ``bwt.gather``, ``bwt.c_table``, the matrix's
+    ``wm.*``, ``fm.samples``."""
     dev = resolve_device(device)
     seq = torch.as_tensor(seq, device=dev)
     if use_kernels is None:
@@ -114,7 +117,8 @@ def build_fm_index(seq, sigma: int, *, sample_rate: int = 32, tau: int = 8,
                               big_step=big_step, sample_rate=bv_sample_rate,
                               use_kernels=use_kernels, device=dev)
 
-    mark, sa_sample = sample_directories(sa, sample_rate, use_kernels)
+    with obs.stage("fm.samples"):
+        mark, sa_sample = sample_directories(sa, sample_rate, use_kernels)
     return FMIndex(wm=wm, C=C, mark=mark, sa_sample=sa_sample,
                    n=seq.shape[-1], sigma=sigma, sample_rate=sample_rate)
 

@@ -351,24 +351,30 @@ def build_sharded_index(tokens, sigma: int, *, shard_bits: int = 14,
     padded with the out-of-alphabet symbol σ. ``seam_overlap`` sets the
     half-width of the boundary windows that make ``count`` exact across
     shard seams for pattern lengths ≤ seam_overlap + 1 (0 disables).
-    ``use_kernels``: as in ``fm_index.build_fm_index``."""
+    ``use_kernels``: as in ``fm_index.build_fm_index``. Stages: the entry
+    ``sharded_index.build`` holds ``sharded_index.prep`` (the host's
+    checks and cast, the upload, the pad), ``build_fm_index``'s, and
+    ``sharded_index.seams``."""
     dev = resolve_device(device)
-    toks = np.asarray(tokens)
-    n = len(toks)
-    shard_size = 1 << shard_bits
-    num_shards = max(1, (n + shard_size - 1) // shard_size)
-    if toks.size and (int(toks.min()) < 0 or int(toks.max()) >= sigma):
-        raise ValueError(f"tokens outside [0, {sigma})")
-    shards = F.pad(torch.from_numpy(toks.astype(np.int32)).to(dev),
-                   (0, num_shards * shard_size - n), value=sigma)
-    stacked = build_fm_index(shards.reshape(num_shards, shard_size),
-                             sigma + 1, sample_rate=sample_rate, tau=tau,
-                             big_step=big_step, bv_sample_rate=bv_sample_rate,
-                             backend=backend, use_kernels=use_kernels,
-                             device=dev)
-    seams = seam_windows_from_tokens(toks, num_shards, shard_size,
-                                     seam_overlap)
-    return ShardedTextIndex(shards=stacked,
-                            seam_windows=torch.from_numpy(seams).to(dev),
-                            n=n, sigma=sigma, shard_bits=shard_bits,
-                            seam_overlap=seam_overlap)
+    with obs.stage("sharded_index.build"):
+        with obs.stage("sharded_index.prep"):
+            toks = np.asarray(tokens)
+            n = len(toks)
+            shard_size = 1 << shard_bits
+            num_shards = max(1, (n + shard_size - 1) // shard_size)
+            if toks.size and (int(toks.min()) < 0
+                              or int(toks.max()) >= sigma):
+                raise ValueError(f"tokens outside [0, {sigma})")
+            shards = F.pad(torch.from_numpy(toks.astype(np.int32)).to(dev),
+                           (0, num_shards * shard_size - n), value=sigma)
+        stacked = build_fm_index(
+            shards.reshape(num_shards, shard_size), sigma + 1,
+            sample_rate=sample_rate, tau=tau, big_step=big_step,
+            bv_sample_rate=bv_sample_rate, backend=backend,
+            use_kernels=use_kernels, device=dev)
+        with obs.stage("sharded_index.seams"):
+            seams = torch.from_numpy(seam_windows_from_tokens(
+                toks, num_shards, shard_size, seam_overlap)).to(dev)
+        return ShardedTextIndex(shards=stacked, seam_windows=seams, n=n,
+                                sigma=sigma, shard_bits=shard_bits,
+                                seam_overlap=seam_overlap)

@@ -15,6 +15,10 @@ and one round sorts all rows at once (the shard axis of a sharded index is
 the batch axis). The host loop stops once every row's ranks are distinct, one
 host sync a round; a finished row is left as it is by further rounds, so
 stopping at the slowest row gives each row's own suffix array.
+
+Stages (``obs.stage``): ``sa.initial`` (round 0), ``sa.round`` (a doubling
+round, attribute ``offset``), ``sa.converged`` (the sync that ends the
+loop).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.scan import flat_inclusive_sum, take
 from repro_torch.core.sort import radix_sort_stable
 from repro_torch.device import resolve_device
@@ -119,7 +124,9 @@ def suffix_array(seq, sigma: int | None = None, *, bits_per_pass: int = 8,
         return torch.zeros(seq.shape, dtype=torch.int32, device=dev)
     if sigma is None:
         sigma = int(seq.max()) + 1
-    sa, rank = initial_ranks(seq, sigma, bits_per_pass, backend, use_kernel)
+    with obs.stage("sa.initial"):
+        sa, rank = initial_ranks(seq, sigma, bits_per_pass, backend,
+                                 use_kernel)
     kb = _rank_bits(n)
     rounds = (max_rounds if max_rounds is not None
               else math.ceil(math.log2(n)) + 1)
@@ -127,11 +134,14 @@ def suffix_array(seq, sigma: int | None = None, *, bits_per_pass: int = 8,
     for _ in range(rounds):
         if offset >= n:
             break
-        sa, rank = doubling_round(rank, offset, kb, bits_per_pass, backend,
-                                  use_kernel)
+        with obs.stage("sa.round", offset=offset):
+            sa, rank = doubling_round(rank, offset, kb, bits_per_pass,
+                                      backend, use_kernel)
         offset *= 2
-        if max_rounds is None and all_distinct(sa, rank):
-            break
+        if max_rounds is None:
+            with obs.stage("sa.converged"):
+                if all_distinct(sa, rank):
+                    break
     return sa
 
 

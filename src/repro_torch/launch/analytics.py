@@ -28,7 +28,10 @@ run under ``obs.profiled_op``, and one shard build and a 16-query kernel
 batch under ``obs.profile_op``, so the snapshot carries the ``prof.*``
 gauges (bytes and int32 operations of the kernel wrappers' work model,
 roofline utilization, peak device memory on a card). ``--profile-dir``
-wraps the serving section in a ``torch.profiler`` trace.
+wraps the build and the serving section each in a ``torch.profiler`` trace
+(``build_trace.json``, ``trace.json``), where the build's stages and the
+quantile's ``engine.range_quantile`` stage line up with their kernels;
+``python -m repro_torch.launch.obs DIR --stages`` splits them by stage.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from repro_torch.analytics import (build_sharded_analytics, load_analytics,
 from repro_torch.data import make_corpus
 from repro_torch.device import resolve_device
 from repro_torch.kernels.build import DEVICE_ERRORS
+from repro_torch.obs.prof import BUILD_TRACE_FILE
 from repro_torch.obs.spans import wait_for
 from repro_torch.robust import with_retry
 
@@ -81,8 +85,8 @@ def main(argv=None) -> None:
                     help="export obs metrics snapshot + JSONL events here "
                          "(inspect with `python -m repro_torch.launch.obs`)")
     ap.add_argument("--profile-dir", type=str, default=None,
-                    help="capture a torch.profiler trace of the serving "
-                         "section into this directory")
+                    help="capture torch.profiler traces of the build and "
+                         "of the serving section into this directory")
     args = ap.parse_args(argv)
     if args.metrics_dir:
         obs.configure(args.metrics_dir)
@@ -126,8 +130,9 @@ def main(argv=None) -> None:
             print(f"WARNING: snapshot restore failed ({type(e).__name__}: "
                   f"{e}) — rebuilding from source")
     if not restored:
-        with obs.span("analytics.build", n=args.n, vocab=args.vocab,
-                      shard_bits=args.shard_bits) as sp:
+        with obs.trace(args.profile_dir, BUILD_TRACE_FILE), \
+                obs.span("analytics.build", n=args.n, vocab=args.vocab,
+                         shard_bits=args.shard_bits) as sp:
             eng = sp.sync(with_retry(
                 lambda: build_sharded_analytics(toks, args.vocab,
                                                 shard_bits=args.shard_bits,

@@ -21,8 +21,10 @@ verified against naive numpy substring search on the raw stream.
 reference's does: the ``index.build`` span, the count under
 ``obs.profiled_op`` (``serve.index.count.*`` and its ``prof.*`` gauges),
 locate and the degraded bounds under ``obs.timed_op``, the coverage gauge
-and the path counters. ``--profile-dir`` wraps the count in a
-``torch.profiler`` trace.
+and the path counters. ``--profile-dir`` wraps the build and the count
+each in a ``torch.profiler`` trace (``build_trace.json``, ``trace.json``);
+``python -m repro_torch.launch.obs DIR --stages`` splits the build by
+stage.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from repro_torch import obs
 from repro_torch.data import make_corpus
 from repro_torch.device import resolve_device
 from repro_torch.index import build_sharded_index, sample_patterns
+from repro_torch.obs.prof import BUILD_TRACE_FILE
 
 
 def naive_count(toks: np.ndarray, pat: np.ndarray, plen: int,
@@ -111,8 +114,8 @@ def main(argv=None) -> None:
                     help="export obs metrics snapshot + JSONL events here "
                          "(inspect with `python -m repro_torch.launch.obs`)")
     ap.add_argument("--profile-dir", type=str, default=None,
-                    help="capture a torch.profiler trace of the query "
-                         "section into this directory")
+                    help="capture torch.profiler traces of the build and "
+                         "of the query section into this directory")
     args = ap.parse_args(argv)
     if args.metrics_dir:
         obs.configure(args.metrics_dir)
@@ -124,8 +127,9 @@ def main(argv=None) -> None:
 
     toks = make_corpus(args.n, args.vocab, seed=args.seed).astype(np.int64)
     sw = obs.Stopwatch()
-    with obs.span("index.build", n=args.n, vocab=args.vocab,
-                  shard_bits=args.shard_bits) as sp:
+    with obs.trace(args.profile_dir, BUILD_TRACE_FILE), \
+            obs.span("index.build", n=args.n, vocab=args.vocab,
+                     shard_bits=args.shard_bits) as sp:
         idx = sp.sync(build_sharded_index(
             toks, args.vocab, shard_bits=args.shard_bits,
             sample_rate=args.sample_rate, device=dev))

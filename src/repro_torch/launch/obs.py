@@ -11,11 +11,17 @@ PYTHONPATH=src python -m repro_torch.launch.obs /tmp/m \
 PYTHONPATH=src python -m repro_torch.launch.obs /tmp/m --tree       # span tree
 PYTHONPATH=src python -m repro_torch.launch.obs /tmp/m --prometheus # text format
 PYTHONPATH=src python -m repro_torch.launch.obs /tmp/m --html /tmp/m/dash.html
+PYTHONPATH=src python -m repro_torch.launch.obs /tmp/p --stages   # --profile-dir
 
 ``--html`` writes the self-contained dashboard page (SLO table, roofline
 profile, span waterfall, and — with ``--history`` or the default
 ``results/bench/history.jsonl`` — per-commit bench-trajectory
 sparklines).
+
+``--stages`` reads the chrome traces that a CLI's ``--profile-dir`` wrote
+into the directory (``build_trace.json``, ``trace.json``) and prints, for
+every span and stage in them, its host time, the device time and launches
+of the operations it launched, and its host syncs (``obs.timeline``).
 
 Exit status is nonzero when any ``--slo`` check is violated, so the
 command doubles as a CI gate on serving latency. The capture's files are
@@ -28,7 +34,8 @@ import argparse
 import sys
 from pathlib import Path
 
-from repro_torch.obs import prometheus_text, read_events, read_snapshot
+from repro_torch.obs import (prometheus_text, read_events, read_snapshot,
+                             timeline)
 from repro_torch.obs.history import read_history
 from repro_torch.obs.html import render_html
 from repro_torch.obs.report import check_slos, op_rows, render_span_tree, \
@@ -60,7 +67,21 @@ def main(argv=None) -> int:
     ap.add_argument("--history", type=Path, default=DEFAULT_HISTORY,
                     help="bench history JSONL for the dashboard's "
                          f"trajectory section (default {DEFAULT_HISTORY})")
+    ap.add_argument("--stages", action="store_true",
+                    help="print the stage split of the --profile-dir "
+                         "traces (*trace.json) in the directory and exit")
     args = ap.parse_args(argv)
+
+    if args.stages:
+        traces = sorted(args.metrics_dir.glob("*trace.json"))
+        if not traces:
+            print(f"no {args.metrics_dir}/*trace.json — run a CLI with "
+                  f"--profile-dir first", file=sys.stderr)
+            return 2
+        for path in traces:
+            print(f"{path.name}:")
+            print(timeline.render(*timeline.split(timeline.load(path))))
+        return 0
 
     try:
         snap = read_snapshot(args.metrics_dir)

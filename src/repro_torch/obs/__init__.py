@@ -11,8 +11,10 @@ reference's, so either package's ``launch.obs`` reads the other's capture.
 * :mod:`repro_torch.obs.metrics` — process-global registry of counters,
   gauges and streaming log-bucket histograms; true no-ops when disabled.
 * :mod:`repro_torch.obs.spans`   — nested ``span()`` context manager
-  forwarding to ``torch.profiler.record_function``; ``sp.sync`` waits for
-  the CUDA work of its tensors.
+  forwarding to ``torch.profiler.record_function`` while a profiler
+  records; ``sp.sync`` waits for the CUDA work of its tensors. ``stage()``
+  marks the steps of the hot paths at the cost of two flag reads when
+  nothing reads them.
 * :mod:`repro_torch.obs.timing`  — ``time_compiled``/``timed_op`` (first
   call timed apart from the steady state) and ``track_shapes``.
 * :mod:`repro_torch.obs.export`  — JSONL event log + snapshot (+ Prometheus
@@ -25,6 +27,9 @@ reference's, so either package's ``launch.obs`` reads the other's capture.
   analysis of the dry run: ``lower`` records the local ops one device runs
   in a step on DTensors, ``compiled_cost``/``compiled_memory`` and
   ``analyze_program`` (the reference's ``analyze_hlo``) read it.
+* :mod:`repro_torch.obs.timeline` — a ``torch.profiler`` chrome trace read
+  back by span and stage: host time, the device time and launches each
+  launched (by correlation id), host syncs (``launch.obs --stages``).
 * :mod:`repro_torch.obs.history` — append-only per-commit bench history +
   noise-aware regression detection behind ``python -m
   repro_torch.launch.regress``.
@@ -54,7 +59,7 @@ from .prof import (analyze_program, compiled_cost, compiled_memory,
                    hw_model, live_memory_stats, lower, parse_program,
                    profile_op, profiled_op, record_memory_gauges,
                    start_trace, stop_trace, trace)
-from .spans import current_span, event, span
+from .spans import current_span, event, span, stage
 from .timing import (Stopwatch, reset_shape_tracking, time_compiled,
                      timed_op, track_shapes)
 
@@ -62,7 +67,7 @@ __all__ = [
     "REGISTRY", "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "counter", "gauge", "histogram", "parse_key",
     "enable", "disable", "disabled", "enabled",
-    "span", "current_span", "event",
+    "span", "stage", "current_span", "event",
     "Stopwatch", "time_compiled", "timed_op", "track_shapes",
     "reset_shape_tracking",
     "configure", "metrics_dir", "emit_event", "write_snapshot",

@@ -51,6 +51,11 @@ def metrics_dir() -> Optional[Path]:
     return _dir
 
 
+def exporting() -> bool:
+    """Whether events are written: an exporter is configured."""
+    return _events_fh is not None
+
+
 def configure(directory: str | Path | None) -> Optional[Path]:
     """Point the file exporter at ``directory`` (created if needed).
 

@@ -41,8 +41,9 @@ records none of them.
 Trace capture (``--profile-dir`` on the CLIs): ``start_trace``/``stop_trace``
 (or the ``trace`` context manager) wrap ``torch.profiler.profile`` over the
 CPU and CUDA activities and write its chrome trace into the directory, so
-the ``obs.span`` names (``record_function`` ranges) line up with the
-kernels on the device timeline.
+the ``obs.span`` and ``obs.stage`` names (``record_function`` ranges) line
+up with the kernels on the device timeline; ``obs.timeline`` reads a
+stage's device time, launches and host syncs back from the file.
 
 Program analysis (the dry run's): the counterpart of the reference's
 ``compiled_cost``, ``compiled_memory`` and ``analyze_hlo`` over a program
@@ -377,12 +378,15 @@ _trace_lock = threading.Lock()
 _trace_state: dict = {}
 
 TRACE_FILE = "trace.json"
+#: the CLIs' trace of their build, beside the serving section's
+BUILD_TRACE_FILE = "build_trace.json"
 
 
-def start_trace(profile_dir) -> bool:
+def start_trace(profile_dir, file: str = TRACE_FILE) -> bool:
     """Start a ``torch.profiler`` trace (CPU and, with a card, CUDA
-    activities) that :func:`stop_trace` writes into ``profile_dir`` (no-op
-    and False on a falsy dir or if a trace is already running)."""
+    activities) that :func:`stop_trace` writes into ``profile_dir`` as
+    ``file`` (no-op and False on a falsy dir or if a trace is already
+    running)."""
     if not profile_dir:
         return False
     import torch
@@ -394,33 +398,35 @@ def start_trace(profile_dir) -> bool:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
         prof.__enter__()
-        _trace_state.update(prof=prof, dir=Path(profile_dir))
+        _trace_state.update(prof=prof, dir=Path(profile_dir), file=file)
     return True
 
 
 def stop_trace() -> Optional[Path]:
     """Stop the running trace and write its chrome trace as
-    ``<profile_dir>/trace.json``; returns that path (None, and falsy, when
-    no trace is active)."""
+    ``<profile_dir>/<file>`` (``trace.json`` unless :func:`start_trace` was
+    given another); returns that path (None, and falsy, when no trace is
+    active)."""
     with _trace_lock:
         if not _trace_state:
             return None
         prof, d = _trace_state["prof"], _trace_state["dir"]
+        file = _trace_state["file"]
         _trace_state.clear()
     import torch
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     prof.__exit__(None, None, None)
     d.mkdir(parents=True, exist_ok=True)
-    path = d / TRACE_FILE
+    path = d / file
     prof.export_chrome_trace(str(path))
     return path
 
 
 @contextlib.contextmanager
-def trace(profile_dir):
+def trace(profile_dir, file: str = TRACE_FILE):
     """Context manager form of start/stop_trace; no-op on a falsy dir."""
-    started = start_trace(profile_dir)
+    started = start_trace(profile_dir, file)
     try:
         yield
     finally:

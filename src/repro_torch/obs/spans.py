@@ -21,12 +21,28 @@ errors: after a body that finished cleanly the span ends, then raises the
 error; after a body that raised, the body's exception wins.
 
 When metrics are disabled the context manager yields a shared no-op span
-and touches nothing.
+and touches nothing. A span pays for what reads it: it enters
+``record_function`` only while a torch profiler is recording, and takes a
+span id only while an exporter is configured (without one the stack
+keeps its path and parent, with no id).
+
+``stage("wm.levels", chunk=0)`` marks a stage of a hot path (the builds'
+steps, the quantile's dispatch) on the same stack, path, parent and
+exporter, with none of a span's other costs: no ``span.*`` histogram (so
+the paths' histogram keys stay the reference's) and never a synchronize.
+With no profiler recording and no exporter configured it returns a shared
+null context after two flag reads. Under a profiler it is a
+``record_function`` range, so the device operations it launches can be
+told apart in the trace (``obs.timeline``); with an exporter it writes a
+``span`` event, so ``launch.obs --tree`` shows it under its span. A stage
+of a per-call path (``export=False``: the quantile's dispatch, whose
+callers export a span a batch already) writes no event and costs an
+exporter's run nothing but the flag reads.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
+import sys
 import threading
 import time
 import uuid
@@ -77,11 +93,11 @@ class Span:
                  "parent_id", "_sync")
 
     def __init__(self, name: str, path: str, attrs: dict,
-                 parent_id: str | None):
+                 parent_id: str | None, exported: bool):
         self.name = name
         self.path = path
         self.attrs = attrs
-        self.span_id = uuid.uuid4().hex[:12]
+        self.span_id = uuid.uuid4().hex[:12] if exported else None
         self.parent_id = parent_id
         self.ts = time.time()
         self.t0 = time.perf_counter()
@@ -112,6 +128,44 @@ class _NullSpan:
 _NULL = _NullSpan()
 
 
+_modules = sys.modules
+_PROFILER = "torch.autograd.profiler"
+
+
+def profiling() -> bool:
+    """Whether a torch profiler is recording: torch's own flag, read without
+    importing torch (no profiler runs before its module is loaded)."""
+    m = _modules.get(_PROFILER)
+    return m is not None and m._is_profiler_enabled
+
+
+def _open(name: str, attrs: dict, exported: bool) -> Span:
+    """A span of ``name`` pushed onto the thread's stack."""
+    st = _stack()
+    parent = st[-1] if st else None
+    sp = Span(name, f"{parent.path}/{name}" if parent else name, attrs,
+              parent.span_id if parent else None, exported)
+    st.append(sp)
+    return sp
+
+
+def _range(name: str):
+    """The profiler's range of ``name`` while one records, else None."""
+    if not profiling():
+        return None
+    import torch
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+def _emit(sp: Span) -> None:
+    """The ``span`` event of a closed span."""
+    _export.emit_event("span", sp.name, ts=sp.ts, dur_s=sp.dur_s,
+                       path=sp.path, span_id=sp.span_id,
+                       parent_id=sp.parent_id, attrs=sp.attrs or None)
+
+
 def current_span() -> Span | None:
     st = _stack()
     return st[-1] if st else None
@@ -129,37 +183,106 @@ def event(name: str, kind: str = "event", **attrs) -> None:
                        attrs=attrs or None)
 
 
-@contextlib.contextmanager
-def span(name: str, **attrs):
-    """Context manager timing a nested, attributed span (see module doc)."""
-    if not _state.enabled:
-        yield _NULL
-        return
-    import torch
-    st = _stack()
-    parent = st[-1] if st else None
-    path = f"{parent.path}/{name}" if parent else name
-    sp = Span(name, path, dict(attrs),
-              parent.span_id if parent else None)
-    st.append(sp)
-    sync_error = None
-    try:
-        with torch.profiler.record_function(name):
-            yield sp
-    finally:
+class _Span:
+    """An open span's context: its ``with`` target is the :class:`Span`."""
+    __slots__ = ("name", "attrs", "exported", "sp", "rf")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name = name
+        self.attrs = attrs
+
+    def __enter__(self) -> Span:
+        self.exported = _export.exporting()
+        self.sp = _open(self.name, self.attrs, self.exported)
+        self.rf = _range(self.name)
+        return self.sp
+
+    def __exit__(self, t, v, tb):
+        sp = self.sp
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+        sync_error = None
         if sp._sync is not None:
             try:
                 wait_for(sp._sync)
             except Exception as e:                            # noqa: BLE001
                 sync_error = e    # a failed computation still ends the span
         sp.dur_s = time.perf_counter() - sp.t0
-        st.pop()
-        histogram("span." + name).observe(sp.dur_s)
-        _export.emit_event("span", name, ts=sp.ts, dur_s=sp.dur_s,
-                           path=sp.path, span_id=sp.span_id,
-                           parent_id=sp.parent_id,
-                           attrs=sp.attrs or None)
-    # the synchronize is where the device raises its asynchronous errors:
-    # one after a clean body is the span's own failure
-    if sync_error is not None:
-        raise sync_error
+        _stack().pop()
+        histogram("span." + self.name).observe(sp.dur_s)
+        if self.exported:
+            _emit(sp)
+        # the synchronize is where the device raises its asynchronous
+        # errors: one after a clean body is the span's own failure; after a
+        # body that raised, the body's exception wins
+        if sync_error is not None and t is None:
+            raise sync_error
+        return False
+
+
+class _NullContext:
+    """Disabled mode's span and stage: enters to ``target``, records
+    nothing."""
+    __slots__ = ("target",)
+
+    def __init__(self, target):
+        self.target = target
+
+    def __enter__(self):
+        return self.target
+
+    def __exit__(self, t, v, tb):
+        return False
+
+
+_NULL_SPAN_CM = _NullContext(_NULL)
+
+
+def span(name: str, **attrs):
+    """Context manager timing a nested, attributed span (see module doc)."""
+    if not _state.enabled:
+        return _NULL_SPAN_CM
+    return _Span(name, attrs)
+
+
+class _Stage:
+    """An open stage: the profiler's range and, while exported, its span
+    on the stack. Its ``with`` target is None: a stage is never synced."""
+    __slots__ = ("name", "attrs", "exported", "rf", "sp")
+
+    def __init__(self, name: str, attrs: dict, exported: bool):
+        self.name = name
+        self.attrs = attrs
+        self.exported = exported
+
+    def __enter__(self):
+        self.sp = (_open(self.name, self.attrs, True) if self.exported
+                   else None)
+        self.rf = _range(self.name)
+        return None
+
+    def __exit__(self, *exc):
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        sp = self.sp
+        if sp is not None:
+            sp.dur_s = time.perf_counter() - sp.t0
+            _stack().pop()
+            _emit(sp)
+        return False
+
+
+_NULL_STAGE = _NullContext(None)
+
+
+def stage(name: str, *, export: bool = True, **attrs):
+    """A stage of a hot path (see module doc): a context manager that
+    records nothing but the profiler's range and, unless ``export`` is
+    False, the exported event, and only while a profiler records or an
+    exporter is configured."""
+    # with nothing reading, the flag reads are the whole cost
+    if _state.enabled:
+        exported = export and _export.exporting()
+        if exported or profiling():
+            return _Stage(name, attrs, exported)
+    return _NULL_STAGE
