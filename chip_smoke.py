@@ -54,7 +54,12 @@
    pointer chase over a buffer the directories' size. The count and
    greedy top-k rows take the front-end's widest bucket (128 queries over
    the 128 full-width shards, every symbol, 6k pops): their launches are
-   step 10b's. Prints the ``phases`` JSON line (the single-row
+   step 10b's. The ``wm_level_move`` row is the level's move mode on the
+   store's own packed keys ((field << 20) | position, the level's bit at
+   TAU - 1 + 20), held against its plain version (the plain level's
+   destinations applied by a scatter); it is counted under
+   ``wm_level_step`` (``counted_as``), so its launches are that
+   counter's. Prints the ``phases`` JSON line (the single-row
    and single-shard forms, the totals count, the reference's two matrix
    phase kernels and the two-launch level they make, ``radix_rank``
    without the starts and its totals count, the reference's two radix
@@ -3298,6 +3303,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.3f} s")
     for src, entry, shared, threads in (
             ("wm_level", "wm_level_scan_info", "static", 256),
+            ("wm_level", "wm_level_move_info", "static", 256),
             ("wt_level", "wt_level_scan_info", "static", 256),
             ("rank_build", "rank_build_levels_info", "static", 512),
             ("radix_rank", "radix_scan_info",
@@ -3312,6 +3318,7 @@ def main() -> None:
     # ---- 3. each kernel against its plain version, ragged shapes -------
     gen = torch.Generator(device=dev).manual_seed(0)
     ragged_err = {k: 0 for k in build.launches}
+    ragged_err["wm_level_move"] = 0      # counted under wm_level_step
 
     def bit_rows(n: int, rows: int) -> torch.Tensor:
         """Random rows plus an all-zero and an all-one row."""
@@ -3375,6 +3382,11 @@ def main() -> None:
             e = max(e, max_abs_err(got, wm_level.wm_level_plain(
                 keys, total, shift, n)))
             e = max(e, max_abs_err(ops.wm_level_step(keys, shift, n), got))
+            ragged_err["wm_level_move"] = max(
+                ragged_err["wm_level_move"], max_abs_err(
+                    twice(lambda: wm_level.wm_level_move(keys, total, shift,
+                                                         n)),
+                    wm_level.wm_level_move_plain(keys, total, shift, n)))
             for r in range(min(rows, 2) if n < 1 << 22 else 0):
                 e = max(e, max_abs_err(tuple(x[r] for x in got),
                                        ref.wm_level_step_ref(keys[r], shift,
@@ -3792,12 +3804,14 @@ def main() -> None:
 
     def report(name, source, replaces, also, got, want, ms, plain_ms,
                nbytes, nops, path="matrix", path_launches=None,
-               library_ms=None, latency_ms=0.0, extra=None):
+               library_ms=None, latency_ms=0.0, extra=None, counted_as=None):
         path_launches = path_launches or launches
+        counted_as = counted_as or name
         bound = bound_ms(nbytes, nops, latency_ms)
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "also_replaces": also, "path": path,
-               "launches": path_launches[name], "max_abs_err": max(
+               "counted_as": counted_as,
+               "launches": path_launches[counted_as], "max_abs_err": max(
                    max_abs_err(got, want), ragged_err[name]),
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
@@ -3812,7 +3826,8 @@ def main() -> None:
         print(f"{name} ({path} path): {ms:.6f} ms{dev_ms} (plain "
               f"{plain_ms:.6f} ms, bound {bound:.6f} ms by {row['bound_by']}"
               f"{' and latency' if latency_ms else ''}{lib}), "
-              f"{path_launches[name]} launches on the {path} path")
+              f"{path_launches[counted_as]} {counted_as} launches on the "
+              f"{path} path")
         kernels.append(row)
 
     size = eng.shard_size
@@ -3846,6 +3861,23 @@ def main() -> None:
            library_ms=cuda_ms(lambda: torch.sort(level_bits, dim=1,
                                                  stable=True), 20))
     del level_bits
+    # the move mode on the store's own packed keys: (field << 20) | position,
+    # the level's bit 20 higher (the build's first level of a chunk)
+    low = max(1, (size - 1).bit_length())
+    packed = (keys << low) | torch.arange(size, dtype=torch.int32, device=dev)
+    got = ops.wm_level_move(packed, TAU - 1 + low, size, totals)
+    report("wm_level_move", "src/repro_torch/kernels/csrc/wm_level.cu",
+           "src/repro/kernels/wm_level.py:132",
+           ["src/repro/kernels/wm_level.py:52",
+            "src/repro/kernels/wm_level.py:166"], got,
+           wm_level.wm_level_move_plain(packed, totals, TAU - 1 + low, size),
+           cuda_ms(lambda: ops.wm_level_move(packed, TAU - 1 + low, size,
+                                             totals), 20),
+           cuda_ms(lambda: wm_level.wm_level_move_plain(
+               packed, totals, TAU - 1 + low, size), 3),
+           packed.numel() * 8 + got[1].numel() * 4 + got[2].numel() * 4,
+           packed.numel() * 24, counted_as="wm_level_step")
+    del packed, got
     probes, sectors = quantile_probes(eng.shards, SHARD_BITS, N_TOKENS, lo_t,
                                       hi_t, k_t)
     print(f"wm_quantile_sharded: {probes} rank probes for {NUM_QUERIES} "
@@ -4314,16 +4346,17 @@ def main() -> None:
     del corpus
     shutil.rmtree(dryrun_dir, ignore_errors=True)
     for row in kernels:
-        row["construction_launches"] = phase_launches[row["name"]]
-        row["index_launches"] = index_launches[row["name"]]
-        row["analytics_launches"] = analytics_launches[row["name"]]
-        row["ingest_launches"] = ingest_launches[row["name"]]
-        row["serving_launches"] = serving_launches[row["name"]]
-        row["frontend_gate_launches"] = gate_launches[row["name"]]
-        row["obs_launches"] = obs_launches[row["name"]]
-        row["lm_launches"] = lm_launches[row["name"]]
-        row["train_launches"] = train_launches[row["name"]]
-        row["dryrun_launches"] = dryrun_launches[row["name"]]
+        key = row["counted_as"]
+        row["construction_launches"] = phase_launches[key]
+        row["index_launches"] = index_launches[key]
+        row["analytics_launches"] = analytics_launches[key]
+        row["ingest_launches"] = ingest_launches[key]
+        row["serving_launches"] = serving_launches[key]
+        row["frontend_gate_launches"] = gate_launches[key]
+        row["obs_launches"] = obs_launches[key]
+        row["lm_launches"] = lm_launches[key]
+        row["train_launches"] = train_launches[key]
+        row["dryrun_launches"] = dryrun_launches[key]
 
     print(json.dumps({"construction": construction}))
     print(json.dumps({"index": index}))

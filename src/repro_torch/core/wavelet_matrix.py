@@ -14,6 +14,16 @@ the rank tables through ``rank_build_levels`` on CUDA tensors; the plain
 path gathers with the select-based ``stable_partition_gather``. Both give
 bit-identical matrices.
 
+On the kernel route a level that moves its keys moves them inside its own
+launch (``ops.wm_level_move``): where the chunk carries the composed
+permutation and the τ-bit field and a position fit one int32 word
+(τ + max(1, ⌈log2 n⌉) ≤ 31), the key is ``(field << idx_bits) | position``
+and the level's bit sits ``idx_bits`` higher; without a carried
+permutation the field moves alone. Where the pair does not fit (e.g. one
+row of 2^27 keys at τ = 8) the level writes its destinations and the field
+and the permutation move by two scatters (``apply_permutation_dest``). The
+shape of the input (n and τ) alone decides; the matrix is the same.
+
 ``fused=False`` (``_build_wavelet_matrix_steps``) and
 ``build_wavelet_matrix_levelwise`` are the reference's baselines: stable
 0/1 partitions by two prefix sums, applied through inverse-permutation
@@ -28,12 +38,14 @@ layout, with one level of all shards per kernel launch.
 
 Counters (the reference's): ``core.build{builder, path}`` a build and
 ``core.level_step{builder=wm, impl=kernel|torch}`` a level of the fused
-build (the reference's ``impl=xla``). Stages of the fused build
-(``obs.stage``): ``wm.zeros`` (the zero totals), ``wm.levels`` (a
-τ-chunk's level steps and applies, attribute ``chunk``), ``wm.compose`` or
-``wm.sort`` (the big step), ``wm.directories``. The reference's
-``core.kernel_guard_trip`` guards jit's batch tracers, which the port does
-not have, and has no counterpart here.
+build (the reference's ``impl=xla``); the port's own
+``core.level_move{builder=wm, form=packed|field|scatter}`` a level of the
+kernel route that moves its keys, by the form it moves them in. Stages of
+the fused build (``obs.stage``): ``wm.zeros`` (the zero totals),
+``wm.levels`` (a τ-chunk's level steps and applies, attribute ``chunk``),
+``wm.compose`` or ``wm.sort`` (the big step), ``wm.directories``. The
+reference's ``core.kernel_guard_trip`` guards jit's batch tracers, which
+the port does not have, and has no counterpart here.
 """
 from __future__ import annotations
 
@@ -146,36 +158,55 @@ def build_wavelet_matrix(seq, sigma: int, tau: int = 8,
         # zeros of all levels once, from the input
         with obs.stage("wm.zeros"):
             level_zeros = ops.wm_level_zeros(order, nbits)
+    idx_bits = max(1, (n - 1).bit_length())      # bits of a position
 
     for alpha0 in range(0, nbits, tau):
         width = min(tau, nbits - alpha0)
+        lo = nbits - alpha0 - width
         last_chunk = alpha0 + width >= nbits
+        # the composed permutation exists only for a compose big step
+        carry = not last_chunk and big_step == "compose"
+        # on the kernel route the permutation rides below the field in one
+        # int32 word where both fit: the key's level bits sit `low` higher
+        low = idx_bits if (use_kernels and carry
+                           and width + idx_bits <= 31) else 0
         with obs.stage("wm.levels", chunk=alpha0 // tau):
-            # the τ-bit field starting alpha0 bits below the top: the short
-            # list
-            fld = bitops.extract_field(order, nbits - alpha0 - width, width)
-            sub = fld.to(torch.int32)
-            # the composed permutation exists only for a compose big step
-            idx = (torch.arange(n, dtype=torch.int32, device=dev)
-                   .expand(rows, n).contiguous()
-                   if not last_chunk and big_step == "compose" else None)
+            idx = None
+            if low:
+                sub = (order >> lo) & ((1 << width) - 1)
+                sub = (sub << low) | torch.arange(n, dtype=torch.int32,
+                                                  device=dev)
+            else:
+                # the τ-bit field starting alpha0 bits below the top: the
+                # short list
+                fld = bitops.extract_field(order, lo, width)
+                sub = fld.to(torch.int32)
+                if carry:
+                    idx = (torch.arange(n, dtype=torch.int32, device=dev)
+                           .expand(rows, n).contiguous())
             for t in range(width):
                 shift = width - 1 - t
                 # movement arranges the next level; at the chunk's final
                 # level only the composed permutation still advances (a
                 # radix or xla big step re-sorts from the chunk-start order)
-                move = (alpha0 + t < nbits - 1) and (t < width - 1
-                                                     or idx is not None)
+                move = (alpha0 + t < nbits - 1) and (t < width - 1 or carry)
                 obs.counter("core.level_step", builder="wm",
                             impl="kernel" if use_kernels else "torch").inc()
-                if use_kernels:
+                if use_kernels and move and idx is None:
+                    # the key carries all that moves: the level moves it
+                    obs.counter("core.level_move", builder="wm",
+                                form="packed" if low else "field").inc()
+                    sub, words, z = ops.wm_level_move(
+                        sub, shift + low, n, level_zeros[:, alpha0 + t])
+                elif use_kernels:
                     dest, words, z = ops.wm_level_step(
                         sub, shift, n, level_zeros[:, alpha0 + t])
                     if move:
+                        obs.counter("core.level_move", builder="wm",
+                                    form="scatter").inc()
                         if t < width - 1:
                             sub = apply_permutation_dest(sub, dest)
-                        if idx is not None:
-                            idx = apply_permutation_dest(idx, dest)
+                        idx = apply_permutation_dest(idx, dest)
                 else:
                     bit = (sub.long() >> shift) & 1
                     words = bitops.pack_bits(bitops.pad_bits(bit))
@@ -191,7 +222,9 @@ def build_wavelet_matrix(seq, sigma: int, tau: int = 8,
         if not last_chunk:
             if big_step == "compose":
                 with obs.stage("wm.compose"):
-                    order = take(order, idx)
+                    # a packed key's position, in place: its field is spent
+                    order = take(order, sub.bitwise_and_((1 << low) - 1)
+                                 if low else idx)
             else:
                 with obs.stage("wm.sort"):
                     order, _ = sort_pass(

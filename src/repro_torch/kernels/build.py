@@ -50,7 +50,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "wm_level_zeros": [_P, _I, _I, _L, _I, _I, _P, _P],
         "wm_level_scan": [_P, _I, _I, _L, _I, _P, _L, _P, _P, _L, _P, _I,
                           _L, _P, _P],
-        "wm_level_scan_info": [_P]},
+        "wm_level_move": [_P, _I, _I, _L, _I, _P, _L, _P, _P, _L, _P, _I,
+                          _L, _P, _P],
+        "wm_level_scan_info": [_P],
+        "wm_level_move_info": [_P]},
     "wm_quantile": {
         "wm_quantile_info": [_P],
         "wm_quantile_sharded": ([_P] * 3 + [_I] + [_P, _L] * 3 + [_I, _P]

@@ -10,6 +10,19 @@
 // of every level of every row once, before its first level (wm_level_zeros),
 // and hands each level its totals.
 //
+// wm_level_move is the same scan in zero_scan.cuh's move mode, for the same
+// Pallas kernel: in place of the destinations it writes the keys themselves
+// to them, the level's stable partition applied inside the launch (staged a
+// warp at a time in shared memory, stored as two runs of consecutive keys).
+// A build moves each level's narrow keys this way, where the composed
+// position rides in the low bits of the same int32 word; no destination
+// array, no scatter and no int64 index reach device memory. Its bound is the
+// dest mode's: 4 B of key in, 4 B of moved key and 1/8 B of bitmap out. At
+// 128 rows of 2^20 keys on the H100 it takes the dest mode's time (0.50 ms
+// against 0.51, 64% of the bound; the dest mode with the two applies a level
+// paid before, 3.29 ms) in 61 registers and 4 resident blocks an SM against
+// the dest mode's 78 and 3 (launch/sweep_level_scan.py --modes).
+//
 // wm_level_zeros: one block per 12,288 keys of a row; each thread adds up
 // the bits of 12 keys at a time in four words of eight 4-bit counters (bit
 // 4f + g of the key in field f of word g), then flushes them into 32 per-bit
@@ -302,6 +315,44 @@ extern "C" int wm_level_zeros(const void* keys, int rows, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+// One matrix level of zero_scan.cuh in one launch: destinations, or with
+// kMove the moved keys, into out.
+template <bool kMove>
+int level_scan(const void* keys, int rows, int n, long long key_stride,
+               int shift, const void* total_zeros, long long total_stride,
+               void* zeros_out, void* out, long long out_stride, void* bitmap,
+               int W, long long bitmap_stride, void* status, void* stream) {
+  zero_scan::Params p{};
+  p.keys = static_cast<const int32_t*>(keys);
+  p.key_stride = key_stride;
+  p.n = n;
+  p.shift = shift;
+  p.tiles_per_row = (n + zero_scan::kTile - 1) / zero_scan::kTile;
+  p.total_zeros = static_cast<const int32_t*>(total_zeros);
+  p.total_stride = total_stride;
+  p.zeros_out = static_cast<int32_t*>(zeros_out);
+  p.dest = static_cast<int32_t*>(out);
+  p.dest_stride = out_stride;
+  p.bitmap = static_cast<int32_t*>(bitmap);
+  p.bitmap_stride = bitmap_stride;
+  p.W = W;
+  p.status = static_cast<unsigned long long*>(status);
+  p.next_tile = reinterpret_cast<unsigned int*>(
+      p.status + static_cast<long long>(rows) * p.tiles_per_row);
+  // the moved keys are stored 4 bytes at a time: only the keys' rows need
+  // 16-byte alignment then
+  const bool vec = reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
+                   (rows == 1 || key_stride % 4 == 0) &&
+                   (kMove || (reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                              (rows == 1 || out_stride % 4 == 0)));
+  return zero_scan::launch<false, kMove>(p, rows, vec,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
 // One level in one launch. total_zeros: (rows,) with stride total_stride,
 // the zeros of each row's level bit; zeros_out: (rows,) the zeros the scan
 // counted; status: rows * ceil(n / 8192) + 1 zeroed 64-bit words, the last
@@ -313,33 +364,33 @@ extern "C" int wm_level_scan(const void* keys, int rows, int n,
                              long long dest_stride, void* bitmap, int W,
                              long long bitmap_stride, void* status,
                              void* stream) {
-  zero_scan::Params p{};
-  p.keys = static_cast<const int32_t*>(keys);
-  p.key_stride = key_stride;
-  p.n = n;
-  p.shift = shift;
-  p.tiles_per_row = (n + zero_scan::kTile - 1) / zero_scan::kTile;
-  p.total_zeros = static_cast<const int32_t*>(total_zeros);
-  p.total_stride = total_stride;
-  p.zeros_out = static_cast<int32_t*>(zeros_out);
-  p.dest = static_cast<int32_t*>(dest);
-  p.dest_stride = dest_stride;
-  p.bitmap = static_cast<int32_t*>(bitmap);
-  p.bitmap_stride = bitmap_stride;
-  p.W = W;
-  p.status = static_cast<unsigned long long*>(status);
-  p.next_tile = reinterpret_cast<unsigned int*>(
-      p.status + static_cast<long long>(rows) * p.tiles_per_row);
-  const bool vec = reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
-                   (rows == 1 || key_stride % 4 == 0) &&
-                   reinterpret_cast<uintptr_t>(dest) % 16 == 0 &&
-                   (rows == 1 || dest_stride % 4 == 0);
-  return zero_scan::launch<false>(p, rows, vec,
-                                  static_cast<cudaStream_t>(stream));
+  return level_scan<false>(keys, rows, n, key_stride, shift, total_zeros,
+                           total_stride, zeros_out, dest, dest_stride, bitmap,
+                           W, bitmap_stride, status, stream);
+}
+
+// wm_level_scan's arguments, with moved: (rows, moved_stride) int32 that
+// receives row r's first n keys in the level's stable partition order; it
+// must not overlap keys.
+extern "C" int wm_level_move(const void* keys, int rows, int n,
+                             long long key_stride, int shift,
+                             const void* total_zeros, long long total_stride,
+                             void* zeros_out, void* moved,
+                             long long moved_stride, void* bitmap, int W,
+                             long long bitmap_stride, void* status,
+                             void* stream) {
+  return level_scan<true>(keys, rows, n, key_stride, shift, total_zeros,
+                          total_stride, zeros_out, moved, moved_stride, bitmap,
+                          W, bitmap_stride, status, stream);
 }
 
 // Registers, static shared bytes, local bytes and resident blocks per SM of
 // wm_level_scan's kernel, into out[0..3].
 extern "C" int wm_level_scan_info(void* out) {
   return zero_scan::info<false>(static_cast<int*>(out));
+}
+
+// The same of wm_level_move's kernel.
+extern "C" int wm_level_move_info(void* out) {
+  return zero_scan::info<false, true>(static_cast<int*>(out));
 }

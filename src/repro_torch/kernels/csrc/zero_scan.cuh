@@ -40,6 +40,20 @@
 //     (look_back.cuh);
 //   - the other warps write the bitmap words while warp 0 looks back; then
 //     every thread stores its 32 destinations as eight 16-byte stores.
+// Move mode (kMove, a matrix level only): the level applies its own stable
+// partition, and no destination reaches device memory. Each warp stages its
+// 1,024 keys in its 4 KB slice of shared memory (32 KB a block), a slab at a
+// time as soon as the slab's ballots give the keys' in-warp ranks: a zero at
+// its rank among the warp's zeros from the slice's start, a one at its rank
+// among the warp's ones from the slice's end, backwards, so that no key
+// waits for the warp's total and a slab's keys die with its ballots, as in
+// the dest mode. After the look-back the warp's zeros are one run of the
+// output from Z(warp_base) on, its ones one run from s1 + warp_base -
+// Z(warp_base) on, and lane j of each of 32 rounds stores key j of the
+// warp's runs: 128 consecutive bytes a store, split only where the zeros
+// end. It serves the same Pallas kernel, repro/kernels/wm_level.py:132
+// wm_level_fused_pallas, whose level returns destinations that the build
+// then applies with a scatter.
 // The tile shape is the fastest of a sweep of (threads, loads per thread)
 // on the H100 (launch/sweep_level_scan.py): larger tiles spread the fixed
 // chain of a block (tile id, loads, look-back, stores) over more keys,
@@ -50,7 +64,8 @@
 // and the tile counter; the kernel allocates nothing.
 //
 // Bound on the H100: bytes. Per key 4 B of key (and 4 B of node id for a
-// tree level) in, 4 B of destination and 1/8 B of bitmap out.
+// tree level) in, 4 B of destination (in move mode: of moved key) and 1/8 B
+// of bitmap out.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -82,7 +97,7 @@ struct Params {
   const int32_t* total_zeros;
   long long total_stride;
   int32_t* zeros_out;
-  int32_t* dest;
+  int32_t* dest;                 // move mode: the moved keys
   long long dest_stride;
   int32_t* bitmap;
   long long bitmap_stride;
@@ -126,7 +141,11 @@ __device__ __forceinline__ unsigned spread4(unsigned x) {
 
 // The ballots of a warp's kSlabs slabs of 128 keys, lane l holding keys
 // 4l..4l+3 of slab s in key[s]: ballot c of a slab has bit l set where key
-// 4l + c is a one. A lane keeps its keys only as their level bits.
+// 4l + c is a one. A lane keeps its keys only as their level bits. With
+// kStage (move mode) it also stages each slab's keys in the warp's slice
+// `stage`: key i of the warp with z zeros before it at z if a zero, at
+// kWarpKeys - 1 - (i - z) if a one. Keys past n are ones, the warp's last,
+// so they take the ones' last places, nearest the zeros.
 struct Ballots {
   unsigned bits[(kSlabs + 7) / 8];     // bit 4 (s % 8) + c of bits[s / 8]
   int zb[kSlabs];                      // zeros of the warp before key 4 lane
@@ -135,8 +154,11 @@ struct Ballots {
                                        // slab s where s % 8 == lane >> 2
 };
 
+template <bool kStage = false>
 __device__ __forceinline__ Ballots ballot_slabs(const int (&key)[kSlabs][4],
-                                                int shift, int lane) {
+                                                int shift, int lane,
+                                                int* __restrict__ stage =
+                                                    nullptr) {
   Ballots w = {};
   const unsigned lt = (1u << lane) - 1u;
 #pragma unroll
@@ -152,6 +174,16 @@ __device__ __forceinline__ Ballots ballot_slabs(const int (&key)[kSlabs][4],
       slab_ones += __popc(ones[c]);
     }
     w.zb[s] = w.zeros + before;
+    if constexpr (kStage) {
+      int z = w.zb[s];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = s * 128 + 4 * lane + c;
+        const int b = (w.bits[s / 8] >> (4 * (s % 8) + c)) & 1u;
+        stage[b ? kWarpKeys - 1 - (i - z) : z] = key[s][c];
+        z += 1 - b;
+      }
+    }
     w.zeros += 128 - slab_ones;
     if ((s % 8) == (lane >> 2)) {
 #pragma unroll
@@ -190,12 +222,29 @@ __device__ __forceinline__ void write_words(
   }
 }
 
-template <bool kTree, bool kVec>
+// Move mode's stores: the first `real` keys of a warp's staged runs, run
+// place j < zeros (stage[j]) to z0 + j and the others (stage[kWarpKeys - 1 -
+// (j - zeros)]) to o0 + j - zeros.
+__device__ __forceinline__ void store_moved(const int* __restrict__ stage,
+                                            int real, int zeros, int z0,
+                                            int o0, int32_t* __restrict__ out,
+                                            int lane) {
+#pragma unroll 8
+  for (int j = lane; j < kWarpKeys; j += 32) {
+    if (j < real)
+      out[j < zeros ? z0 + j : o0 + j - zeros] =
+          stage[j < zeros ? j : kWarpKeys - 1 - (j - zeros)];
+  }
+}
+
+template <bool kTree, bool kVec, bool kMove = false>
 __global__ void __launch_bounds__(kThreads)
     zero_scan_kernel(const Params p) {
+  static_assert(!(kTree && kMove), "the move mode is a matrix level's");
   __shared__ int s_tile, s_excl;
   __shared__ int s_warp_zeros[kWarps];
   __shared__ int s_table[kTree ? 3 * kMaxNodes : 1];
+  __shared__ int s_stage[kMove ? kTile : 1];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(p.next_tile, 1u));
   __syncthreads();
@@ -231,7 +280,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // ballots per slab and key slot: the in-warp zero counts and the bitmap
-  const Ballots bal = ballot_slabs(key, p.shift, lane);
+  const Ballots bal = ballot_slabs<kMove>(
+      key, p.shift, lane, kMove ? s_stage + warp * kWarpKeys : nullptr);
   if (lane == 0) s_warp_zeros[warp] = bal.zeros;
   __syncthreads();
   int warp_excl = 0, agg = 0;
@@ -261,6 +311,13 @@ __global__ void __launch_bounds__(kThreads)
   if constexpr (!kTree) s1 = p.total_zeros[row * p.total_stride];
   const int zbase = s_excl + warp_excl;
   int32_t* drow = p.dest + row * p.dest_stride;
+  if constexpr (kMove) {
+    // the warp's zeros from Z(warp_base), its ones from the row's ones before
+    // warp_base on
+    store_moved(s_stage + warp * kWarpKeys, min(kWarpKeys, p.n - warp_base),
+                bal.zeros, zbase, s1 + warp_base - zbase, drow, lane);
+    return;
+  }
 #pragma unroll
   for (int s = 0; s < kSlabs; ++s) {
     const int i0 = warp_base + s * 128 + 4 * lane;
@@ -284,8 +341,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The one-node (matrix) or table (tree) scan over `rows` rows. `vec`: every
-// row of keys, node ids and destinations starts 16-byte aligned.
-template <bool kTree>
+// row of keys, node ids and destinations (not the moved keys: their stores
+// are 4-byte) starts 16-byte aligned.
+template <bool kTree, bool kMove = false>
 int launch(const Params& p, int rows, bool vec, cudaStream_t stream) {
   const long long tiles = static_cast<long long>(rows) * p.tiles_per_row;
   if (tiles > 0x7fffffffLL ||
@@ -296,23 +354,24 @@ int launch(const Params& p, int rows, bool vec, cudaStream_t stream) {
   if (tiles > 0) {
     const unsigned grid = static_cast<unsigned>(tiles);
     if (vec)
-      zero_scan_kernel<kTree, true><<<grid, kThreads, 0, stream>>>(p);
+      zero_scan_kernel<kTree, true, kMove><<<grid, kThreads, 0, stream>>>(p);
     else
-      zero_scan_kernel<kTree, false><<<grid, kThreads, 0, stream>>>(p);
+      zero_scan_kernel<kTree, false, kMove><<<grid, kThreads, 0, stream>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Registers, static shared bytes, local bytes and resident blocks per SM of
 // the vectorised kernel, into out[0..3].
-template <bool kTree>
+template <bool kTree, bool kMove = false>
 int info(int* out) {
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, zero_scan_kernel<kTree, true>);
+  cudaError_t err =
+      cudaFuncGetAttributes(&a, zero_scan_kernel<kTree, true, kMove>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, zero_scan_kernel<kTree, true>, kThreads, 0);
+      &blocks, zero_scan_kernel<kTree, true, kMove>, kThreads, 0);
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.sharedSizeBytes);
   out[2] = static_cast<int>(a.localSizeBytes);

@@ -40,13 +40,14 @@ from . import wt_level as _wt_level
 #: launch, then the level) and ``radix_rank`` without bucket starts (the
 #: totals launch, then the scan); the one-launch level with its totals
 #: given traces as ``wm_level_step_fused``, the reference's name for its
-#: one-pass level.
+#: one-pass level, and the level that moves its keys as ``wm_level_move``.
 TRACE_LAUNCHES = {"bitpack": ("bitpack", 1, 1),
                   "rank_build": ("rank_build_levels", 1, 1),
                   "rank_build_levels": ("rank_build_levels", 1, 1),
                   "wm_level_zeros": ("wm_level_step", 1, 1),
                   "wm_level_step_fused": ("wm_level_step", 1, 1),
                   "wm_level_step": ("wm_level_step", 2, 2),
+                  "wm_level_move": ("wm_level_step", 1, 1),
                   "wt_level_step_fused": ("wt_level_step", 1, 1),
                   "radix_rank": ("radix_rank", 1, 2),
                   "wm_quantile_sharded_batch": ("wm_quantile_sharded", 1, 1),
@@ -206,6 +207,26 @@ def wm_level_step(sub: torch.Tensor, shift: int, n: int,
                    + zeros.numel() * 4, keys.numel() * 24)
     lead = sub.shape[:-1]
     return (dest.reshape(lead + (n,)), bitmap.reshape(lead + (-1,)),
+            zeros.reshape(lead))
+
+
+def wm_level_move(sub: torch.Tensor, shift: int, n: int,
+                  total_zeros: torch.Tensor):
+    """One wavelet-matrix level that moves its keys ``sub`` (n,) or (R, n):
+    :func:`wm_level_step` with the totals, whose destinations the launch
+    applies itself. Returns (moved keys (…, n) int32, each row the level's
+    stable 0/1 partition of its keys by bit ``shift``, bitmap (…,
+    ceil(n/32)) int32, total_zeros (…,) int32 as the level counted them).
+    One launch, counted under ``wm_level_step``."""
+    keys = _rows(sub)
+    _trace("wm_level_move", sub)
+    _work_gauges("wm_level_move", keys.numel(), bits=keys.numel())
+    total = total_zeros.reshape(keys.shape[0]).to(torch.int32)
+    moved, bitmap, zeros = _wm_level.wm_level_move(keys, total, shift, n)
+    _prof.add_work(keys.numel() * 8 + bitmap.numel() * 4
+                   + zeros.numel() * 4, keys.numel() * 24)
+    lead = sub.shape[:-1]
+    return (moved.reshape(lead + (n,)), bitmap.reshape(lead + (-1,)),
             zeros.reshape(lead))
 
 

@@ -11,6 +11,12 @@ first level (:func:`wm_level_zeros`, one launch over its input). Bound on
 the H100 by bytes: 4 B of key in, 4 B of destination and 1/8 B of bitmap
 out per key.
 
+:func:`wm_level_move` is the same launch in the scan's move mode
+(``wm_level_move``): it writes each key to its destination instead of the
+destination, so a build moves a level's keys without a destination array,
+a scatter or an int64 index. Its bound is the dest mode's, with 4 B of
+moved key in place of the destination.
+
 ``wm_counts`` and ``wm_apply`` are the counterparts of the reference's two
 phase kernels ``wm_counts_pallas`` and ``wm_apply_pallas``; no build calls
 them. In both a warp owns one block of ``BLOCK`` keys, read with the zero
@@ -90,6 +96,16 @@ def wm_level_plain(keys: torch.Tensor, total_zeros: torch.Tensor,
     dest, bitmap = wm_apply_plain(keys, (incl - counts).to(torch.int32),
                                   total_zeros, shift, n)
     return dest, bitmap, incl[:, -1].to(torch.int32)
+
+
+def wm_level_move_plain(keys: torch.Tensor, total_zeros: torch.Tensor,
+                        shift: int, n: int):
+    """(moved keys (R, n), bitmap (R, ceil(n/32)), counted zeros (R,))
+    int32: :func:`wm_level_plain`'s destinations applied to the first n keys
+    of each row by a scatter."""
+    dest, bitmap, zeros = wm_level_plain(keys, total_zeros, shift, n)
+    k = keys[:, :n]
+    return torch.empty_like(k).scatter_(1, dest.long(), k), bitmap, zeros
 
 
 def _check_keys(keys: torch.Tensor, shift: int, n: int) -> None:
@@ -182,6 +198,27 @@ def wm_level_zeros(keys: torch.Tensor, lo: int, width: int,
     return out
 
 
+def _level_scan(entry: str, keys: torch.Tensor, total_zeros: torch.Tensor,
+                shift: int, n: int):
+    """One launch of the C entry ``entry`` (``wm_level_scan`` or
+    ``wm_level_move``) on CUDA tensors: (out (R, n), bitmap, zeros)."""
+    rows, W = keys.shape[0], bitops.num_words(n)
+    tiles = rows * ((n + TILE - 1) // TILE)
+    status = torch.zeros(tiles + 1, dtype=torch.int64, device=keys.device)
+    out = torch.empty((rows, n), dtype=torch.int32, device=keys.device)
+    bitmap = torch.empty((rows, W), dtype=torch.int32, device=keys.device)
+    zeros = torch.empty(rows, dtype=torch.int32, device=keys.device)
+    lib = build.library("wm_level")
+    err = getattr(lib, entry)(keys.data_ptr(), rows, n, keys.stride(0), shift,
+                              total_zeros.data_ptr(), total_zeros.stride(0),
+                              zeros.data_ptr(), out.data_ptr(), out.stride(0),
+                              bitmap.data_ptr(), W, bitmap.stride(0),
+                              status.data_ptr(), build.stream(keys.device))
+    build.count_launch("wm_level_step")
+    build.check(lib, err, entry)
+    return out, bitmap, zeros
+
+
 def wm_level(keys: torch.Tensor, total_zeros: torch.Tensor, shift: int,
              n: int):
     """One level given each row's total zeros (R,) int32 (any stride):
@@ -192,19 +229,20 @@ def wm_level(keys: torch.Tensor, total_zeros: torch.Tensor, shift: int,
     _check_totals(total_zeros, keys)
     if keys.device.type == "cpu":
         return wm_level_plain(keys, total_zeros, shift, n)
-    rows, W = keys.shape[0], bitops.num_words(n)
-    tiles = rows * ((n + TILE - 1) // TILE)
-    status = torch.zeros(tiles + 1, dtype=torch.int64, device=keys.device)
-    dest = torch.empty((rows, n), dtype=torch.int32, device=keys.device)
-    bitmap = torch.empty((rows, W), dtype=torch.int32, device=keys.device)
-    zeros = torch.empty(rows, dtype=torch.int32, device=keys.device)
-    lib = build.library("wm_level")
-    err = lib.wm_level_scan(keys.data_ptr(), rows, n, keys.stride(0), shift,
-                            total_zeros.data_ptr(), total_zeros.stride(0),
-                            zeros.data_ptr(), dest.data_ptr(), dest.stride(0),
-                            bitmap.data_ptr(), W, bitmap.stride(0),
-                            status.data_ptr(),
-                            build.stream(keys.device))
-    build.count_launch("wm_level_step")
-    build.check(lib, err, "wm_level_scan")
-    return dest, bitmap, zeros
+    return _level_scan("wm_level_scan", keys, total_zeros, shift, n)
+
+
+def wm_level_move(keys: torch.Tensor, total_zeros: torch.Tensor, shift: int,
+                  n: int):
+    """One level that moves its own keys, given each row's total zeros
+    (R,) int32 (any stride): (moved keys (R, n), bitmap (R, ceil(n/32)),
+    the zeros the level counted (R,)) int32, row r of the moved keys the
+    level's stable 0/1 partition of the first n keys of row r. One launch
+    of the zero scan's move mode for a CUDA tensor, into a new array (the
+    caller drops its input, whose memory the next level's output takes),
+    else the plain version."""
+    _check_keys(keys, shift, n)
+    _check_totals(total_zeros, keys)
+    if keys.device.type == "cpu":
+        return wm_level_move_plain(keys, total_zeros, shift, n)
+    return _level_scan("wm_level_move", keys, total_zeros, shift, n)

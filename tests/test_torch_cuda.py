@@ -566,6 +566,106 @@ def test_wm_level_scan_matches_plain(n, rows, strided):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(128, 1 << 20), (128, (1 << 20) + 1),
+                                    (3, 8191), (1, 5)])
+def test_wm_level_move_matches_plain(rows, n):
+    """The move mode against its plain version on keys packed as a build
+    packs them (an 8-bit field above the position, an all-zero field in row
+    0), at the field's bits and below them. Rows of 2^20 + 1 (the index's
+    BWT rows) and a view off 16-byte alignment take the 4-byte loads."""
+    dev = _card()
+    low = max(1, (n - 1).bit_length())
+    gen = torch.Generator(device=dev).manual_seed(rows * n)
+    fld = torch.randint(0, 256, (rows, n), generator=gen, device=dev,
+                        dtype=torch.int32)
+    fld[0] = 0
+    wide = torch.empty((rows, n + 1), dtype=torch.int32, device=dev)
+    wide[:, 1:] = (fld << low) | torch.arange(n, dtype=torch.int32,
+                                              device=dev)
+    for keys in (wide[:, 1:].contiguous(), wide[:, 1:]):
+        for shift in (0, low, low + 3, low + 7):
+            total = wm_level.wm_level_zeros(keys, shift, 1, n)[:, 0]
+            got = _twice(lambda: wm_level.wm_level_move(keys, total, shift,
+                                                        n))
+            want = wm_level.wm_level_move_plain(keys, total, shift, n)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            assert all(torch.equal(g, w) for g, w in zip(
+                ops.wm_level_move(keys, shift, n, total), got))
+
+
+#: three builds at the store's settings under the profiler, in a process of
+#: their own: a profiler session can cost a later session of the same
+#: process its first kernel records
+_PROFILED_BUILDS = """
+import json, sys
+import numpy as np
+import torch
+from repro_torch import obs
+from repro_torch.core.wavelet_matrix import build_wavelet_matrix
+from repro_torch.kernels import build
+from repro_torch.tree import tree_named_leaves
+
+seq = torch.from_numpy(np.random.default_rng(7).integers(
+    0, 151_936, (16, 1 << 16)).astype(np.int32)).cuda()
+want = tree_named_leaves(build_wavelet_matrix(seq, 151_936))
+torch.cuda.synchronize()
+build.reset_launches()
+obs.REGISTRY.reset()
+acts = [torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]
+with torch.profiler.profile(activities=acts) as prof:
+    got = [tree_named_leaves(build_wavelet_matrix(seq, 151_936))
+           for _ in range(3)]
+    torch.cuda.synchronize()
+prof.export_chrome_trace(sys.argv[1])
+kernels = [e["name"] for e in json.load(open(sys.argv[1]))["traceEvents"]
+           if e.get("cat") == "kernel"]
+print(json.dumps({
+    "launches": build.launches["wm_level_step"],
+    "moves": {k: v for k, v in obs.REGISTRY.snapshot()["counters"].items()
+              if k.startswith("core.level_move")},
+    "kernels": [k for k in kernels if "wm_level" in k or "zero_scan" in k],
+    "equal": all(g.keys() == want.keys()
+                 and all(torch.equal(g[k], want[k]) for k in want)
+                 for g in got)}))
+"""
+
+
+@pytest.mark.cuda
+def test_matrix_build_levels_launch_as_zero_scan_kernels(tmp_path):
+    """Three builds at the store's settings (σ = 151,936, τ = 8, compose)
+    of 16 rows of 2^16 under the profiler: 19 ``wm_level_step`` launches a
+    build (18 levels and the totals count), 16 levels moving the packed
+    (field, position) key and 1 the field alone, every level a kernel whose
+    name holds ``zero_scan_kernel`` (the name the benchmark counts the level
+    scans by), and the same matrix each time. Up to two of the session's
+    first kernel records may be missing."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import repro_torch
+    _card()
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    run = subprocess.run([sys.executable, "-c", _PROFILED_BUILDS,
+                          str(tmp_path / "trace.json")], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    assert out["launches"] == 3 * 19 and out["equal"]
+    assert out["moves"] == {"core.level_move{builder=wm,form=packed}": 48,
+                            "core.level_move{builder=wm,form=field}": 3}
+    levels = [k for k in out["kernels"] if "zero_scan_kernel" in k]
+    assert all("zero_scan_kernel" in k or "wm_level_zeros_kernel" in k
+               for k in out["kernels"])
+    assert 3 * 18 - 2 <= len(levels) <= 3 * 18
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 12_289, 70_001])
 def test_wm_level_zeros_matches_plain(n):
     dev = _card()

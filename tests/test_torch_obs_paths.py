@@ -141,10 +141,13 @@ _BUILDS = {
 
 #: counters the port's kernel route adds: the matrix build counts every
 #: level's zeros in one launch of its own (the reference's fused level
-#: counts them inside its level kernel), and the engine's counts and greedy
-#: top-k run on kernels of the port's own (the reference runs them as XLA
-#: loops)
+#: counts them inside its level kernel) and moves a level's keys inside the
+#: level's launch (the reference scatters them), and the engine's counts
+#: and greedy top-k run on kernels of the port's own (the reference runs
+#: them as XLA loops)
 PORT_ONLY = {"kernels.trace{op=wm_level_zeros,route=plain}",
+             "kernels.trace{op=wm_level_move,route=plain}",
+             "core.level_move{builder=wm,form=field}",
              "kernels.trace{op=wm_count,route=plain}",
              "kernels.trace{op=topk_greedy,route=plain}"}
 
